@@ -6,18 +6,32 @@ one NVIDIA GPU.
 
 Phases, each fatal on failure:
 
-1. build both kernels from ``multimodal_idbn_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, all started together;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the flagship path, and time kernel, plain version and (for
-   the half-step) the one-call library yardstick ``addmm`` + ``sigmoid``;
+1. build both kernel sources from ``multimodal_idbn_tpu_torch/csrc`` with
+   nvcc for sm_90a, one nvcc per source, all started together;
+2. hold each of the four kernels against its plain PyTorch version on the
+   card, at the shapes of the flagship and the bimodal paths, and time
+   kernel, plain version and, for the half-steps, the one-call library
+   yardstick ``addmm`` + ``sigmoid``:
+   - the sampled half-step at every layer shape of both paths,
+   - the probs-only and the resident sampled half-steps at
+     [128,1568]·[1568,500] and [128,2500]·[2500,1500],
+   - the chain at the flagship joint (532×500) and at the bimodal joint
+     layer 0 (2500×1500, batch 128 and the ragged remainder of 12);
 3. the RBM learns: ``RBM(64, 32)`` on noisy bars through the fused CD
    path; reconstruction MSE must drop by more than 2x;
-4. the main path at full width: ``train_multimodal`` on the flagship YAML
-   with every width and step count kept and only ``n_samples`` (384),
-   ``epochs_image`` (1) and ``epochs_joint`` (9: 8 warm-up + 1 main) cut.
-   The launch counts are reset just before and read just after; both
-   kernels must have launched, and every parameter must be finite.
+4. the two training paths at full width, each a shipped YAML with every
+   width and step count kept and only the scale cut
+   (``multimodal_idbn_tpu_torch.cuts``): flagship-cut through
+   ``train_multimodal``, then bimodal-cut through ``train_bimodal``. The
+   launch counts are reset just before each path and read just after; the
+   sampled half-step and the chain must have launched, every parameter
+   must be finite and every weight of the expected shape;
+5. the resident drive: the probs-only and the resident sampled half-steps
+   through their public functions (``half_step.hidden_probs_kernel``,
+   ``half_step.half_step_sample_resident``) on the trained bimodal model,
+   encoding MOD2 images and the joint input of one batch, with the counts
+   reset just before and read just after. No training path calls these
+   two, as in the JAX package, where only tests call their TPU kernels.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -28,6 +42,7 @@ package beside it.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -36,7 +51,6 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-FLAGSHIP_YAML = ROOT / "configs" / "multimodal_training_config.yaml"
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth. bound_ms is computed from them.
@@ -46,11 +60,12 @@ PEAK_HBM_BYTES = 3.35e12
 # Tolerances, stated before measuring:
 # - half-step probs: fp32 sums of up to 10000 terms in another order than
 #   cuBLAS, through a sigmoid (slope <= 1/4);
-# - a sample may differ only where |p - u| is within that tolerance;
+# - a sample may differ only where |p - u| is within that tolerance; the
+#   resident sampled half-step must show no flip at all;
 # - chains: 30-50 dependent steps of the same arithmetic; the noise
 #   normals use the card's and the CPU library's logf/cosf (a few ulps).
-TOL_HALF_STEP = 1e-4
-TOL_CHAIN = 1e-4
+TOL_HALF_STEP = 1e-5
+TOL_CHAIN = 1e-5
 
 
 def log(msg: str) -> None:
@@ -93,23 +108,59 @@ def build_kernels():
                     log(f"[build] {lib.source.name}: {line.strip()}")
 
 
-def check_half_step(dev):
-    """Kernel 1 in both directions of both image layers."""
+def reset_launches():
+    from multimodal_idbn_tpu_torch.ops import chain, half_step
+    half_step.KERNEL.reset_launches()
+    chain.KERNEL.reset_launches()
+
+
+def read_launches():
+    """Launches of each kernel entry since the last reset."""
+    from multimodal_idbn_tpu_torch.ops import chain, half_step
+    out = dict(half_step.KERNEL.launches_by_entry)
+    out["chain_run"] = chain.KERNEL.launches
+    return out
+
+
+def half_step_inputs(g, dev, B, K, N, transpose, density):
     import torch
-    from multimodal_idbn_tpu_torch.ops import half_step, rng
+    V, H = (N, K) if transpose else (K, N)
+    w = (torch.randn((V, H), generator=g) / V ** 0.5).to(dev)
+    b = (0.1 * torch.randn((N,), generator=g)).to(dev)
+    x = (torch.rand((B, K), generator=g) < density).float().to(dev)
+    return x, w, b
+
+
+def sample_flips(p_plain, s_k, s_p, seed):
+    """(all flips, flips outside the tolerance band |p - u| <= tol)."""
+    from multimodal_idbn_tpu_torch.ops import rng
+    u = rng.philox_uniform(seed, s_k.shape[0], s_k.shape[1],
+                           device=s_k.device)
+    flips = s_k != s_p
+    return int(flips.sum()), int((flips & ((p_plain - u).abs()
+                                           > TOL_HALF_STEP)).sum())
+
+
+def check_half_step(dev):
+    """Kernel 1 in both directions of every layer shape of both paths."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import half_step
     g = torch.Generator().manual_seed(0)
     B = 128
     rows = []
-    main = None
     for name, (K, N, transpose, density) in {
-            "L1 v->h": (10000, 1500, False, 0.15),
-            "L1 h->v": (1500, 10000, True, 0.5),
-            "L2 v->h": (1500, 500, False, 0.5),
-            "L2 h->v": (500, 1500, True, 0.5)}.items():
-        V, H = (N, K) if transpose else (K, N)
-        w = (torch.randn((V, H), generator=g) / V ** 0.5).to(dev)
-        b = (0.1 * torch.randn((N,), generator=g)).to(dev)
-        x = (torch.rand((B, K), generator=g) < density).float().to(dev)
+            "flagship L1 v->h": (10000, 1500, False, 0.15),
+            "flagship L1 h->v": (1500, 10000, True, 0.5),
+            "flagship L2 v->h": (1500, 500, False, 0.5),
+            "flagship L2 h->v": (500, 1500, True, 0.5),
+            "mod1 L2 v->h": (1500, 1500, False, 0.5),
+            "mod1 L2 h->v": (1500, 1500, True, 0.5),
+            "mod2 L1 v->h": (1568, 500, False, 0.2),
+            "mod2 L1 h->v": (500, 1568, True, 0.5),
+            "mod2 L2 v->h": (500, 500, False, 0.5),
+            "mod2 L3 v->h": (500, 1000, False, 0.5),
+            "mod2 L3 h->v": (1000, 500, True, 0.5)}.items():
+        x, w, b = half_step_inputs(g, dev, B, K, N, transpose, density)
         seed = 0x1234_5678_9ABC_DEF0 + len(rows)
         p_k, s_k = half_step.half_step_sample(x, w, b, seed,
                                               transpose_w=transpose)
@@ -117,12 +168,9 @@ def check_half_step(dev):
                                              transpose_w=transpose)
         torch.cuda.synchronize()
         err = float((p_k - p_p).abs().max())
-        u = rng.philox_uniform(seed, B, N, device=dev)
-        flips = s_k != s_p
-        near = (p_p - u).abs() <= TOL_HALF_STEP
-        bad = int((flips & ~near).sum())
+        flips, bad = sample_flips(p_p, s_k, s_p, seed)
         log(f"[half_step] {name} [{B},{K}]x[{K},{N}]: max|dp| {err:.3e}, "
-            f"sample flips {int(flips.sum())} (outside tol: {bad})")
+            f"sample flips {flips} (outside tol: {bad})")
         if not err <= TOL_HALF_STEP or bad:
             raise AssertionError(f"half_step {name} disagrees with plain")
         ms = time_ms(lambda: half_step.half_step_sample(
@@ -133,60 +181,125 @@ def check_half_step(dev):
         lib_ms = time_ms(lambda: torch.sigmoid(torch.addmm(b, x, wm)), 20)
         bms, by = bound_ms(2.0 * B * K * N,
                            4.0 * (B * K + K * N + N + 2 * B * N))
-        row = dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        rows.append(dict(shape=name, max_abs_err=err, sample_flips=flips,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by))
         log(f"[half_step] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms, addmm+sigmoid {lib_ms:.4f} ms, bound {bms:.4f} ms "
             f"({by})")
-        rows.append(row)
-        if main is None:
-            main = row
-    return main, rows
+    return rows[0], rows
 
 
-def joint_inputs(dev, B=128, Dz=500, K=32, H=500):
+def check_resident(dev):
+    """Kernels 3 (probs only) and 4 (resident sampled) at the two shapes
+    of the bimodal path under the TPU kernels' VMEM ceiling."""
     import torch
-    g = torch.Generator().manual_seed(1)
-    V = Dz + K
-    w = (torch.randn((V, H), generator=g) / V ** 0.5).to(dev)
-    hb = (0.1 * torch.randn((H,), generator=g)).to(dev)
-    vb = (0.1 * torch.randn((V,), generator=g)).to(dev)
-    z = torch.rand((B, Dz), generator=g).to(dev)
-    y = torch.nn.functional.one_hot(
-        torch.randint(0, K, (B,), generator=g), K).float().to(dev)
-    mu = torch.rand((B, Dz), generator=g).to(dev)
-    u = torch.rand((B, V), generator=g).to(dev)
-    return dict(w=w, hb=hb, vb=vb, z=z, y=y, mu=mu, u=u, Dz=Dz, K=K)
+    from multimodal_idbn_tpu_torch.ops import half_step
+    g = torch.Generator().manual_seed(2)
+    B = 128
+    rows = {"half_step_probs": [], "half_step_sample_resident": []}
+    for name, (K, N, density) in {
+            "mod2 L1 [128,1568]x[1568,500]": (1568, 500, 0.2),
+            "joint L0 [128,2500]x[2500,1500]": (2500, 1500, 0.5)}.items():
+        x, w, b = half_step_inputs(g, dev, B, K, N, False, density)
+        seed = -0x1234_5678 + len(rows["half_step_probs"])
+        lib_ms = time_ms(lambda: torch.sigmoid(torch.addmm(b, x, w)), 20)
+        flops = 2.0 * B * K * N
+
+        p_k = half_step.half_step_probs(x, w, b)
+        p_p = half_step.half_step_probs_plain(x, w, b)
+        torch.cuda.synchronize()
+        err = float((p_k - p_p).abs().max())
+        log(f"[half_step_probs] {name}: max|dp| {err:.3e}")
+        if not err <= TOL_HALF_STEP:
+            raise AssertionError(f"half_step_probs {name} disagrees")
+        ms = time_ms(lambda: half_step.half_step_probs(x, w, b), 20)
+        plain_ms = time_ms(lambda: half_step.half_step_probs_plain(x, w, b),
+                           20)
+        bms, by = bound_ms(flops, 4.0 * (B * K + K * N + N + B * N))
+        rows["half_step_probs"].append(dict(
+            shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        log(f"[half_step_probs] {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, addmm+sigmoid {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+
+        p_k, s_k = half_step.half_step_sample_resident(x, w, b, seed)
+        p_p, s_p = half_step.half_step_sample_resident_plain(x, w, b, seed)
+        torch.cuda.synchronize()
+        err = float((p_k - p_p).abs().max())
+        flips = int((s_k != s_p).sum())
+        log(f"[half_step_sample_resident] {name}: max|dp| {err:.3e}, "
+            f"sample flips {flips}")
+        if not err <= TOL_HALF_STEP or flips:
+            raise AssertionError(f"half_step_sample_resident {name} "
+                                 f"disagrees with plain")
+        ms = time_ms(lambda: half_step.half_step_sample_resident(
+            x, w, b, seed), 20)
+        plain_ms = time_ms(lambda: half_step.half_step_sample_resident_plain(
+            x, w, b, seed), 10)
+        bms, by = bound_ms(flops, 4.0 * (B * K + K * N + N + 2 * B * N))
+        rows["half_step_sample_resident"].append(dict(
+            shape=name, max_abs_err=err, sample_flips=flips, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        log(f"[half_step_sample_resident] {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, addmm+sigmoid {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    return rows
+
+
+def chain_inputs(dev, B, V, H, Dz, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return dict(
+        w=(torch.randn((V, H), generator=g) / V ** 0.5).to(dev),
+        hb=(0.1 * torch.randn((H,), generator=g)).to(dev),
+        vb=(0.1 * torch.randn((V,), generator=g)).to(dev),
+        z=torch.rand((B, V), generator=g).to(dev),
+        mu=torch.rand((B, Dz), generator=g).to(dev),
+        u=torch.rand((B, V), generator=g).to(dev))
 
 
 def check_chain(dev):
-    """Kernel 2, both families, 30 and 50 steps, flagship joint shapes."""
+    """Kernel 2: both families at the flagship joint (532×500, a 32-wide
+    label group), and the aux-CD init of the bimodal joint layer 0
+    (2500×1500, no group) at batch 128 and at the remainder of 12."""
     import torch
     from multimodal_idbn_tpu_torch.ops import chain, rbm_ops
-    j = joint_inputs(dev)
-    B, Dz, K = j["z"].shape[0], j["Dz"], j["K"]
-    V, H = j["w"].shape
-    groups = ((Dz, Dz + K),)
-    ones_z, zeros_k = torch.ones((B, Dz), device=dev), torch.zeros(
-        (B, K), device=dev)
-    km_z = torch.cat([ones_z, zeros_k], 1)
+    aux_sched = rbm_ops.annealed_schedule(30, 3.0, 1.0, 0.9, 2, 0.9, 0.15)
     cases = []
+    # flagship: z (first 500) and y (last 32, one-hot) blocks
+    B, Dz, K = 128, 500, 32
+    j = chain_inputs(dev, B, Dz + K, 500, Dz, 1)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, K, (B,), generator=torch.Generator().manual_seed(1)),
+        K).float().to(dev)
+    km_z = torch.cat([torch.ones((B, Dz), device=dev),
+                      torch.zeros((B, K), device=dev)], 1)
+    vk_z = torch.cat([j["z"][:, :Dz], torch.zeros((B, K), device=dev)], 1)
+    vk_y = torch.cat([torch.zeros((B, Dz), device=dev), y], 1)
+    groups = ((Dz, Dz + K),)
     for n in (30, 50):
-        # IMG→TXT family: z clamped, T=1, final unclamped pass
-        vk = torch.cat([j["z"], zeros_k], 1)
-        cases.append((f"mean-field {n} steps", vk, km_z,
-                      torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1),
-                      None, None, True))
-    vk_y = torch.cat([torch.zeros((B, Dz), device=dev), j["y"]], 1)
-    # aux-CD init (sharpen_last=2, no μ) and TXT→IMG (μ-pull)
-    cases.append(("noisy 30 steps", vk_y, 1.0 - km_z,
-                  rbm_ops.annealed_schedule(30, 3.0, 1.0, 0.9, 2, 0.9,
-                                            0.15), None, 0xC0FFEE, False))
-    cases.append(("noisy 50 steps + mu", vk_y, 1.0 - km_z,
+        cases.append((f"flagship mean-field {n} steps", j, vk_z, km_z,
+                      torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1), groups,
+                      None, None, True, False))
+    cases.append(("flagship noisy 30 steps", j, vk_y, 1.0 - km_z, aux_sched,
+                  groups, None, 0xC0FFEE, False, False))
+    cases.append(("flagship noisy 50 steps + mu", j, vk_y, 1.0 - km_z,
                   rbm_ops.annealed_schedule(50, 3.0, 1.0, 0.9, 3, 0.9,
-                                            0.15), j["mu"], 0xBEEF, False))
-    main = None
-    for name, vk, km, sched, mu, seed, final in cases:
+                                            0.15), groups, j["mu"], 0xBEEF,
+                  False, True))
+    # bimodal joint layer 0: [z_mod1 (1500) ⊕ z_mod2 (1000)], mod1 clamped
+    for Bb in (128, 12):
+        jb = chain_inputs(dev, Bb, 2500, 1500, 1500, 3)
+        km1 = torch.cat([torch.ones((Bb, 1500), device=dev),
+                         torch.zeros((Bb, 1000), device=dev)], 1)
+        cases.append((f"bimodal noisy 30 steps B={Bb}", jb, jb["z"] * km1,
+                      km1, aux_sched, (), None, 0xFACE, False, Bb == 128))
+    rows = []
+    for name, j, vk, km, sched, groups, mu, seed, final, timed in cases:
+        Bc, V = vk.shape
+        H = j["w"].shape[1]
         v0 = vk * km + (1.0 - km) * j["u"]
         args = (j["w"], j["hb"], j["vb"], v0, vk, km, sched)
         kw = dict(groups=groups, mu=mu, seed=seed, final_unclamped=final)
@@ -198,19 +311,20 @@ def check_chain(dev):
         log(f"[chain] {name}: max|dv| {err:.3e}")
         if not (finite and err <= TOL_CHAIN):
             raise AssertionError(f"chain {name} disagrees with plain")
-        if mu is not None:
+        if timed:
             n = sched.shape[0]
-            ms = time_ms(lambda: chain.clamped_chain(*args, **kw), 10)
+            ms = time_ms(lambda: chain.clamped_chain(*args, **kw), 5)
             plain_ms = time_ms(lambda: chain.chain_plain(*args, **kw), 3)
             bms, by = bound_ms(
-                n * 2 * 2.0 * B * V * H,
-                4.0 * (V * H + V + H + 4 * B * V + B * Dz + 3 * n))
-            main = dict(shape=name, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                        bound_by=by)
+                n * 2 * 2.0 * Bc * V * H,
+                4.0 * (V * H + V + H + 4 * Bc * V
+                       + (0 if mu is None else mu.numel()) + 3 * n))
+            rows.append(dict(shape=name, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bms, bound_by=by))
             log(f"[chain] {name}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    return main
+    return rows
 
 
 def check_learns(dev):
@@ -245,41 +359,89 @@ def check_learns(dev):
         raise AssertionError("RBM did not learn (MSE drop <= 2x)")
 
 
-def run_main_path(dev, workdir: Path):
+def check_states(states, widths):
     import torch
-    import yaml
-    from multimodal_idbn_tpu_torch import train_multimodal
-    from multimodal_idbn_tpu_torch.ops import chain, half_step
-    cfg = yaml.safe_load(FLAGSHIP_YAML.read_text())
-    cfg["dataset"]["n_samples"] = 384
-    cfg["training"]["epochs_image"] = 1
-    cfg["training"]["epochs_joint"] = 9
-    cfg["paths"]["save_dir"] = str(workdir)
-    path = workdir / "flagship_cut.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    half_step.KERNEL.launches = 0
-    chain.KERNEL.launches = 0
-    summary = train_multimodal.main(["--config", str(path)])
-    launches = {"half_step": half_step.KERNEL.launches,
-                "chain": chain.KERNEL.launches}
-    model = summary["model"]
-    states = model.image_idbn.states() + [model.joint_rbm.state]
     for st in states:
         for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m"):
             if not bool(torch.isfinite(getattr(st, f)).all()):
                 raise AssertionError(f"non-finite {f} after training")
-    widths = [tuple(s.w.shape) for s in states]
-    if widths != [(10000, 1500), (1500, 500), (532, 500)]:
-        raise AssertionError(f"unexpected widths {widths}")
-    m = summary["cross_metrics"]
-    if m is None or not all(v == v for v in m.values()):
-        raise AssertionError(f"no finite cross metrics: {m}")
-    log(f"[main] launches {launches}; phase seconds "
-        f"{json.dumps(summary['seconds'])}; image CD loss "
-        f"{summary['image_loss']}; cross metrics {json.dumps(m)}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    got = [tuple(s.w.shape) for s in states]
+    if got != widths:
+        raise AssertionError(f"unexpected widths {got}, expected {widths}")
+
+
+def run_path(name, workdir: Path):
+    """Train one cut at full width with the launch counts reset just
+    before and read just after; check what comes out."""
+    from multimodal_idbn_tpu_torch import cuts
+    reset_launches()
+    summary = cuts.run_cut(name, workdir)
+    launches = read_launches()
+    model = summary["model"]
+    if name == "flagship-cut":
+        check_states(model.image_idbn.states() + [model.joint_rbm.state],
+                     [(10000, 1500), (1500, 500), (532, 500)])
+        m = summary["cross_metrics"]
+        if m is None or not all(v == v for v in m.values()):
+            raise AssertionError(f"no finite cross metrics: {m}")
+        extra = f"image CD loss {summary['image_loss']}"
+    else:
+        check_states(model.mod1_dbn.states() + model.mod2_dbn.states()
+                     + [r.state for r in model.joint_layers],
+                     [(10000, 1500), (1500, 1500), (1568, 500), (500, 500),
+                      (500, 1000), (2500, 1500), (1500, 500)])
+        m = {"mse_mod1": summary["mse_mod1"], "mse_mod2": summary["mse_mod2"]}
+        if not all(isinstance(v, float) and math.isfinite(v)
+                   for v in m.values()):
+            raise AssertionError(f"no finite cross MSEs: {m}")
+        extra = (f"MOD1 CD loss {summary['mod1_loss']}, MOD2 CD loss "
+                 f"{summary['mod2_loss']}")
+    log(f"[{name}] launches {json.dumps(launches)}; phase seconds "
+        f"{json.dumps(summary['seconds'])}; {extra}; cross metrics "
+        f"{json.dumps(m)}")
+    if launches["half_step_sample"] <= 0 or launches["chain_run"] <= 0:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{launches}")
     return launches, summary
+
+
+def run_resident_drive(dev, model):
+    """Kernels 3 and 4 through their public functions on the trained
+    bimodal model: encode 128 MOD2 images (hidden_probs_kernel, the
+    counterpart of hidden_probs_pallas) and sample joint layer 0's hidden
+    units for the joint input of the same batch."""
+    import torch
+    from multimodal_idbn_tpu_torch.device import as_tensor
+    from multimodal_idbn_tpu_torch.ops import half_step, rbm_ops
+    m1, m2 = model.dataloader.materialize()
+    v1, v2 = as_tensor(m1[:128], dev), as_tensor(m2[:128], dev)
+    mod2_l0, joint0 = model.mod2_dbn.states()[0], model.joint_rbm.state
+    v_joint = torch.cat([model.mod1_dbn.represent(v1),
+                         model.mod2_dbn.represent(v2)], dim=1)
+    seed = 20260
+    reset_launches()
+    z2_first = half_step.hidden_probs_kernel(mod2_l0, v2)
+    p_joint, s_joint = half_step.half_step_sample_resident(
+        v_joint, joint0.w, joint0.hb, seed)
+    launches = read_launches()
+    err = max(float((z2_first - rbm_ops.hidden_probs(mod2_l0, v2)).abs()
+                    .max()),
+              float((p_joint - rbm_ops.hidden_probs(joint0, v_joint)).abs()
+                    .max()))
+    _, s_plain = half_step.half_step_sample_resident_plain(
+        v_joint, joint0.w, joint0.hb, seed)
+    flips = int((s_joint != s_plain).sum())
+    log(f"[resident-drive] launches {json.dumps(launches)}; shapes "
+        f"{tuple(v2.shape)}x{tuple(mod2_l0.w.shape)}, "
+        f"{tuple(v_joint.shape)}x{tuple(joint0.w.shape)}; max|dp| "
+        f"{err:.3e}, sample flips {flips}")
+    if not err <= TOL_HALF_STEP or flips:
+        raise AssertionError("resident drive disagrees with plain")
+    if (launches["half_step_probs"] <= 0
+            or launches["half_step_sample_resident"] <= 0):
+        raise AssertionError(f"resident drive: a kernel was not launched: "
+                             f"{launches}")
+    return launches
 
 
 def main() -> int:
@@ -293,6 +455,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 3
+    t_start = time.perf_counter()
     try:
         dev = resolve_device("cuda")
         smi = subprocess.run(
@@ -303,23 +466,44 @@ def main() -> int:
             f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
         build_kernels()
         hs_main, _ = check_half_step(dev)
-        ch_main = check_chain(dev)
+        resident = check_resident(dev)
+        ch_rows = check_chain(dev)
         check_learns(dev)
+        by_path = {}
         with tempfile.TemporaryDirectory() as tmp:
-            launches, _ = run_main_path(dev, Path(tmp))
+            for name in ("flagship-cut", "bimodal-cut"):
+                by_path[name], summary = run_path(name, Path(tmp))
+            by_path["resident-drive"] = run_resident_drive(
+                dev, summary["model"])
     except Exception:
         traceback.print_exc()
         return 1
+
+    def launches(entry, path):
+        return dict(launches=by_path[path][entry], launches_by_path={
+            p: counts[entry] for p, counts in by_path.items()})
+
     kernels = [
         dict(name="half_step_sample", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:255",
-             launches=launches["half_step"], **hs_main),
+             **launches("half_step_sample", "bimodal-cut"), **hs_main),
         dict(name="clamped_chain", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/chain.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_chain.py:165",
-             launches=launches["chain"], **ch_main),
+             **launches("chain_run", "bimodal-cut"), **ch_rows[-1]),
+        dict(name="half_step_probs", route="cuda",
+             source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
+             replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:95",
+             **launches("half_step_probs", "resident-drive"),
+             **resident["half_step_probs"][-1]),
+        dict(name="half_step_sample_resident", route="cuda",
+             source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
+             replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:130",
+             **launches("half_step_sample_resident", "resident-drive"),
+             **resident["half_step_sample_resident"][-1]),
     ]
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of ``multimodal_idbn_tpu`` for one NVIDIA H100.
 
 The JAX package beside it is the reference this port is held against.
-The port imports ``torch`` and numpy only. Its image iDBN trains through
-a hand-written fused half-step kernel (``csrc/half_step.cu``) and the
-joint RBM's clamped mean-field chains run in a hand-written chain kernel
+The port imports ``torch`` and numpy only. It trains the image+label
+iMDBN (``train_multimodal``) and the bimodal iMDBN_BiModal
+(``train_bimodal``). Their modality iDBNs train through a hand-written
+fused half-step kernel (``csrc/half_step.cu``, which also holds the
+probs-only and the resident sampled half-steps) and the joint RBMs'
+clamped mean-field chains run in a hand-written chain kernel
 (``csrc/chain.cu``). Every kernel wrapper launches its kernel on CUDA
 tensors and runs the kernel's plain PyTorch version on CPU tensors.
 

@@ -1,20 +1,24 @@
 """Carry parameters between the JAX package and the port as numpy arrays.
 
-The layout is a flat mapping of names to arrays, the one
-``models.imdbn.iMDBN.save_model`` writes as ``.npz``:
+Each layout is a flat mapping of names to arrays, written as ``.npz`` by a
+model's ``save_model``. The iMDBN layout (``models.imdbn.iMDBN``):
 
 - ``image.{i}.{field}`` for image layer i,
 - ``joint.{field}`` for the joint RBM,
-- optional ``z_class_mean``, ``z_affine_scale``, ``z_affine_bias``,
+- optional ``z_class_mean``, ``z_affine_scale``, ``z_affine_bias``.
 
-where ``field`` runs over ``w, hb, vb, w_m, hb_m, vb_m``, the fields of the
-JAX package's ``RBMState`` (multimodal_idbn_tpu/ops/rbm_ops.py:36-44). From
+The bimodal layout (``models.imdbn_bimodal.iMDBN_BiModal``):
+``mod1.{i}.{field}``, ``mod2.{i}.{field}`` and ``joint.{i}.{field}`` for
+layer i of each modality iDBN and of the joint stack.
+
+``field`` runs over ``w, hb, vb, w_m, hb_m, vb_m``, the fields of the JAX
+package's ``RBMState`` (multimodal_idbn_tpu/ops/rbm_ops.py:36-44). From
 JAX: ``{f"image.{i}.{k}": np.asarray(v) for k, v in st._asdict().items()}``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,15 +40,20 @@ def state_to_numpy(state: RBMState, prefix: str) -> Dict[str, np.ndarray]:
             for f in FIELDS}
 
 
+def _stack_from_numpy(arrays: Mapping[str, np.ndarray], name: str,
+                      device=None) -> List[RBMState]:
+    states = []
+    while f"{name}.{len(states)}.w" in arrays:
+        states.append(state_from_numpy(arrays, f"{name}.{len(states)}.",
+                                       device))
+    return states
+
+
 def from_jax_numpy(arrays: Mapping[str, np.ndarray], device=None) -> dict:
     """Flat numpy layout -> {"image": [RBMState], "joint": RBMState | None,
     "z_class_mean": tensor | None, "z_affine": (scale, bias) | None}."""
-    n_img = 0
-    while f"image.{n_img}.w" in arrays:
-        n_img += 1
     out = {
-        "image": [state_from_numpy(arrays, f"image.{i}.", device)
-                  for i in range(n_img)],
+        "image": _stack_from_numpy(arrays, "image", device),
         "joint": (state_from_numpy(arrays, "joint.", device)
                   if "joint.w" in arrays else None),
         "z_class_mean": None,
@@ -75,4 +84,22 @@ def to_numpy(image: Sequence[RBMState], joint: Optional[RBMState] = None,
     if z_affine is not None:
         out["z_affine_scale"], out["z_affine_bias"] = (
             t.detach().cpu().numpy() for t in z_affine)
+    return out
+
+
+def bimodal_from_numpy(arrays: Mapping[str, np.ndarray], device=None
+                       ) -> Dict[str, List[RBMState]]:
+    """Flat numpy bimodal layout -> {"mod1": [RBMState], "mod2": [...],
+    "joint": [...]}."""
+    return {name: _stack_from_numpy(arrays, name, device)
+            for name in ("mod1", "mod2", "joint")}
+
+
+def bimodal_to_numpy(mod1: Sequence[RBMState], mod2: Sequence[RBMState],
+                     joint: Sequence[RBMState]) -> Dict[str, np.ndarray]:
+    """The port's bimodal states -> the flat numpy bimodal layout."""
+    out: Dict[str, np.ndarray] = {}
+    for name, states in (("mod1", mod1), ("mod2", mod2), ("joint", joint)):
+        for i, st in enumerate(states):
+            out.update(state_to_numpy(st, f"{name}.{i}."))
     return out

@@ -1,13 +1,26 @@
-// Fused sampled RBM half-step for Hopper (sm_90a), fp32.
+// Fused RBM half-step for Hopper (sm_90a), fp32.
 //
 //   probs  = sigmoid((x . W[^T] + b) * inv_T)
 //   sample = probs > u(seed, row, col)        (Philox4x32-10, philox.cuh)
 //
-// Replaces the TPU kernel half_step_sample_aligned /
-// _make_half_step_sample_acc_kernel
-// (multimodal_idbn_tpu/ops/pallas_kernels.py:198-306), which the CD-k
-// trainer pallas_cd.fast_sampled_cd_update runs for every half-step of the
-// image stack. The port's wrapper is ops/half_step.py.
+// One kernel body, three entry points, each replacing one TPU kernel:
+//
+// - half_step_sample: half_step_sample_aligned /
+//   _make_half_step_sample_acc_kernel
+//   (multimodal_idbn_tpu/ops/pallas_kernels.py:198-306), which the CD-k
+//   trainer pallas_cd.fast_sampled_cd_update runs for every half-step of
+//   the image stack; both directions (transpose_w).
+// - half_step_probs: half_step_probs / _half_step_kernel
+//   (pallas_kernels.py:60-64, :95-126), the deterministic probabilities
+//   only: no uniform is drawn and no sample written, so it writes half the
+//   bytes of half_step_sample.
+// - half_step_sample_resident: half_step_sample / _half_step_sample_kernel
+//   (pallas_kernels.py:67-91, :129-171), probs and sample for x . W from a
+//   32-bit seed.
+//
+// The TPU kernels of the last two held the whole contraction dimension in
+// VMEM (V <~ 3900, pallas_kernels.py:48-57); this body is k-tiled, so it
+// has no such ceiling. The port's wrappers are in ops/half_step.py.
 //
 // What bounds it on an H100: at the flagship first layer one launch is
 // 2*128*10000*1500 = 3.84 GFLOP over a 60 MB fp32 W. That W does not fit
@@ -19,11 +32,12 @@
 // Design: a shared-memory tiled fp32 FMA GEMM (32x64 output tile per
 // 128-thread block, k-tiles of 16, next tile prefetched into registers
 // while the current one is multiplied), with the whole epilogue fused:
-// bias, temperature, sigmoid, the Philox uniform and the Bernoulli
-// compare, both outputs written once. Ragged edges (10000, 1500, 500) are
-// masked here, so unlike the TPU caller nothing is padded. transpose_w
-// reads the same row-major [V, H] W for the visible direction h . W^T.
-// The uniform depends only on (seed, row, col), never on the tiling.
+// bias, temperature, sigmoid and, when sampling, the Philox uniform and
+// the Bernoulli compare; every output written once. Ragged edges (10000,
+// 1568, 1500, 500) are masked here, so unlike the TPU callers nothing is
+// padded. transpose_w reads the same row-major [V, H] W for the visible
+// direction h . W^T. The uniform depends only on (seed, row, col), never
+// on the tiling.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,7 +54,8 @@ constexpr int B_PER_THREAD = BK * BN / THREADS;  // 8
 
 // out[B, N] = x[B, K] . W, with W stored [K, N] (TRANSPOSE = false) or
 // [N, K] (TRANSPOSE = true), both row-major.
-template <bool TRANSPOSE>
+// SAMPLE = false writes probs only and leaves sample untouched.
+template <bool TRANSPOSE, bool SAMPLE>
 __global__ void __launch_bounds__(THREADS)
 half_step_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ probs,
@@ -131,12 +146,27 @@ half_step_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int c = n0 + tx * 4 + j;
       if (c >= N) continue;
       const float p = sigmoidf_exact((acc[i][j] + __ldg(b + c)) * inv_T);
-      const float u = philox_uniform(seed, (uint32_t)r, (uint32_t)c, 0u, 0u);
       const size_t o = (size_t)r * N + c;
       probs[o] = p;
-      sample[o] = p > u ? 1.0f : 0.0f;
+      if (SAMPLE) {
+        const float u =
+            philox_uniform(seed, (uint32_t)r, (uint32_t)c, 0u, 0u);
+        sample[o] = p > u ? 1.0f : 0.0f;
+      }
     }
   }
+}
+
+template <bool TRANSPOSE, bool SAMPLE>
+int launch(const float* x, const float* w, const float* b, float* probs,
+           float* sample, int B, int K, int N, float inv_T, uint64_t seed,
+           void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
+  half_step_kernel<TRANSPOSE, SAMPLE>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, w, b, probs, sample, B, K, N, inv_T, seed);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -146,17 +176,28 @@ extern "C" int half_step_sample(const float* x, const float* w,
                                 int B, int K, int N, int transpose_w,
                                 float inv_T, unsigned long long seed,
                                 void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (transpose_w) {
-    half_step_kernel<true><<<grid, THREADS, 0, s>>>(x, w, b, probs, sample,
-                                                    B, K, N, inv_T, seed);
-  } else {
-    half_step_kernel<false><<<grid, THREADS, 0, s>>>(x, w, b, probs, sample,
-                                                     B, K, N, inv_T, seed);
-  }
-  return (int)cudaGetLastError();
+  return transpose_w
+             ? launch<true, true>(x, w, b, probs, sample, B, K, N, inv_T,
+                                  seed, stream)
+             : launch<false, true>(x, w, b, probs, sample, B, K, N, inv_T,
+                                   seed, stream);
+}
+
+extern "C" int half_step_probs(const float* x, const float* w,
+                               const float* b, float* probs, int B, int K,
+                               int N, float inv_T, void* stream) {
+  return launch<false, false>(x, w, b, probs, nullptr, B, K, N, inv_T, 0,
+                              stream);
+}
+
+// seed is the TPU kernel's int32 seed; its 32 bits key Philox.
+extern "C" int half_step_sample_resident(const float* x, const float* w,
+                                         const float* b, float* probs,
+                                         float* sample, int B, int K, int N,
+                                         float inv_T, unsigned int seed,
+                                         void* stream) {
+  return launch<false, true>(x, w, b, probs, sample, B, K, N, inv_T,
+                             (uint64_t)seed, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -1,12 +1,16 @@
 """Dataset layer of the port: npz-backed numerosity loaders with a
 synthetic fallback.
 
-Copy of multimodal_idbn_tpu/data/__init__.py:36-147 for the uniform
-multimodal case: ``create_dataloaders_uniform`` returns (train, val, test)
+Copy of multimodal_idbn_tpu/data/__init__.py:36-154 for uniform class
+frequencies: ``create_dataloaders_uniform`` returns (train, val, test)
 loaders over ``{data_path}/{data_name}`` when that npz exists, else over a
 deterministic synthetic numerosity dataset made by the Python generator
-(``numerosity.generate_numerosity_dataset``). The zipfian loaders, the
-second modality and the native generator are not in this slice.
+(``numerosity.generate_numerosity_dataset``). With
+``second_modality="mnist100"`` the dataset is bimodal: batches are
+(numerosity images, MNIST-100 images), the second modality read from
+``mnist100_path`` or rendered from the labels
+(``numerosity.generate_mnist100_images``). The zipfian loaders and the
+native generator are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from multimodal_idbn_tpu_torch.data.loaders import (  # noqa: F401
     train_val_test_split,
 )
 from multimodal_idbn_tpu_torch.data.numerosity import (  # noqa: F401
+    generate_mnist100_images,
     generate_numerosity_dataset,
 )
 
@@ -85,19 +90,37 @@ def _from_npz_or_synthetic(data_path: Optional[str], data_name: Optional[str],
 
 def create_dataloaders_uniform(data_path: Optional[str] = None,
                                data_name: Optional[str] = None,
-                               batch_size: int = 128,
+                               batch_size: int = 128, num_workers: int = 1,
+                               multimodal_flag: bool = True,
+                               second_modality: Optional[str] = None,
+                               mnist100_path: Optional[str] = None,
                                val_size: float = 0.15,
                                test_size: float = 0.15,
                                num_classes: int = 32, n_samples: int = 512,
                                side: int = 100, seed: int = 0):
     """(train, val, test) loaders with uniform class frequencies
-    (multimodal_idbn_tpu/data/__init__.py:114-135)."""
+    (multimodal_idbn_tpu/data/__init__.py:131-154). ``num_workers`` and
+    ``multimodal_flag`` are accepted for the reference's signature and
+    unused, as there: batches are gathered with NumPy, and unimodal and
+    multimodal loaders share the (images, onehot) batch contract."""
+    del num_workers, multimodal_flag
     data = _from_npz_or_synthetic(data_path, data_name, num_classes,
                                   n_samples, side, seed)
+    mod2 = None
+    mode = "multimodal"
+    if second_modality:  # bimodal (data/__init__.py:95-128)
+        if second_modality != "mnist100":
+            raise ValueError(f"unknown second_modality {second_modality!r}")
+        if mnist100_path and os.path.isfile(mnist100_path):
+            mod2 = _load_npz(mnist100_path)["images"]
+        else:
+            mod2 = generate_mnist100_images(data["labels"], seed=seed)
+        mode = "bimodal"
     ds = NumerosityDataset(
         images=data["images"], labels=data["labels"], onehot=data["onehot"],
         cumArea=data["cumArea"], CH=data["CH"],
-        density=data.get("density"), n_dots=data.get("N_dots"))
+        density=data.get("density"), n_dots=data.get("N_dots"),
+        mod2_images=mod2, mode=mode)
     tr, va, te = train_val_test_split(len(ds), val_size=val_size,
                                       test_size=test_size, seed=42)
     return (DataLoader(Subset(ds, tr), batch_size=batch_size, shuffle=True,

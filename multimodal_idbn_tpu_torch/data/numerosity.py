@@ -1,10 +1,11 @@
-"""Synthetic numerosity dot-pattern stimuli with geometry features.
+"""Synthetic numerosity dot-pattern stimuli with geometry features, and
+the synthetic MNIST-100 second modality.
 
 Copy of the Python generator backend of
-multimodal_idbn_tpu/data/numerosity.py:20-176: for the same seed it gives
-the same arrays as the JAX package's ``backend="python"``. The native C++
-generator and the MNIST-100 second modality are not in this slice.
-Pure NumPy, deterministic per seed.
+multimodal_idbn_tpu/data/numerosity.py:20-176 and of its MNIST-100
+renderer (:186-236): for the same seed it gives the same arrays as the
+JAX package's ``backend="python"``. The native C++ generator is not
+ported. Pure NumPy, deterministic per seed.
 """
 
 from __future__ import annotations
@@ -153,3 +154,53 @@ def generate_numerosity_dataset(n_samples: int = 512, num_classes: int = 32,
         "N_dots": n_dots,
     }
 
+
+# ---------------------------------------------------------------------------
+# MNIST-100 second modality (28×56 two-digit images, bimodal config)
+# ---------------------------------------------------------------------------
+
+# 5x3 bitmap font for digits 0-9 (enough structure for the 28×56 modality).
+_DIGIT_FONT = {
+    0: ["111", "101", "101", "101", "111"],
+    1: ["010", "110", "010", "010", "111"],
+    2: ["111", "001", "111", "100", "111"],
+    3: ["111", "001", "111", "001", "111"],
+    4: ["101", "101", "111", "001", "001"],
+    5: ["111", "100", "111", "001", "111"],
+    6: ["111", "100", "111", "101", "111"],
+    7: ["111", "001", "010", "010", "010"],
+    8: ["111", "101", "111", "101", "111"],
+    9: ["111", "101", "111", "001", "111"],
+}
+
+
+def _digit_glyph(d: int, h: int = 28, w: int = 28,
+                 jitter_rng=None) -> np.ndarray:
+    """Upscale the 5×3 bitmap of digit ``d`` to h×w with optional jitter."""
+    bitmap = np.array([[int(c) for c in row] for row in _DIGIT_FONT[d]],
+                      np.float32)
+    img = np.kron(bitmap, np.ones((4, 6), np.float32))  # 20×18
+    canvas = np.zeros((h, w), np.float32)
+    oy, ox = (h - img.shape[0]) // 2, (w - img.shape[1]) // 2
+    if jitter_rng is not None:
+        oy += jitter_rng.randint(-3, 4)
+        ox += jitter_rng.randint(-3, 4)
+    canvas[oy:oy + img.shape[0], ox:ox + img.shape[1]] = img
+    return canvas
+
+
+def generate_mnist100_images(values: np.ndarray, seed: int = 0,
+                             noise: float = 0.02) -> np.ndarray:
+    """Render each value (0..99) as a 28×56 two-digit binary image, the
+    synthetic stand-in for the reference's mnist100.npz second modality."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((len(values), 28, 56), np.float32)
+    for i, v in enumerate(np.asarray(values, np.int64)):
+        v = int(v) % 100
+        left = _digit_glyph(v // 10, jitter_rng=rng)
+        right = _digit_glyph(v % 10, jitter_rng=rng)
+        img = np.concatenate([left, right], axis=1)
+        if noise > 0:
+            img = np.where(rng.rand(*img.shape) < noise, 1.0 - img, img)
+        out[i] = img
+    return out

@@ -41,18 +41,26 @@ def nvcc_path() -> str:
 
 
 class CudaLibrary:
-    """One kernel source, its built library and its launch count.
+    """One kernel source, its built library and its launch counts.
 
     ``functions`` maps each exported C function to its ctypes argtypes;
     every exported launcher returns a ``cudaError_t`` as int.
-    ``launches`` counts the kernel launches made through ``launch``.
+    ``launches`` counts the kernel launches made through ``launch``, and
+    ``launches_by_entry`` the launches of each exported launcher.
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC / source
         self.functions = dict(functions)
-        self.launches = 0
+        self.launches_by_entry = dict.fromkeys(self.functions, 0)
         self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.launches_by_entry.values())
+
+    def reset_launches(self) -> None:
+        self.launches_by_entry = dict.fromkeys(self.functions, 0)
 
     def _sources(self) -> List[Path]:
         return [self.source] + sorted(CSRC.glob("*.cuh"))
@@ -112,7 +120,7 @@ class CudaLibrary:
         raise if the launch was refused."""
         lib = self.lib()
         err = getattr(lib, name)(*args)
-        self.launches += 1
+        self.launches_by_entry[name] += 1
         if err != 0:
             msg = lib.kernel_error_string(err).decode()
             raise RuntimeError(f"{self.source.name}:{name} launch failed: "

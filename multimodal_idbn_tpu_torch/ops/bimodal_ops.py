@@ -1,0 +1,213 @@
+"""Bimodal joint-DBN training and cross-modal inference (iMDBN_BiModal).
+
+Port of multimodal_idbn_tpu/ops/bimodal_ops.py. The joint is a stack of
+RBMs over [z_mod1 ⊕ z_mod2] with no softmax groups. Warm-up batches run
+2 × (mod1-clamp, mod2-clamp) clamped CD-3 with stochastic h on layer 0;
+main batches run free CD down the joint stack (layer i+1 fed the
+``hidden_probs`` of the updated layer i), then the two clamps without the
+negative re-clamp. Cross-modal reconstruction is conditional Gibbs with
+stochastic h through joint layer 0, then a decode through each modality
+DBN.
+
+The JAX epoch is a ``lax.scan`` (``bimodal_joint_epoch``) and, to cut TPU
+dispatches, a nested scan over epochs (``bimodal_epoch_block``); here one
+Python loop, ``bimodal_epoch``, covers both: the full batches of
+already-permuted data, then the remainder batch. Every clamped CD's
+30-step noisy init runs on the chain kernel on the card (``ops.chain``);
+the sampled conditional Gibbs of the cross metrics and the joint CD stay
+plain torch, as they are jnp in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
+
+States = List[rbm_ops.RBMState]
+
+
+class BimodalMetrics(NamedTuple):
+    """Per-batch sums of the cross-reconstruction metrics
+    (bimodal_ops.py:29-32)."""
+
+    n: torch.Tensor
+    mse_mod1: torch.Tensor
+    mse_mod2: torch.Tensor
+
+
+def zeros_metrics(device=None) -> BimodalMetrics:
+    z = torch.zeros((), device=device)
+    return BimodalMetrics(z, z, z)
+
+
+def add_metrics(a: BimodalMetrics, b: BimodalMetrics) -> BimodalMetrics:
+    return BimodalMetrics(*(x + y for x, y in zip(a, b)))
+
+
+def _clamps(z1: torch.Tensor, z2: torch.Tensor):
+    """(km1, vk1, vk2): the mod1 mask over [z1 ⊕ z2] and the two known
+    vectors, each modality clamped with the other zeroed."""
+    B, Dz1, Dz2 = z1.shape[0], z1.shape[1], z2.shape[1]
+    dev = z1.device
+    km1 = torch.cat([torch.ones((B, Dz1), device=dev),
+                     torch.zeros((B, Dz2), device=dev)], dim=1)
+    vk1 = torch.cat([z1, torch.zeros((B, Dz2), device=dev)], dim=1)
+    vk2 = torch.cat([torch.zeros((B, Dz1), device=dev), z2], dim=1)
+    return km1, vk1, vk2
+
+
+def bimodal_cross_reconstruct(joint0: rbm_ops.RBMState,
+                              mod1_states: Sequence[rbm_ops.RBMState],
+                              mod2_states: Sequence[rbm_ops.RBMState],
+                              key: int, z1: torch.Tensor, z2: torch.Tensor,
+                              *, steps: int, Dz1: int,
+                              direction: str = "both"):
+    """MOD1→MOD2 and MOD2→MOD1 through joint layer 0
+    (bimodal_ops.py:40-77); returns (mod1_from_mod2, mod2_from_mod1), the
+    output of a skipped ``direction`` ("1to2" | "2to1") being None. Each
+    direction keeps its own key, so a kept direction equals "both"."""
+    if direction not in ("both", "1to2", "2to1"):
+        raise ValueError(f"unknown direction {direction!r}")
+    if z1.shape[1] != Dz1:
+        raise ValueError(f"z1 has {z1.shape[1]} columns, Dz1 is {Dz1}")
+    km1, vk1, vk2 = _clamps(z1, z2)
+    mod2_from_mod1 = mod1_from_mod2 = None
+    if direction in ("both", "1to2"):
+        v = rbm_ops.conditional_gibbs(joint0, rng.fold_in(key, 0), vk1, km1,
+                                      n_steps=steps, sample_h=True,
+                                      sample_v=False)
+        mod2_from_mod1 = dbn_train.dbn_decode(mod2_states, v[:, Dz1:])
+    if direction in ("both", "2to1"):
+        v = rbm_ops.conditional_gibbs(joint0, rng.fold_in(key, 1), vk2,
+                                      1.0 - km1, n_steps=steps,
+                                      sample_h=True, sample_v=False)
+        mod1_from_mod2 = dbn_train.dbn_decode(mod1_states, v[:, :Dz1])
+    return mod1_from_mod2, mod2_from_mod1
+
+
+def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
+                       mod1_states: Sequence[rbm_ops.RBMState],
+                       mod2_states: Sequence[rbm_ops.RBMState], key: int,
+                       z1: torch.Tensor, z2: torch.Tensor, v1: torch.Tensor,
+                       v2: torch.Tensor, lr, mom, weight_decay, *,
+                       warmup: bool, joint_cd: int, aux_cond_steps: int,
+                       Dz1: int, steps: int, compute_metrics: bool = True
+                       ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
+    """One bimodal joint batch (``_bimodal_train_batch`` and its jitted
+    twin ``bimodal_batch_step``, bimodal_ops.py:80-146, :307-316).
+    Returns (joint states, layer-0 CD loss (0 in warm-up), metric sums)."""
+    km1, vk1, vk2 = _clamps(z1, z2)
+    keys = [rng.fold_in(key, i) for i in range(8)]
+    layers = list(joint)
+    aux = dict(lr=lr, mom=mom, weight_decay=weight_decay, cd=3,
+               cond_init_steps=aux_cond_steps, sample_h=True, sample_v=False,
+               aux_lr_mult=0.3, use_noisy_init=True)
+
+    cd_loss = torch.zeros((), device=z1.device)
+    if warmup:
+        for i in range(2):
+            layers[0], _ = rbm_ops.clamped_cd_update(
+                layers[0], keys[2 * i], vk1, km1, reclamp_negative=True,
+                **aux)
+            layers[0], _ = rbm_ops.clamped_cd_update(
+                layers[0], keys[2 * i + 1], vk2, 1.0 - km1,
+                reclamp_negative=True, **aux)
+    else:
+        current = torch.cat([z1, z2], dim=1)
+        for li in range(len(layers)):
+            layers[li], loss = rbm_ops.cd_update(
+                layers[li], rng.fold_in(keys[4], li), current, lr=lr,
+                mom=mom, weight_decay=weight_decay, cd=joint_cd)
+            if li == 0:
+                cd_loss = loss
+            current = rbm_ops.hidden_probs(layers[li], current)
+        layers[0], _ = rbm_ops.clamped_cd_update(
+            layers[0], keys[5], vk1, km1, reclamp_negative=False, **aux)
+        layers[0], _ = rbm_ops.clamped_cd_update(
+            layers[0], keys[6], vk2, 1.0 - km1, reclamp_negative=False,
+            **aux)
+
+    metrics = zeros_metrics(z1.device)
+    if compute_metrics:
+        rec1, rec2 = bimodal_cross_reconstruct(
+            layers[0], mod1_states, mod2_states, keys[7], z1, z2,
+            steps=steps, Dz1=Dz1)
+        metrics = BimodalMetrics(
+            torch.tensor(float(z1.shape[0]), device=z1.device),
+            ((rec1 - v1) ** 2).sum(), ((rec2 - v2) ** 2).sum())
+    return layers, cd_loss, metrics
+
+
+def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
+                  mod1_states: Sequence[rbm_ops.RBMState],
+                  mod2_states: Sequence[rbm_ops.RBMState], key: int,
+                  Z1: torch.Tensor, Z2: torch.Tensor, V1: torch.Tensor,
+                  V2: torch.Tensor, lr, mom, weight_decay, *, warmup: bool,
+                  joint_cd: int, aux_cond_steps: int, Dz1: int, steps: int,
+                  batch_size: int, metrics_every: int = 1):
+    """One joint epoch over already-permuted latents Z and images V: the
+    ``n // batch_size`` full batches in order, batch b keyed
+    ``fold_in(fold_in(key, 0), b)``, then the remainder keyed
+    ``fold_in(key, 1)`` (``bimodal_joint_epoch`` + the caller's remainder,
+    and ``bimodal_epoch_block``, bimodal_ops.py:154-301).
+
+    Metrics run on every ``metrics_every``-th full batch, and on the
+    remainder only when ``metrics_every == 1``, as there. Returns
+    (joint, CD-loss sum, number of CD batches, metric sums).
+    """
+    n = Z1.shape[0]
+    nb = n // batch_size
+    every = max(1, int(metrics_every))
+    statics = dict(warmup=warmup, joint_cd=joint_cd,
+                   aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps)
+    joint = list(joint)
+    totals = zeros_metrics(Z1.device)
+    cd_sum = torch.zeros((), device=Z1.device)
+    batches: List[Tuple[slice, int, bool]] = [
+        (slice(b * batch_size, (b + 1) * batch_size),
+         rng.fold_in(rng.fold_in(key, 0), b), b % every == 0)
+        for b in range(nb)]
+    if n > nb * batch_size:
+        batches.append((slice(nb * batch_size, n), rng.fold_in(key, 1),
+                        every == 1))
+    for sl, bkey, metrics in batches:
+        joint, cd_loss, m = bimodal_batch_step(
+            joint, mod1_states, mod2_states, bkey, Z1[sl], Z2[sl], V1[sl],
+            V2[sl], lr, mom, weight_decay, compute_metrics=metrics,
+            **statics)
+        totals = add_metrics(totals, m)
+        cd_sum = cd_sum + cd_loss
+    return joint, cd_sum, (0 if warmup else len(batches)), totals
+
+
+def sample_cross(joint0: rbm_ops.RBMState,
+                 mod1_states: Sequence[rbm_ops.RBMState],
+                 mod2_states: Sequence[rbm_ops.RBMState], key: int,
+                 z1: torch.Tensor, z2: torch.Tensor, *, steps: int, Dz1: int,
+                 direction: str) -> torch.Tensor:
+    """Draw the other modality from p(x_other | x_known)
+    (bimodal_ops.py:328-361): the fully sampled conditional chain on joint
+    layer 0, then the ancestral-sampled decode through the target
+    modality's DBN. ``direction`` "1to2" returns mod2 images, "2to1" mod1.
+    """
+    if direction not in ("1to2", "2to1"):
+        raise ValueError(f"unknown direction {direction!r}")
+    B, Dz2 = z1.shape[0], z2.shape[1]
+    dev = z1.device
+    km1 = torch.cat([torch.ones((Dz1,), device=dev),
+                     torch.zeros((Dz2,), device=dev)])
+    if direction == "1to2":
+        v_known = torch.cat([z1, torch.zeros((B, Dz2), device=dev)], 1)
+        km = km1
+    else:
+        v_known = torch.cat([torch.zeros((B, Dz1), device=dev), z2], 1)
+        km = 1.0 - km1
+    v = rbm_ops.sampled_conditional_chain(joint0, rng.fold_in(key, 0),
+                                          v_known, km, n_steps=steps)
+    kdec = rng.fold_in(key, 1)
+    if direction == "1to2":
+        return dbn_train.dbn_decode_sampled(mod2_states, v[:, Dz1:], kdec)
+    return dbn_train.dbn_decode_sampled(mod1_states, v[:, :Dz1], kdec)

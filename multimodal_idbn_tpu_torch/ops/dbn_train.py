@@ -1,8 +1,8 @@
 """iDBN training epochs and the DBN encode/decode passes.
 
 Port of multimodal_idbn_tpu/ops/dbn_train.py:31-139 (``idbn_epoch``) and
-:388-404 (``dbn_represent``, ``dbn_decode``). The JAX epoch is one
-``lax.scan``; here it is a Python loop over static batch slices of
+:388-424 (``dbn_represent``, ``dbn_decode``, ``dbn_decode_sampled``). The
+JAX epoch is one ``lax.scan``; here it is a Python loop over static batch slices of
 already-permuted data (``shuffle=False``), with the same iterative
 schedule: every layer updates on every batch, and layer i+1 is fed the
 post-update ``hidden_probs`` of layer i (dbn_train.py:117-136). Every
@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops.sampling import sample_bernoulli
 
 States = List[rbm_ops.RBMState]
 
@@ -78,4 +79,19 @@ def dbn_decode(states: Sequence[rbm_ops.RBMState],
     cur = top
     for st in reversed(list(states)):
         cur = rbm_ops.visible_probs(st, cur)
+    return cur
+
+
+def dbn_decode_sampled(states: Sequence[rbm_ops.RBMState],
+                       top: torch.Tensor, key: int) -> torch.Tensor:
+    """Ancestral-sampled decode (dbn_train.py:407-424): every layer above
+    the bottom is Bernoulli-sampled on the way down (layer i from the top
+    with ``fold_in(key, i)``); the bottom layer's probabilities are
+    returned."""
+    states = list(states)
+    cur = top
+    for i, st in enumerate(reversed(states)):
+        cur = rbm_ops.visible_probs(st, cur)
+        if i < len(states) - 1:
+            cur = sample_bernoulli(rng.fold_in(key, i), cur)
     return cur

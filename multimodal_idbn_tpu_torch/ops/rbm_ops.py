@@ -3,7 +3,7 @@
 Port of multimodal_idbn_tpu/ops/rbm_ops.py: ``RBMState``, the
 conditionals of both directions, ``free_energy``, the CD-k update in the
 exact order of rbm_ops.py:192-323, the conditional chains
-(rbm_ops.py:403-434, :522-577) and the auxiliary clamped CD
+(rbm_ops.py:403-473, :522-577) and the auxiliary clamped CD
 (rbm_ops.py:584-664). ``lax.scan`` becomes a Python loop; keys are 64-bit
 ints (``ops.rng``). The bf16, stochastic-rounding and ``compute_cast``
 paths of the JAX module are not ported.
@@ -200,6 +200,30 @@ def conditional_gibbs(state: RBMState, key: int, v_known: torch.Tensor,
             v = clamp_mask(sample_visible(rng.fold_in(k, 1), v, groups),
                            v_known, known_mask)
     return visible_probs(state, hidden_probs(state, v), groups=groups)
+
+
+def sampled_conditional_chain(state: RBMState, key: int,
+                              v_known: torch.Tensor,
+                              known_mask: torch.Tensor, *, n_steps: int,
+                              groups: SoftmaxGroups = ()) -> torch.Tensor:
+    """Fully sampled clamped Gibbs chain (rbm_ops.py:437-473): h and v are
+    sampled every step (groups categorically), the known coordinates
+    re-clamped, and the last sampled v returned, with no mean-field pass.
+    Unknown coordinates start U(0,1). Plain torch, as in the JAX package.
+    """
+    if int(n_steps) < 1:
+        raise ValueError("sampled_conditional_chain needs n_steps >= 1 "
+                         "(with 0 steps the output would be decoded "
+                         "uniform noise, independent of the clamp)")
+    v = _chain_init(rng.fold_in(key, 0), v_known, known_mask)
+    kloop = rng.fold_in(key, 1)
+    for t in range(int(n_steps)):
+        k = rng.fold_in(kloop, t)
+        h = sample_bernoulli(rng.fold_in(k, 0), hidden_probs(state, v))
+        v_prob = visible_probs(state, h, groups=groups)
+        v = clamp_mask(sample_visible(rng.fold_in(k, 1), v_prob, groups),
+                       v_known, known_mask)
+    return v
 
 
 def annealed_schedule(n_steps: int, T0, T1, sigma0, sharpen_last: int,

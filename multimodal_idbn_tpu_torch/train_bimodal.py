@@ -1,0 +1,178 @@
+"""Train the bimodal DBN (numerosity + MNIST-100).
+
+Port of scripts/train_bimodal.py: it reads the same YAML configs, maps
+them to the same UPPERCASE params (:44-83) and runs the same flow: the
+MOD1 iDBN and then the MOD2 iDBN, each on a loader of its own modality
+(:116-160), then the joint DBN, then the save. Run it as
+
+    python -m multimodal_idbn_tpu_torch.train_bimodal \
+        --config configs/bimodal_training_config.yaml [--device cpu]
+
+It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
+GPU. Settings the port does not cover (pretrained modality DBNs,
+fine-tuning, resume, data parallelism, W&B and the other opt-in variants)
+raise ``NotImplementedError``; none is ignored. The model is saved as
+``{save_dir}/{save_name}.npz`` (``convert`` bimodal layout).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+
+from multimodal_idbn_tpu_torch.data import (DataLoader, NumerosityDataset,
+                                            create_dataloaders_uniform)
+from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
+from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
+from multimodal_idbn_tpu_torch.train_multimodal import (check_common,
+                                                        load_config,
+                                                        not_ported)
+
+DEFAULT_CONFIG_PATH = (Path(__file__).resolve().parent.parent / "configs"
+                       / "bimodal_training_config.yaml")
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    ap = argparse.ArgumentParser(
+        "Train bimodal DBN (Numerosity + MNIST-100) (PyTorch/CUDA port)")
+    ap.add_argument("--config", type=Path, default=DEFAULT_CONFIG_PATH)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap.parse_args(argv)
+
+
+def check_supported(cfg: dict) -> None:
+    """Raise for every setting outside the port: ``NotImplementedError``
+    for what is not ported, ``ValueError`` for a dataset without a second
+    modality (as scripts/train_bimodal.py:196-204)."""
+    check_common(cfg)
+    paths = cfg.get("paths", {}) or {}
+    for m in ("mod1", "mod2"):
+        if paths.get(f"{m}_pretrained"):
+            not_ported(f"paths.{m}_pretrained", "checkpoint/ slice")
+        if int(paths.get(f"{m}_finetune_last_epochs", 0) or 0) > 0:
+            not_ported(f"paths.{m}_finetune_last_epochs",
+                       "models slice (finetune_mod*_last_layer)")
+    if not (cfg.get("dataset", {}) or {}).get("second_modality"):
+        raise ValueError(
+            "bimodal training needs a second modality but the dataset has "
+            "none — set dataset.second_modality (e.g. 'mnist100') in the "
+            "config")
+
+
+def build_params(cfg: dict) -> dict:
+    """YAML → UPPERCASE params (scripts/train_bimodal.py:44-83)."""
+    t = cfg.get("training", {}) or {}
+    return {
+        "LEARNING_RATE": t.get("learning_rate", 0.1),
+        "WEIGHT_PENALTY": t.get("weight_penalty", 1e-4),
+        "INIT_MOMENTUM": t.get("init_momentum", 0.5),
+        "FINAL_MOMENTUM": t.get("final_momentum", 0.95),
+        "LEARNING_RATE_DYNAMIC": t.get("learning_rate_dynamic", True),
+        "CD": t.get("cd", 1),
+        "EPOCHS_MOD1": t.get("epochs_mod1", 100),
+        "EPOCHS_MOD2": t.get("epochs_mod2", 100),
+        "EPOCHS_JOINT": t.get("epochs_joint", 200),
+        "JOINT_LEARNING_RATE": t.get("joint_learning_rate",
+                                     t.get("learning_rate", 0.1)),
+        "JOINT_CD": t.get("joint_cd", t.get("cd", 1)),
+        "CROSS_GIBBS_STEPS": t.get("cross_gibbs_steps", 50),
+        "USE_AUX": t.get("use_aux", True),
+        "JOINT_AUX_COND_STEPS": t.get("JOINT_AUX_COND_STEPS",
+                                      t.get("aux_cond_steps", 50)),
+        "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
+        "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
+        "SEED": t.get("seed", 0),
+    }
+
+
+def modality_loader(train_loader, modality_idx: int) -> DataLoader:
+    """One modality of the bimodal training split (+ its labels) as a
+    loader of its own, for that modality's iDBN
+    (scripts/train_bimodal.py:116-139)."""
+    base, idx = train_loader.dataset.dataset, np.asarray(
+        train_loader.dataset.indices)
+    source = base.images if modality_idx == 0 else base.mod2_images
+    ds = NumerosityDataset(
+        images=source[idx], labels=np.asarray(base.labels)[idx],
+        onehot=base.onehot[idx], cumArea=np.asarray(base.cumArea_list)[idx],
+        CH=np.asarray(base.CH_list)[idx])
+    return DataLoader(ds, batch_size=train_loader.batch_size, shuffle=True)
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Run the flow; returns a summary: per-phase wall seconds, both
+    modality CD loss histories, the last cross-reconstruction MSEs and the
+    save path."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    check_supported(cfg)
+    dataset = cfg.get("dataset", {}) or {}
+    model = cfg.get("model", {}) or {}
+    params = build_params(cfg)
+
+    t0 = time.perf_counter()
+    train_loader, val_loader, _ = create_dataloaders_uniform(
+        data_path=dataset.get("path"), data_name=dataset.get("name"),
+        batch_size=dataset.get("batch_size", 128),
+        second_modality=dataset.get("second_modality"),
+        mnist100_path=dataset.get("mnist100_path"),
+        num_classes=model.get("num_labels", 32),
+        n_samples=dataset.get("n_samples", 512),
+        side=dataset.get("side", 100))
+    joint_hidden = model.get("joint_hidden", 500)
+    bimodal = iMDBN_BiModal(
+        layer_sizes_mod1=model.get("mod1_layers", [10000, 1500, 500]),
+        layer_sizes_mod2=model.get("mod2_layers", [1568, 500, 500]),
+        joint_layer_sizes=joint_hidden, params=params,
+        dataloader=train_loader, val_loader=val_loader, device=device,
+        seed=params.get("SEED"))
+    synchronize(device)
+    seconds = {"setup": time.perf_counter() - t0}
+
+    for i, (name, dbn) in enumerate((("mod1", bimodal.mod1_dbn),
+                                     ("mod2", bimodal.mod2_dbn))):
+        epochs = params[f"EPOCHS_{name.upper()}"]
+        print(f"Training {name.upper()} iDBN for {epochs} epochs...")
+        t = time.perf_counter()
+        dbn.dataloader = modality_loader(train_loader, i)
+        dbn.train(epochs)
+        synchronize(device)
+        seconds[name] = time.perf_counter() - t
+
+    print("Training joint RBM...")
+    t = time.perf_counter()
+    bimodal.train_joint(params["EPOCHS_JOINT"])
+    synchronize(device)
+    seconds["joint"] = time.perf_counter() - t
+
+    paths = cfg.get("paths", {}) or {}
+    save_dir = Path(paths.get("save_dir", "./networks")).expanduser()
+    save_dir.mkdir(parents=True, exist_ok=True)
+    save_path = save_dir / f"{paths.get('save_name', 'bimodal_trained')}.npz"
+    bimodal.save_model(str(save_path))
+
+    m = bimodal.last_metrics or {}
+    summary = {
+        "device": str(device),
+        "seconds": seconds,
+        "mod1_loss": list(bimodal.mod1_dbn.loss_history),
+        "mod2_loss": list(bimodal.mod2_dbn.loss_history),
+        "cross_metrics": bimodal.last_metrics,
+        "mse_mod1": m.get("cross_modality/mod1_mse"),
+        "mse_mod2": m.get("cross_modality/mod2_mse"),
+        "save_path": str(save_path),
+        "model": bimodal,
+    }
+    print("[train_bimodal] phases (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f"; last cross metrics {bimodal.last_metrics}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -44,47 +44,56 @@ def load_config(path: Path) -> dict:
         return yaml.safe_load(f)
 
 
-def check_supported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for every setting outside this slice."""
+def not_ported(what: str, where: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet; it comes with the port's {where} "
+        f"(ROADMAP.md Queue 1)")
+
+
+def check_common(cfg: dict) -> None:
+    """Raise ``NotImplementedError`` for every training, W&B or dataset
+    setting the port does not cover; shared by the training entry points.
+    """
     t = cfg.get("training", {}) or {}
-    paths = cfg.get("paths", {}) or {}
-
-    def later(what: str, where: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet; it comes with the port's {where} "
-            f"(ROADMAP.md Queue 1)")
-
     if t.get("dp_devices"):
-        later("training.dp_devices (data parallelism)", "parallel/ slice")
+        not_ported("training.dp_devices (data parallelism)",
+                   "parallel/ slice")
     if int(t.get("checkpoint_every", 0) or 0) > 0:
-        later("training.checkpoint_every", "checkpoint/ slice")
+        not_ported("training.checkpoint_every", "checkpoint/ slice")
     if str(t.get("dtype", "float32")).lower() not in ("float32", "f32",
                                                       "fp32"):
-        later(f"training.dtype={t.get('dtype')}",
-              "opt-in variants slice (bf16 storage)")
+        not_ported(f"training.dtype={t.get('dtype')}",
+                   "opt-in variants slice (bf16 storage)")
     if str(t.get("compute_dtype") or "float32").lower() not in (
             "float32", "f32", "fp32", "none"):
-        later(f"training.compute_dtype={t.get('compute_dtype')}",
-              "opt-in variants slice (mixed precision)")
+        not_ported(f"training.compute_dtype={t.get('compute_dtype')}",
+                   "opt-in variants slice (mixed precision)")
     if t.get("stochastic_rounding") is True or str(
             t.get("stochastic_rounding")).lower() in ("true", "on", "yes"):
-        later("training.stochastic_rounding",
-              "opt-in variants slice (stochastic rounding)")
+        not_ported("training.stochastic_rounding",
+                   "opt-in variants slice (stochastic rounding)")
     if str(t.get("matmul_precision", "highest")) != "highest":
-        later(f"training.matmul_precision={t.get('matmul_precision')}",
-              "opt-in variants slice (TF32 / bf16 matmuls)")
+        not_ported(f"training.matmul_precision={t.get('matmul_precision')}",
+                   "opt-in variants slice (TF32 / bf16 matmuls)")
     if int(t.get("init_retry", 0) or 0) > 0:
-        later("training.init_retry", "models slice (train_with_retry)")
-    if paths.get("image_idbn_pretrained"):
-        later("paths.image_idbn_pretrained", "checkpoint/ slice")
-    if int(paths.get("image_idbn_finetune_last_epochs", 0) or 0) > 0:
-        later("paths.image_idbn_finetune_last_epochs",
-              "models slice (finetune_image_last_layer)")
+        not_ported("training.init_retry", "models slice (train_with_retry)")
     if (cfg.get("wandb", {}) or {}).get("enable", False):
-        later("wandb.enable", "logging slice (utils/ diagnostics)")
+        not_ported("wandb.enable", "logging slice (utils/ diagnostics)")
     if (cfg.get("dataset", {}) or {}).get("distribution",
                                           "uniform") != "uniform":
-        later("dataset.distribution=zipfian", "data slice")
+        not_ported("dataset.distribution=zipfian", "data slice")
+
+
+def check_supported(cfg: dict) -> None:
+    """Raise ``NotImplementedError`` for every setting outside this entry
+    point's port."""
+    check_common(cfg)
+    paths = cfg.get("paths", {}) or {}
+    if paths.get("image_idbn_pretrained"):
+        not_ported("paths.image_idbn_pretrained", "checkpoint/ slice")
+    if int(paths.get("image_idbn_finetune_last_epochs", 0) or 0) > 0:
+        not_ported("paths.image_idbn_finetune_last_epochs",
+                   "models slice (finetune_image_last_layer)")
 
 
 def build_params(cfg: dict) -> dict:

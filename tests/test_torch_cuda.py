@@ -104,3 +104,67 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         half_step.half_step_sample(x.double(), w.double(), b.double(), 0)
     with rng.deterministic(), pytest.raises(RuntimeError):
         half_step.half_step_sample(x, w, b, 0)
+
+
+@pytest.mark.parametrize("B,V,H,T", [(37, 77, 130, 1.0), (1, 1, 1, 1.0),
+                                     (129, 1568, 65, 0.7),
+                                     (12, 2500, 1500, 1.0)])
+def test_probs_and_resident_kernels_vs_plain(dev, B, V, H, T):
+    g = torch.Generator().manual_seed(B + V)
+    w = _rand(g, V, H, dev=dev, scale=V ** -0.5)
+    b = _rand(g, H, dev=dev, scale=0.1)
+    v = (torch.rand((B, V), generator=g) < 0.4).float().to(dev)
+    before = dict(half_step.KERNEL.launches_by_entry)
+    p_k = half_step.half_step_probs(v, w, b, T)
+    p_r, s_r = half_step.half_step_sample_resident(v, w, b, -77, T)
+    after = half_step.KERNEL.launches_by_entry
+    assert after["half_step_probs"] == before["half_step_probs"] + 1
+    assert (after["half_step_sample_resident"]
+            == before["half_step_sample_resident"] + 1)
+    assert after["half_step_sample"] == before["half_step_sample"]
+    p_p = half_step.half_step_probs_plain(v, w, b, T)
+    _, s_p = half_step.half_step_sample_resident_plain(v, w, b, -77, T)
+    torch.cuda.synchronize()
+    assert float((p_k - p_p).abs().max()) <= TOL
+    assert torch.equal(p_r, p_k)
+    u = rng.philox_uniform(-77 & 0xFFFFFFFF, B, H, device=dev)
+    assert not bool(((s_r != s_p) & ((p_p - u).abs() > TOL)).any())
+
+
+def test_hidden_probs_kernel_matches_rbm_ops(dev):
+    st = rbm_ops.init_rbm_state(4, 1568, 500, device=dev)
+    v = (torch.rand(12, 1568, device=dev) < 0.3).float()
+    got = half_step.hidden_probs_kernel(st, v, 1.3)
+    torch.cuda.synchronize()
+    assert float((got - rbm_ops.hidden_probs(st, v, 1.3)).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("B", [12, 5])
+def test_chain_kernel_more_columns_than_threads(dev, B):
+    """V = 2500 > 1024 threads: each thread loops over several columns
+    in both halves, the re-clamp and the μ-pull (bimodal joint layer 0)."""
+    g = torch.Generator().manual_seed(B)
+    V, H, Dz = 2500, 1500, 1500
+    w = _rand(g, V, H, dev=dev, scale=V ** -0.5)
+    hb, vb = _rand(g, H, dev=dev, scale=0.1), _rand(g, V, dev=dev, scale=0.1)
+    vk = torch.rand((B, V), generator=g).to(dev)
+    km = torch.zeros((B, V), device=dev)
+    km[:, :Dz] = 1.0
+    v0 = vk * km + (1 - km) * torch.rand((B, V), generator=g).to(dev)
+    sched = rbm_ops.annealed_schedule(7, 3.0, 1.0, 0.9, 2, 0.9, 0.15)
+    kw = dict(seed=5, mu=torch.rand((B, 40), generator=g).to(dev))
+    out_k = chain.clamped_chain(w, hb, vb, v0, vk, km, sched, **kw)
+    out_p = chain.chain_plain(w, hb, vb, v0, vk, km, sched, **kw)
+    torch.cuda.synchronize()
+    assert float((out_k - out_p).abs().max()) <= TOL
+
+
+def test_resident_seed_must_be_int32(dev):
+    x, w, b = (torch.zeros(4, 5, device=dev), torch.zeros(5, 3, device=dev),
+               torch.zeros(3, device=dev))
+    with pytest.raises(ValueError):
+        half_step.half_step_sample_resident(x, w, b, 1 << 31)
+    with pytest.raises(ValueError):
+        half_step.half_step_probs(x, w[:4], b)
+    with rng.deterministic(), pytest.raises(RuntimeError):
+        half_step.half_step_sample_resident(x, w, b, 0)

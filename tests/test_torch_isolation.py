@@ -77,3 +77,18 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_bimodal_slice_modules_are_covered():
+    """The bimodal slice's modules are among the sources checked above
+    and are walked by the blocked import."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"ops/bimodal_ops.py", "models/imdbn_bimodal.py",
+            "train_bimodal.py", "cuts.py", "ops/half_step.py"} <= names
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.replace(
+            'print("ok", len(names))',
+            'assert "multimodal_idbn_tpu_torch.train_bimodal" in names\n'
+            'print("ok", len(names))')],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
