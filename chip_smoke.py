@@ -11,12 +11,20 @@ Phases, each fatal on failure:
 2. hold each of the four kernels against its plain PyTorch version on the
    card, at the shapes of the flagship and the bimodal paths, and time
    kernel, plain version and, for the half-steps, the one-call library
-   yardstick ``addmm`` + ``sigmoid``:
-   - the sampled half-step at every layer shape of both paths,
+   yardstick ``addmm`` + ``sigmoid`` (``ms``: back-to-back calls through
+   the wrapper; ``graph_ms``: the same calls replayed from a CUDA graph,
+   device time without the host):
+   - the sampled half-step at every layer shape of both paths, and at two
+     edge shapes (K not a multiple of 4 at batch 12: the 4-byte copies;
+     K shorter than one k-slice),
    - the probs-only and the resident sampled half-steps at
      [128,1568]·[1568,500] and [128,2500]·[2500,1500],
-   - the chain at the flagship joint (532×500) and at the bimodal joint
-     layer 0 (2500×1500, batch 128 and the ragged remainder of 12);
+   - the chain at the flagship joint (532×500, batch 128 and 12, and with
+     a second softmax group that straddles a 64-column tile boundary) and
+     at the bimodal joint layer 0 (2500×1500, batch 128 and the ragged
+     remainder of 12),
+   - determinism: every entry launched twice on the same inputs must
+     return bit-equal tensors, at the first-layer shape and a ragged one;
 3. the RBM learns: ``RBM(64, 32)`` on noisy bars through the fused CD
    path; reconstruction MSE must drop by more than 2x;
 4. the two training paths at full width, each a shipped YAML with every
@@ -52,16 +60,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth. bound_ms is computed from them.
+# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 in the tensor
+# cores, fp32 outside them, HBM3 bandwidth. The kernels' products are
+# three TF32 passes with fp32 sums (fp32 accuracy), so bound_ms counts
+# three times the operations at the TF32 peak, or the bytes, whichever
+# takes longer; bound_fp32_ms is the same work at the CUDA-core peak.
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances, stated before measuring:
-# - half-step probs: fp32 sums of up to 10000 terms in another order than
-#   cuBLAS, through a sigmoid (slope <= 1/4);
-# - a sample may differ only where |p - u| is within that tolerance; the
-#   resident sampled half-step must show no flip at all;
+# - half-step probs: sums of up to 10000 terms in another order than
+#   cuBLAS (k-slices of at most 1024 terms, each an error-compensated
+#   TF32 sum with fp32 accumulation), through a sigmoid (slope <= 1/4);
+# - a sample, of the sampled and of the resident sampled half-step alike,
+#   may differ only where |p - u| is within that tolerance: a sum taken in
+#   another order may move p by ~1e-7 across u;
+# - two launches on the same inputs must agree bit for bit;
 # - chains: 30-50 dependent steps of the same arithmetic; the noise
 #   normals use the card's and the CPU library's logf/cosf (a few ulps).
 TOL_HALF_STEP = 1e-5
@@ -87,10 +103,15 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bounds(flops: float, nbytes: float):
+    """bound_ms, what bounds it, and the CUDA-core bound of the same work."""
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_fp32 = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return dict(bound_ms=t_ops, bound_by="operations",
+                    bound_fp32_ms=t_fp32)
+    return dict(bound_ms=t_bytes, bound_by="bytes", bound_fp32_ms=t_fp32)
 
 
 def build_kernels():
@@ -142,24 +163,28 @@ def sample_flips(p_plain, s_k, s_p, seed):
 
 
 def check_half_step(dev):
-    """Kernel 1 in both directions of every layer shape of both paths."""
+    """Kernel 1 in both directions of every layer shape of both paths, and
+    at two edge shapes of the tile."""
     import torch
+    from multimodal_idbn_tpu_torch.bench_kernels import graph_ms
     from multimodal_idbn_tpu_torch.ops import half_step
     g = torch.Generator().manual_seed(0)
-    B = 128
     rows = []
-    for name, (K, N, transpose, density) in {
-            "flagship L1 v->h": (10000, 1500, False, 0.15),
-            "flagship L1 h->v": (1500, 10000, True, 0.5),
-            "flagship L2 v->h": (1500, 500, False, 0.5),
-            "flagship L2 h->v": (500, 1500, True, 0.5),
-            "mod1 L2 v->h": (1500, 1500, False, 0.5),
-            "mod1 L2 h->v": (1500, 1500, True, 0.5),
-            "mod2 L1 v->h": (1568, 500, False, 0.2),
-            "mod2 L1 h->v": (500, 1568, True, 0.5),
-            "mod2 L2 v->h": (500, 500, False, 0.5),
-            "mod2 L3 v->h": (500, 1000, False, 0.5),
-            "mod2 L3 h->v": (1000, 500, True, 0.5)}.items():
+    for name, (B, K, N, transpose, density) in {
+            "flagship L1 v->h": (128, 10000, 1500, False, 0.15),
+            "flagship L1 h->v": (128, 1500, 10000, True, 0.5),
+            "flagship L2 v->h": (128, 1500, 500, False, 0.5),
+            "flagship L2 h->v": (128, 500, 1500, True, 0.5),
+            "mod1 L2 v->h": (128, 1500, 1500, False, 0.5),
+            "mod1 L2 h->v": (128, 1500, 1500, True, 0.5),
+            "mod2 L1 v->h": (128, 1568, 500, False, 0.2),
+            "mod2 L1 h->v": (128, 500, 1568, True, 0.5),
+            "mod2 L2 v->h": (128, 500, 500, False, 0.5),
+            "mod2 L3 v->h": (128, 500, 1000, False, 0.5),
+            "mod2 L3 h->v": (128, 1000, 500, True, 0.5),
+            "edge: K % 4 != 0, B=12 v->h": (12, 1501, 499, False, 0.5),
+            "edge: K % 4 != 0, B=12 h->v": (12, 1501, 499, True, 0.5),
+            "edge: K < one slice": (128, 40, 1500, False, 0.5)}.items():
         x, w, b = half_step_inputs(g, dev, B, K, N, transpose, density)
         seed = 0x1234_5678_9ABC_DEF0 + len(rows)
         p_k, s_k = half_step.half_step_sample(x, w, b, seed,
@@ -169,31 +194,98 @@ def check_half_step(dev):
         torch.cuda.synchronize()
         err = float((p_k - p_p).abs().max())
         flips, bad = sample_flips(p_p, s_k, s_p, seed)
-        log(f"[half_step] {name} [{B},{K}]x[{K},{N}]: max|dp| {err:.3e}, "
-            f"sample flips {flips} (outside tol: {bad})")
+        tile_rows, slices, k_per_slice = half_step.plan(B, K, N)
+        log(f"[half_step] {name} [{B},{K}]x[{K},{N}]: {tile_rows}-row "
+            f"tiles, {slices} k-slices of {k_per_slice}; max|dp| {err:.3e},"
+            f" sample flips {flips} (outside tol: {bad})")
         if not err <= TOL_HALF_STEP or bad:
             raise AssertionError(f"half_step {name} disagrees with plain")
-        ms = time_ms(lambda: half_step.half_step_sample(
-            x, w, b, seed, transpose_w=transpose), 20)
-        plain_ms = time_ms(lambda: half_step.half_step_plain(
-            x, w, b, seed, transpose_w=transpose), 10)
+
+        def kernel():
+            return half_step.half_step_sample(x, w, b, seed,
+                                              transpose_w=transpose)
+
         wm = w.T if transpose else w
-        lib_ms = time_ms(lambda: torch.sigmoid(torch.addmm(b, x, wm)), 20)
-        bms, by = bound_ms(2.0 * B * K * N,
-                           4.0 * (B * K + K * N + N + 2 * B * N))
-        rows.append(dict(shape=name, max_abs_err=err, sample_flips=flips,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by))
-        log(f"[half_step] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms, addmm+sigmoid {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})")
+
+        def library():
+            return torch.sigmoid(torch.addmm(b, x, wm))
+
+        row = dict(shape=name, max_abs_err=err, sample_flips=flips,
+                   ms=time_ms(kernel, 100), graph_ms=graph_ms(kernel),
+                   plain_ms=time_ms(lambda: half_step.half_step_plain(
+                       x, w, b, seed, transpose_w=transpose), 10),
+                   library_ms=time_ms(library, 100),
+                   library_graph_ms=graph_ms(library),
+                   **bounds(2.0 * B * K * N,
+                            4.0 * (B * K + K * N + N + 2 * B * N)))
+        rows.append(row)
+        log(f"[half_step] {name}: kernel {row['ms']:.4f} ms (device "
+            f"{row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+            f"addmm+sigmoid {row['library_ms']:.4f} ms (device "
+            f"{row['library_graph_ms']:.4f}), bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}), fp32 bound "
+            f"{row['bound_fp32_ms']:.4f} ms")
     return rows[0], rows
+
+
+def check_determinism(dev):
+    """Every entry launched twice on the same inputs returns the same
+    bits: the split-K sums are taken in a fixed order, whichever block
+    arrives last, and the chain's result does not depend on how its grid
+    is scheduled."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import chain, half_step, rbm_ops
+    g = torch.Generator().manual_seed(5)
+    for name, (B, K, N) in {"first layer [128,10000]x[10000,1500]":
+                            (128, 10000, 1500),
+                            "ragged [37,1501]x[1501,499]":
+                            (37, 1501, 499)}.items():
+        x, w, b = half_step_inputs(g, dev, B, K, N, False, 0.3)
+        xt, wt, bt = half_step_inputs(g, dev, B, N, K, True, 0.5)
+        runs = {
+            "half_step_sample": lambda: half_step.half_step_sample(
+                x, w, b, 11),
+            "half_step_sample (transposed)": lambda:
+                half_step.half_step_sample(xt, wt, bt, 11, transpose_w=True),
+            "half_step_probs": lambda: (half_step.half_step_probs(x, w, b),),
+            "half_step_sample_resident": lambda:
+                half_step.half_step_sample_resident(x, w, b, 11)}
+        for entry, run in runs.items():
+            first, second = run(), run()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(first, second)):
+                raise AssertionError(f"{entry} at {name}: two launches "
+                                     f"differ")
+        p_probs = runs["half_step_probs"]()[0]
+        p_res = runs["half_step_sample_resident"]()[0]
+        if not torch.equal(p_probs, p_res):
+            raise AssertionError(f"probs-only and resident entries differ "
+                                 f"at {name}")
+        log(f"[determinism] half-step entries at {name}: bit-equal")
+    for name, (B, V, H, groups) in {
+            "bimodal joint 2500x1500, B=128": (128, 2500, 1500, ()),
+            "ragged 131x77 with groups, B=37": (37, 131, 77,
+                                                ((60, 70), (100, 131)))
+            }.items():
+        j = chain_inputs(dev, B, V, H, min(V, 64), 9)
+        km = (j["u"] < 0.4).float()
+        sched = rbm_ops.annealed_schedule(12, 3.0, 1.0, 0.9, 2, 0.9, 0.15)
+        args = (j["w"], j["hb"], j["vb"], j["z"] * km + (1 - km) * j["u"],
+                j["z"], km, sched)
+        kw = dict(groups=groups, mu=j["mu"], seed=0xD37)
+        first = chain.clamped_chain(*args, **kw)
+        second = chain.clamped_chain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"chain at {name}: two launches differ")
+        log(f"[determinism] chain at {name}: bit-equal")
 
 
 def check_resident(dev):
     """Kernels 3 (probs only) and 4 (resident sampled) at the two shapes
     of the bimodal path under the TPU kernels' VMEM ceiling."""
     import torch
+    from multimodal_idbn_tpu_torch.bench_kernels import graph_ms
     from multimodal_idbn_tpu_torch.ops import half_step
     g = torch.Generator().manual_seed(2)
     B = 128
@@ -203,7 +295,12 @@ def check_resident(dev):
             "joint L0 [128,2500]x[2500,1500]": (2500, 1500, 0.5)}.items():
         x, w, b = half_step_inputs(g, dev, B, K, N, False, density)
         seed = -0x1234_5678 + len(rows["half_step_probs"])
-        lib_ms = time_ms(lambda: torch.sigmoid(torch.addmm(b, x, w)), 20)
+        def library():
+            return torch.sigmoid(torch.addmm(b, x, w))
+
+        lib = dict(library_ms=time_ms(library, 100),
+                   library_graph_ms=graph_ms(library))
+        lib_ms = lib["library_ms"]
         flops = 2.0 * B * K * N
 
         p_k = half_step.half_step_probs(x, w, b)
@@ -213,38 +310,43 @@ def check_resident(dev):
         log(f"[half_step_probs] {name}: max|dp| {err:.3e}")
         if not err <= TOL_HALF_STEP:
             raise AssertionError(f"half_step_probs {name} disagrees")
-        ms = time_ms(lambda: half_step.half_step_probs(x, w, b), 20)
+        ms = time_ms(lambda: half_step.half_step_probs(x, w, b), 100)
+        gms = graph_ms(lambda: half_step.half_step_probs(x, w, b))
         plain_ms = time_ms(lambda: half_step.half_step_probs_plain(x, w, b),
                            20)
-        bms, by = bound_ms(flops, 4.0 * (B * K + K * N + N + B * N))
+        bnd = bounds(flops, 4.0 * (B * K + K * N + N + B * N))
         rows["half_step_probs"].append(dict(
-            shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log(f"[half_step_probs] {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, addmm+sigmoid {lib_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+            shape=name, max_abs_err=err, ms=ms, graph_ms=gms,
+            plain_ms=plain_ms, **lib, **bnd))
+        log(f"[half_step_probs] {name}: kernel {ms:.4f} ms (device "
+            f"{gms:.4f}), plain {plain_ms:.4f} ms, addmm+sigmoid "
+            f"{lib_ms:.4f} ms (device {lib['library_graph_ms']:.4f}), "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
 
         p_k, s_k = half_step.half_step_sample_resident(x, w, b, seed)
         p_p, s_p = half_step.half_step_sample_resident_plain(x, w, b, seed)
         torch.cuda.synchronize()
         err = float((p_k - p_p).abs().max())
-        flips = int((s_k != s_p).sum())
+        flips, bad = sample_flips(p_p, s_k, s_p, seed & 0xFFFFFFFF)
         log(f"[half_step_sample_resident] {name}: max|dp| {err:.3e}, "
-            f"sample flips {flips}")
-        if not err <= TOL_HALF_STEP or flips:
+            f"sample flips {flips} (outside tol: {bad})")
+        if not err <= TOL_HALF_STEP or bad:
             raise AssertionError(f"half_step_sample_resident {name} "
                                  f"disagrees with plain")
         ms = time_ms(lambda: half_step.half_step_sample_resident(
-            x, w, b, seed), 20)
+            x, w, b, seed), 100)
+        gms = graph_ms(lambda: half_step.half_step_sample_resident(
+            x, w, b, seed))
         plain_ms = time_ms(lambda: half_step.half_step_sample_resident_plain(
             x, w, b, seed), 10)
-        bms, by = bound_ms(flops, 4.0 * (B * K + K * N + N + 2 * B * N))
+        bnd = bounds(flops, 4.0 * (B * K + K * N + N + 2 * B * N))
         rows["half_step_sample_resident"].append(dict(
             shape=name, max_abs_err=err, sample_flips=flips, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log(f"[half_step_sample_resident] {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, addmm+sigmoid {lib_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+            graph_ms=gms, plain_ms=plain_ms, **lib, **bnd))
+        log(f"[half_step_sample_resident] {name}: kernel {ms:.4f} ms "
+            f"(device {gms:.4f}), plain {plain_ms:.4f} ms, addmm+sigmoid "
+            f"{lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
     return rows
 
 
@@ -262,11 +364,14 @@ def chain_inputs(dev, B, V, H, Dz, seed):
 
 def check_chain(dev):
     """Kernel 2: both families at the flagship joint (532×500, a 32-wide
-    label group), and the aux-CD init of the bimodal joint layer 0
-    (2500×1500, no group) at batch 128 and at the remainder of 12."""
+    label group that straddles the 64-column tile boundary at 512; batch
+    128 and 12; once more with a second group across the boundary at 64),
+    and the aux-CD init of the bimodal joint layer 0 (2500×1500, no group)
+    at batch 128 and at the remainder of 12."""
     import torch
     from multimodal_idbn_tpu_torch.ops import chain, rbm_ops
-    aux_sched = rbm_ops.annealed_schedule(30, 3.0, 1.0, 0.9, 2, 0.9, 0.15)
+    aux_sched = rbm_ops.annealed_schedule(30, 3.0, 1.0, 0.9, 2, 0.9,
+                                          0.15).to(dev)
     cases = []
     # flagship: z (first 500) and y (last 32, one-hot) blocks
     B, Dz, K = 128, 500, 32
@@ -281,49 +386,64 @@ def check_chain(dev):
     groups = ((Dz, Dz + K),)
     for n in (30, 50):
         cases.append((f"flagship mean-field {n} steps", j, vk_z, km_z,
-                      torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1), groups,
-                      None, None, True, False))
+                      torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1).to(dev),
+                      groups, None, None, True, n == 50))
     cases.append(("flagship noisy 30 steps", j, vk_y, 1.0 - km_z, aux_sched,
                   groups, None, 0xC0FFEE, False, False))
     cases.append(("flagship noisy 50 steps + mu", j, vk_y, 1.0 - km_z,
                   rbm_ops.annealed_schedule(50, 3.0, 1.0, 0.9, 3, 0.9,
-                                            0.15), groups, j["mu"], 0xBEEF,
-                  False, True))
+                                            0.15).to(dev), groups, j["mu"],
+                  0xBEEF, False, True))
+    cases.append(("flagship noisy 30 steps B=12", j, vk_y[:12],
+                  1.0 - km_z[:12], aux_sched, groups, None, 0xC0FFEE, False,
+                  True))
+    cases.append(("flagship noisy 30 steps + mu, groups across tile "
+                  "boundaries", j, vk_y, 1.0 - km_z, aux_sched,
+                  ((56, 72), (Dz, Dz + K)), j["mu"], 0xC0FFEE, True, False))
     # bimodal joint layer 0: [z_mod1 (1500) ⊕ z_mod2 (1000)], mod1 clamped
     for Bb in (128, 12):
         jb = chain_inputs(dev, Bb, 2500, 1500, 1500, 3)
         km1 = torch.cat([torch.ones((Bb, 1500), device=dev),
                          torch.zeros((Bb, 1000), device=dev)], 1)
         cases.append((f"bimodal noisy 30 steps B={Bb}", jb, jb["z"] * km1,
-                      km1, aux_sched, (), None, 0xFACE, False, Bb == 128))
-    rows = []
+                      km1, aux_sched, (), None, 0xFACE, False, True))
+    rows = {}
     for name, j, vk, km, sched, groups, mu, seed, final, timed in cases:
         Bc, V = vk.shape
         H = j["w"].shape[1]
-        v0 = vk * km + (1.0 - km) * j["u"]
+        if mu is not None:
+            mu = mu[:Bc]
+        v0 = vk * km + (1.0 - km) * j["u"][:Bc]
         args = (j["w"], j["hb"], j["vb"], v0, vk, km, sched)
         kw = dict(groups=groups, mu=mu, seed=seed, final_unclamped=final)
+        plan = chain.plan(Bc, V, H, sched.shape[0], final)
         out_k = chain.clamped_chain(*args, **kw)
         out_p = chain.chain_plain(*args, **kw)
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         finite = bool(torch.isfinite(out_k).all())
-        log(f"[chain] {name}: max|dv| {err:.3e}")
+        log(f"[chain] {name}: grid {plan['grid']} blocks, "
+            f"{plan['tile_rows']}-row tiles, k-slices {plan['slices_h']} / "
+            f"{plan['slices_v']}, {plan['barriers']} grid barriers; "
+            f"max|dv| {err:.3e}")
         if not (finite and err <= TOL_CHAIN):
             raise AssertionError(f"chain {name} disagrees with plain")
         if timed:
             n = sched.shape[0]
             ms = time_ms(lambda: chain.clamped_chain(*args, **kw), 5)
             plain_ms = time_ms(lambda: chain.chain_plain(*args, **kw), 3)
-            bms, by = bound_ms(
-                n * 2 * 2.0 * Bc * V * H,
+            bnd = bounds(
+                (n + int(final)) * 2 * 2.0 * Bc * V * H,
                 4.0 * (V * H + V + H + 4 * Bc * V
                        + (0 if mu is None else mu.numel()) + 3 * n))
-            rows.append(dict(shape=name, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bms, bound_by=by))
+            rows[name] = dict(shape=name, max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, library_ms=None,
+                              grid=plan["grid"], barriers=plan["barriers"],
+                              **bnd)
             log(f"[chain] {name}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), fp32 bound "
+                f"{bnd['bound_fp32_ms']:.4f} ms")
     return rows
 
 
@@ -428,14 +548,14 @@ def run_resident_drive(dev, model):
                     .max()),
               float((p_joint - rbm_ops.hidden_probs(joint0, v_joint)).abs()
                     .max()))
-    _, s_plain = half_step.half_step_sample_resident_plain(
+    p_plain, s_plain = half_step.half_step_sample_resident_plain(
         v_joint, joint0.w, joint0.hb, seed)
-    flips = int((s_joint != s_plain).sum())
+    flips, bad = sample_flips(p_plain, s_joint, s_plain, seed)
     log(f"[resident-drive] launches {json.dumps(launches)}; shapes "
         f"{tuple(v2.shape)}x{tuple(mod2_l0.w.shape)}, "
         f"{tuple(v_joint.shape)}x{tuple(joint0.w.shape)}; max|dp| "
-        f"{err:.3e}, sample flips {flips}")
-    if not err <= TOL_HALF_STEP or flips:
+        f"{err:.3e}, sample flips {flips} (outside tol: {bad})")
+    if not err <= TOL_HALF_STEP or bad:
         raise AssertionError("resident drive disagrees with plain")
     if (launches["half_step_probs"] <= 0
             or launches["half_step_sample_resident"] <= 0):
@@ -465,9 +585,10 @@ def main() -> int:
         log(f"[device] {torch.cuda.get_device_name(0)}; torch "
             f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
         build_kernels()
-        hs_main, _ = check_half_step(dev)
+        hs_main, hs_rows = check_half_step(dev)
         resident = check_resident(dev)
         ch_rows = check_chain(dev)
+        check_determinism(dev)
         check_learns(dev)
         by_path = {}
         with tempfile.TemporaryDirectory() as tmp:
@@ -487,21 +608,27 @@ def main() -> int:
         dict(name="half_step_sample", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:255",
-             **launches("half_step_sample", "bimodal-cut"), **hs_main),
+             **launches("half_step_sample", "bimodal-cut"), **hs_main,
+             other_shapes=hs_rows[1:]),
         dict(name="clamped_chain", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/chain.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_chain.py:165",
-             **launches("chain_run", "bimodal-cut"), **ch_rows[-1]),
+             **launches("chain_run", "bimodal-cut"),
+             **ch_rows["bimodal noisy 30 steps B=128"],
+             other_shapes=[r for n, r in ch_rows.items()
+                           if n != "bimodal noisy 30 steps B=128"]),
         dict(name="half_step_probs", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:95",
              **launches("half_step_probs", "resident-drive"),
-             **resident["half_step_probs"][-1]),
+             **resident["half_step_probs"][-1],
+             other_shapes=resident["half_step_probs"][:-1]),
         dict(name="half_step_sample_resident", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:130",
              **launches("half_step_sample_resident", "resident-drive"),
-             **resident["half_step_sample_resident"][-1]),
+             **resident["half_step_sample_resident"][-1],
+             other_shapes=resident["half_step_sample_resident"][:-1]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

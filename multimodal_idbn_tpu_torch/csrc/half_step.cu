@@ -25,179 +25,194 @@
 // What bounds it on an H100: at the flagship first layer one launch is
 // 2*128*10000*1500 = 3.84 GFLOP over a 60 MB fp32 W. That W does not fit
 // the 50 MB L2, so every half-step streams it from HBM (18 us at
-// 3.35 TB/s), but the fp32 CUDA-core rate bounds it first (57 us at
-// 67 TFLOP/s). The TPU kernel rounded its operands to bf16 for the MXU;
-// this kernel computes true fp32, which the flagship config pins.
+// 3.35 TB/s), but the operations bound it first: 57 us at the fp32
+// CUDA-core peak of 67 TFLOP/s, 23 us as three TF32 tensor-core passes at
+// 495 TFLOP/s. The TPU kernel rounded its operands to bf16 for the MXU;
+// this kernel keeps fp32 accuracy, which the flagship config pins. The
+// product is skinny: at most 128 batch rows, so an output-tiled grid
+// alone gives 24 to 48 blocks at the first layer and 8 to 32 at
+// [128,500].[500,500] for 132 SMs.
 //
-// Design: a shared-memory tiled fp32 FMA GEMM (32x64 output tile per
-// 128-thread block, k-tiles of 16, next tile prefetched into registers
-// while the current one is multiplied), with the whole epilogue fused:
-// bias, temperature, sigmoid and, when sampling, the Philox uniform and
-// the Bernoulli compare; every output written once. Ragged edges (10000,
-// 1568, 1500, 500) are masked here, so unlike the TPU callers nothing is
-// padded. transpose_w reads the same row-major [V, H] W for the visible
-// direction h . W^T. The uniform depends only on (seed, row, col), never
-// on the tiling.
+// Design (the tile is gemm_tile.cuh: cp.async ring, error-compensated
+// TF32 mma with fp32 sums):
+// - Split-K fills the card. The contraction is cut into `slices` k-ranges
+//   of k_per_slice (a multiple of 16, at most 1024: the tensor cores
+//   truncate when they add to a sum, so a sum is kept short) and the grid
+//   is column tiles x row tiles x slices; the wrapper chooses the tile's
+//   rows and the two numbers from (B, K, N) alone (ops/half_step.py:
+//   plan).
+// - The reduction is deterministic. With more than one slice every block
+//   writes its partial tile to a scratch buffer [slices, B, N4]; a ticket
+//   counter per output tile tells the block that arrives last, and that
+//   block alone sums the slices in the order 0, 1, 2, ... whoever it is,
+//   then runs the epilogue once on the sum. No float atomics touch the
+//   output, so two launches on the same inputs agree bit for bit, and the
+//   three entries agree with each other. The last block puts the ticket
+//   back to zero, so the wrapper zeroes the counters once.
+// - Bias, temperature, sigmoid and, when sampling, the Philox uniform and
+//   the Bernoulli compare are fused in that epilogue; every output is
+//   written once. The uniform depends only on (seed, row, col), never on
+//   the tiling or the slices.
+// - transpose_w reads the same row-major [V, H] W for the visible
+//   direction h . W^T with the same 16-byte copies (its tile is k-major).
+// - Ragged edges and unaligned rows are handled in the tile's copies; any
+//   B, K, N >= 1 is taken, and unlike the TPU callers nothing is padded.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 128;
-constexpr int A_PER_THREAD = BM * BK / THREADS;  // 4
-constexpr int B_PER_THREAD = BK * BN / THREADS;  // 8
+struct HalfStepArgs {
+  const float* x;     // [B, K]
+  const float* w;     // [K, N], or [N, K] when transposed
+  const float* b;     // [N]
+  float* probs;       // [B, N]
+  float* sample;      // [B, N], or null: probabilities only
+  float* scratch;     // [slices, B, N rounded up to 4] when slices > 1
+  int* tickets;       // one per output tile, zero between launches
+  int B, K, N, slices, k_per_slice;
+  float inv_T;
+  uint64_t seed;
+};
 
-// out[B, N] = x[B, K] . W, with W stored [K, N] (TRANSPOSE = false) or
-// [N, K] (TRANSPOSE = true), both row-major.
-// SAMPLE = false writes probs only and leaves sample untouched.
-template <bool TRANSPOSE, bool SAMPLE>
-__global__ void __launch_bounds__(THREADS)
-half_step_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ b, float* __restrict__ probs,
-                 float* __restrict__ sample, int B, int K, int N,
-                 float inv_T, uint64_t seed) {
-  // +4 padding: the transposing stores hit 2 banks per 32 threads
-  // instead of 16; rows stay 16-byte aligned for the float4 reads.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-
+template <bool TRANSPOSE, int TM>
+__global__ void __launch_bounds__(gemm::THREADS, TM == 4 ? 4 : 5)
+half_step_kernel(HalfStepArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int is_last;
+  using T = gemm::Tile<TM>;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // 4 output columns each
-  const int ty = tid / 16;  // 4 output rows each
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * gemm::BN;
+  const int slice = blockIdx.z;
+  const int k_begin = slice * a.k_per_slice;
+  const int k_end = min(a.K, k_begin + a.k_per_slice);
 
-  float ra[A_PER_THREAD];
-  float rb[B_PER_THREAD];
+  float acc[TM][gemm::TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < gemm::TN; ++j) acc[i][j] = 0.0f;
 
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < A_PER_THREAD; ++q) {
-      const int e = tid + THREADS * q;
-      const int gm = m0 + (e >> 4), gk = k0 + (e & 15);
-      ra[q] = (gm < B && gk < K) ? __ldg(x + (size_t)gm * K + gk) : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < B_PER_THREAD; ++q) {
-      const int e = tid + THREADS * q;
-      if (TRANSPOSE) {
-        const int gn = n0 + (e >> 4), gk = k0 + (e & 15);
-        rb[q] = (gn < N && gk < K) ? __ldg(w + (size_t)gn * K + gk) : 0.0f;
-      } else {
-        const int gk = k0 + (e >> 6), gn = n0 + (e & 63);
-        rb[q] = (gn < N && gk < K) ? __ldg(w + (size_t)gk * N + gn) : 0.0f;
-      }
-    }
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int q = 0; q < A_PER_THREAD; ++q) {
-      const int e = tid + THREADS * q;
-      As[e & 15][e >> 4] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < B_PER_THREAD; ++q) {
-      const int e = tid + THREADS * q;
-      if (TRANSPOSE) {
-        Bs[e & 15][e >> 4] = rb[q];
-      } else {
-        Bs[e >> 6][e & 63] = rb[q];
-      }
-    }
-  };
+  const gemm::Operand xa{a.x, a.K, gemm::rows_aligned16(a.x, a.K)};
+  const int ldw = TRANSPOSE ? a.K : a.N;
+  const gemm::Operand wa{a.w, ldw, gemm::rows_aligned16(a.w, ldw)};
+  gemm::block_tile<TRANSPOSE, TM>(xa, wa, a.B, a.N, m0, n0, k_begin, k_end,
+                                  smem, acc);
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const int n_tiles = (K + BK - 1) / BK;
-  if (n_tiles > 0) load_tile(0);
-  for (int t = 0; t < n_tiles; ++t) {
-    store_tile();
+  if (a.slices > 1) {
+    const int ld = (a.N + 3) / 4 * 4;
+    const size_t plane = (size_t)a.B * ld;
+    gemm::store_partial<TM>(acc, a.scratch + slice * plane, ld, a.B, m0,
+                            n0);
+    __threadfence();
     __syncthreads();
-    if (t + 1 < n_tiles) load_tile((t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    if (tid == 0) {
+      int* ticket = a.tickets + blockIdx.y * gridDim.x + blockIdx.x;
+      const int arrived = atomicAdd(ticket, 1);
+      is_last = arrived == a.slices - 1;
+      if (is_last) *ticket = 0;
     }
     __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    gemm::sum_partials<TM>(acc, a.scratch, plane, a.slices, ld, a.B, m0, n0);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= B) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + gemm::tile_row<TM>(tid, i);
+    if (r >= a.B) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx * 4 + j;
-      if (c >= N) continue;
-      const float p = sigmoidf_exact((acc[i][j] + __ldg(b + c)) * inv_T);
-      const size_t o = (size_t)r * N + c;
-      probs[o] = p;
-      if (SAMPLE) {
+    for (int j = 0; j < gemm::TN; ++j) {
+      const int c = n0 + gemm::tile_col(tid, j);
+      if (c >= a.N) continue;
+      const float p = sigmoidf_exact((acc[i][j] + __ldg(a.b + c)) * a.inv_T);
+      const size_t o = (size_t)r * a.N + c;
+      a.probs[o] = p;
+      if (a.sample != nullptr) {
         const float u =
-            philox_uniform(seed, (uint32_t)r, (uint32_t)c, 0u, 0u);
-        sample[o] = p > u ? 1.0f : 0.0f;
+            philox_uniform(a.seed, (uint32_t)r, (uint32_t)c, 0u, 0u);
+        a.sample[o] = p > u ? 1.0f : 0.0f;
       }
     }
   }
 }
 
-template <bool TRANSPOSE, bool SAMPLE>
-int launch(const float* x, const float* w, const float* b, float* probs,
-           float* sample, int B, int K, int N, float inv_T, uint64_t seed,
-           void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
-  half_step_kernel<TRANSPOSE, SAMPLE>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, w, b, probs, sample, B, K, N, inv_T, seed);
+template <bool TRANSPOSE, int TM>
+int launch_tile(const HalfStepArgs& a, void* stream) {
+  using T = gemm::Tile<TM>;
+  auto kernel = half_step_kernel<TRANSPOSE, TM>;
+  if (T::SMEM_BYTES > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a.N + gemm::BN - 1) / gemm::BN, (a.B + T::BM - 1) / T::BM,
+                  a.slices);
+  kernel<<<grid, gemm::THREADS, T::SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// tile_rows is 32 or 64 (the block tile's rows); slices * k_per_slice
+// must cover K with k_per_slice a multiple of 16; scratch and tickets may
+// be null when slices == 1.
+int launch(const float* x, const float* w, const float* b, float* probs,
+           float* sample, float* scratch, int* tickets, int B, int K, int N,
+           bool transpose_w, int tile_rows, int slices, int k_per_slice,
+           float inv_T, uint64_t seed, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if ((tile_rows != 32 && tile_rows != 64) || slices < 1 ||
+      slices > 65535 || k_per_slice < gemm::BK ||
+      k_per_slice % gemm::BK != 0 ||
+      (long long)slices * k_per_slice < (long long)K ||
+      (slices > 1 && (scratch == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const HalfStepArgs a{x, w, b, probs, sample, scratch, tickets, B, K, N,
+                       slices, k_per_slice, inv_T, seed};
+  if (tile_rows == 64)
+    return transpose_w ? launch_tile<true, 4>(a, stream)
+                       : launch_tile<false, 4>(a, stream);
+  return transpose_w ? launch_tile<true, 2>(a, stream)
+                     : launch_tile<false, 2>(a, stream);
 }
 
 }  // namespace
 
 extern "C" int half_step_sample(const float* x, const float* w,
                                 const float* b, float* probs, float* sample,
-                                int B, int K, int N, int transpose_w,
-                                float inv_T, unsigned long long seed,
-                                void* stream) {
-  return transpose_w
-             ? launch<true, true>(x, w, b, probs, sample, B, K, N, inv_T,
-                                  seed, stream)
-             : launch<false, true>(x, w, b, probs, sample, B, K, N, inv_T,
-                                   seed, stream);
+                                float* scratch, int* tickets, int B, int K,
+                                int N, int transpose_w, int tile_rows,
+                                int slices, int k_per_slice, float inv_T,
+                                unsigned long long seed, void* stream) {
+  return launch(x, w, b, probs, sample, scratch, tickets, B, K, N,
+                transpose_w != 0, tile_rows, slices, k_per_slice, inv_T,
+                seed, stream);
 }
 
 extern "C" int half_step_probs(const float* x, const float* w,
-                               const float* b, float* probs, int B, int K,
-                               int N, float inv_T, void* stream) {
-  return launch<false, false>(x, w, b, probs, nullptr, B, K, N, inv_T, 0,
-                              stream);
+                               const float* b, float* probs, float* scratch,
+                               int* tickets, int B, int K, int N,
+                               int tile_rows, int slices, int k_per_slice,
+                               float inv_T, void* stream) {
+  return launch(x, w, b, probs, nullptr, scratch, tickets, B, K, N, false,
+                tile_rows, slices, k_per_slice, inv_T, 0, stream);
 }
 
 // seed is the TPU kernel's int32 seed; its 32 bits key Philox.
 extern "C" int half_step_sample_resident(const float* x, const float* w,
                                          const float* b, float* probs,
-                                         float* sample, int B, int K, int N,
-                                         float inv_T, unsigned int seed,
-                                         void* stream) {
-  return launch<false, true>(x, w, b, probs, sample, B, K, N, inv_T,
-                             (uint64_t)seed, stream);
+                                         float* sample, float* scratch,
+                                         int* tickets, int B, int K, int N,
+                                         int tile_rows, int slices,
+                                         int k_per_slice, float inv_T,
+                                         unsigned int seed, void* stream) {
+  return launch(x, w, b, probs, sample, scratch, tickets, B, K, N, false,
+                tile_rows, slices, k_per_slice, inv_T, (uint64_t)seed,
+                stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -43,15 +43,18 @@ def nvcc_path() -> str:
 class CudaLibrary:
     """One kernel source, its built library and its launch counts.
 
-    ``functions`` maps each exported C function to its ctypes argtypes;
-    every exported launcher returns a ``cudaError_t`` as int.
-    ``launches`` counts the kernel launches made through ``launch``, and
-    ``launches_by_entry`` the launches of each exported launcher.
+    ``functions`` maps each exported C launcher to its ctypes argtypes;
+    every one returns a ``cudaError_t`` as int. ``launches`` counts the
+    kernel launches made through ``launch``, and ``launches_by_entry`` the
+    launches of each launcher. ``helpers`` are exported functions that
+    launch nothing (called through ``call``, never counted).
     """
 
-    def __init__(self, source: str, functions: Dict[str, Sequence]):
+    def __init__(self, source: str, functions: Dict[str, Sequence],
+                 helpers: Optional[Dict[str, Sequence]] = None):
         self.source = CSRC / source
         self.functions = dict(functions)
+        self.helpers = dict(helpers or {})
         self.launches_by_entry = dict.fromkeys(self.functions, 0)
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -106,7 +109,8 @@ class CudaLibrary:
         if self._lib is None:
             self.finish_build(self.start_build())
             lib = ctypes.CDLL(str(self.so_path))
-            for name, argtypes in self.functions.items():
+            for name, argtypes in {**self.functions,
+                                   **self.helpers}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -115,16 +119,22 @@ class CudaLibrary:
             self._lib = lib
         return self._lib
 
+    def _check(self, name: str, err: int, what: str) -> None:
+        if err != 0:
+            msg = self.lib().kernel_error_string(err).decode()
+            raise RuntimeError(f"{self.source.name}:{name} {what} failed: "
+                               f"{msg} ({err})")
+
     def launch(self, name: str, *args) -> None:
         """Call one exported launcher on the current stream; count it and
         raise if the launch was refused."""
-        lib = self.lib()
-        err = getattr(lib, name)(*args)
+        err = getattr(self.lib(), name)(*args)
         self.launches_by_entry[name] += 1
-        if err != 0:
-            msg = lib.kernel_error_string(err).decode()
-            raise RuntimeError(f"{self.source.name}:{name} launch failed: "
-                               f"{msg} ({err})")
+        self._check(name, err, "launch")
+
+    def call(self, name: str, *args) -> None:
+        """Call one helper, which launches nothing; raise on an error."""
+        self._check(name, getattr(self.lib(), name)(*args), "call")
 
 
 def build_all(libs: Iterable[CudaLibrary]) -> None:
@@ -141,7 +151,15 @@ def build_all(libs: Iterable[CudaLibrary]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device as a ``cudaStream_t``
+    (through torch's raw accessor where it has one: several times cheaper
+    than building a ``torch.cuda.Stream``, and a half-step is short)."""
+    if _RAW_STREAM is not None and t.device.index is not None:
+        return ctypes.c_void_p(_RAW_STREAM(t.device.index))
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 

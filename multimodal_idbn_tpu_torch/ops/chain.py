@@ -20,12 +20,26 @@ in pallas_chain.py:207-209.
 ``rbm_ops.conditional_gibbs`` (mean-field) and
 ``rbm_ops.noisy_meanfield_annealed`` call ``clamped_chain``: the kernel on
 CUDA tensors, ``chain_plain`` on CPU tensors.
+
+On an H100 a chain is 60-101 small products in strict sequence, so it is
+bound by how much of the card works on each one and by the latency between
+them. The kernel is one cooperative launch of a grid that is resident as a
+whole: every half-step is a split-K product over all blocks followed by a
+finishing pass, with grid barriers between (``csrc/chain.cu``). The wrapper
+asks the library for the launch's plan (``plan``: tile, grid, slices,
+barriers), allocates the state and partial-product scratch the plan needs
+and a zeroed barrier counter, and enqueues no host-to-device copy when the
+schedule already lies on the device (``rbm_ops`` keeps its schedules
+there) and the groups were seen before. W is used as it is in both
+directions: no transposed copy is made. The kernel has no limit on V, H or
+B; a launch the card refuses raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,12 +49,36 @@ from multimodal_idbn_tpu_torch.ops.sampling import (SoftmaxGroups,
                                                     clamp_mask)
 
 KERNEL = _cuda.CudaLibrary("chain.cu", {
-    "chain_run": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p],
+    "chain_run": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p],
+}, helpers={
+    "chain_plan": [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
 })
-_ROWS_PER_BLOCK = 4    # R in csrc/chain.cu
 _MAX_GROUPS = 8        # MAX_GROUPS in csrc/chain.cu
-_MAX_SMEM = 232448     # bytes of shared memory one block may use on sm_90
+_PLAN_FIELDS = ("tile_rows", "grid", "slices_h", "slices_v",
+                "partial_floats", "barriers")
+
+
+def plan(B: int, V: int, H: int, n_steps: int, final_unclamped: bool, *,
+         tile_rows: int = 0, max_grid: int = 0) -> Dict[str, int]:
+    """The launch the library would make for this chain on the current
+    CUDA device: block tile rows, grid size (all blocks resident), k-slices
+    of the hidden and the visible half, floats of partial-product scratch
+    and the number of grid barriers. ``tile_rows`` and ``max_grid``
+    > 0 override the tile and cap the blocks (for measurements; the port
+    launches with 0, the library's own choice)."""
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    KERNEL.call("chain_plan", B, V, H, max(0, int(n_steps)),
+                int(final_unclamped), tile_rows, max_grid, out)
+    return dict(zip(_PLAN_FIELDS, (int(x) for x in out)))
+
+
+@functools.lru_cache(maxsize=64)
+def _groups_on(device: torch.device,
+               groups: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    """Flat int32 (start, end) pairs on ``device``, copied there once."""
+    return torch.tensor(groups, dtype=torch.int32).reshape(-1).to(device)
 
 
 def _check(w, hb, vb, v_init, v_known, km, sched, groups, mu) -> None:
@@ -115,26 +153,40 @@ def clamped_chain(w, hb, vb, v_init, v_known, km, sched, *,
         raise RuntimeError("the deterministic sampler mode is a CPU test "
                            "hook; the CUDA kernel draws real noise")
     _check(w, hb, vb, v_init, v_known, km, sched, groups, mu)
+    return _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
+                   final_unclamped)
+
+
+def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
+            final_unclamped, *, tile_rows: int = 0,
+            max_grid: int = 0) -> torch.Tensor:
     B, V = v_init.shape
     H = w.shape[1]
-    if 4 * _ROWS_PER_BLOCK * (2 * V + H) > _MAX_SMEM:
-        raise ValueError(f"V={V}, H={H} exceed the chain kernel's shared "
-                         f"memory")
     dev = v_init.device
     sched = sched.to(device=dev, dtype=torch.float32).contiguous()
     if mu is not None:
         mu = mu.contiguous()
-    wt = w.T.contiguous()  # once per call, as pallas_chain.py:197
-    gr = (torch.tensor(groups, dtype=torch.int32, device=dev).reshape(-1)
+    gr = (_groups_on(dev, tuple((int(s), int(e)) for s, e in groups))
           if groups else None)
-    _cuda.check_cuda_operands(w, wt, hb, vb, v_init, v_known, km, mu, sched)
+    _cuda.check_cuda_operands(w, hb, vb, v_init, v_known, km, mu, sched)
     out = torch.empty((B, V), device=dev)
+    if B == 0:
+        return out
+    p = plan(B, V, H, sched.shape[0], final_unclamped, tile_rows=tile_rows,
+             max_grid=max_grid)
+    v = torch.empty((B, -(-V // 4) * 4), device=dev)
+    h = torch.empty((B, -(-H // 4) * 4), device=dev)
+    logits = torch.empty((B, V), device=dev)
+    partial = torch.empty((p["partial_floats"],), device=dev)
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
     KERNEL.launch(
-        "chain_run", _cuda.ptr(w), _cuda.ptr(wt), _cuda.ptr(hb),
-        _cuda.ptr(vb), _cuda.ptr(v_init), _cuda.ptr(v_known), _cuda.ptr(km),
-        _cuda.ptr(mu), _cuda.ptr(sched), _cuda.ptr(gr), _cuda.ptr(out),
-        B, V, H, sched.shape[0], len(groups),
+        "chain_run", _cuda.ptr(w), _cuda.ptr(hb), _cuda.ptr(vb),
+        _cuda.ptr(v_init), _cuda.ptr(v_known), _cuda.ptr(km), _cuda.ptr(mu),
+        _cuda.ptr(sched), _cuda.ptr(gr), _cuda.ptr(out), _cuda.ptr(v),
+        _cuda.ptr(h), _cuda.ptr(logits), _cuda.ptr(partial),
+        _cuda.ptr(barrier), B, V, H, sched.shape[0], len(groups),
         0 if mu is None else mu.shape[1], int(seed is not None),
         0 if seed is None else int(seed) & ((1 << 64) - 1),
-        int(final_unclamped), _cuda.stream_handle(v_init))
+        int(final_unclamped), tile_rows, max_grid,
+        _cuda.stream_handle(v_init))
     return out

@@ -23,26 +23,124 @@ to bf16. On CUDA tensors a wrapper launches the kernel (or raises); on
 CPU tensors it runs the plain version, which reproduces the kernel's
 uniforms bit for bit. Launches are counted per entry
 (``KERNEL.launches_by_entry``).
+
+On an H100 the product is bound by operations (at the flagship first
+layer 57 µs on the fp32 CUDA cores, 23 µs as three TF32 tensor-core
+passes, which is how the kernel keeps fp32 accuracy) and is skinny: at
+most 128 batch rows, so output tiles alone give 8 to 48 blocks for 132
+SMs. The kernel therefore also splits the contraction across blocks.
+``plan`` chooses the block tile and the number of k-slices from (B, K, N)
+alone; with more than one slice the wrapper hands the kernel a scratch
+buffer for the partial products and zeroed ticket counters, both kept per
+stream, and the block that arrives last at an output tile sums the slices
+in fixed order before the fused epilogue. The result does not depend on
+the order in which blocks run: the same inputs give the same bits on
+every launch and through every entry.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from multimodal_idbn_tpu_torch.ops import _cuda, rng
 
 KERNEL = _cuda.CudaLibrary("half_step.cu", {
-    "half_step_sample": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    "half_step_sample": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p],
-    "half_step_probs": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "half_step_probs": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
-    "half_step_sample_resident": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p],
 })
 _INT32 = (-(1 << 31), (1 << 31) - 1)
+
+# The block tile of csrc/gemm_tile.cuh: 64 columns, k-tiles of 16, and 32
+# rows, or 64 for the large products of a full batch.
+_TILE_COLS = 64
+_TILE_K = 16
+_TARGET_BLOCKS = 396        # three blocks for each of an H100's 132 SMs
+_MIN_K_TILES_PER_SLICE = 8  # a shorter slice is all latency
+_MAX_K_TILES_PER_SLICE = 64  # 1024 terms: the tensor cores truncate when
+#                              they add to a sum, so a slice is kept short
+_LARGE_PRODUCT = 1 << 23    # K * N from which the 64-row tile pays
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, K: int, N: int) -> Tuple[int, int, int]:
+    """(tile_rows, slices, k_per_slice) of one half-step: the block tile's
+    rows (32 or 64), the number of k-slices the contraction is split into
+    and the length of a slice, a multiple of 16. A pure function of the
+    shape, the same on every device, so that a result never depends on
+    where or when it is computed. ``slices * k_per_slice >= K`` and no
+    slice is empty. Chosen from the sweep of ``bench_kernels`` on an H100:
+    about three blocks per SM, slices of 128 to 1024 terms."""
+    tile_rows = 64 if B > 32 and K * N >= _LARGE_PRODUCT else 32
+    tiles = _ceil_div(B, tile_rows) * _ceil_div(N, _TILE_COLS)
+    k_tiles = max(1, _ceil_div(K, _TILE_K))
+    slices = max(1, min(k_tiles // _MIN_K_TILES_PER_SLICE,
+                        _ceil_div(_TARGET_BLOCKS, tiles)))
+    per_slice = min(_ceil_div(k_tiles, slices), _MAX_K_TILES_PER_SLICE)
+    return tile_rows, _ceil_div(k_tiles, per_slice), per_slice * _TILE_K
+
+
+_WORKSPACES: Dict[Tuple[torch.device, Optional[int]],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: Optional[int], n_floats: int,
+               n_tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scratch for the slices' partial products, zeroed int32 ticket
+    counters) of at least the given sizes, kept per (device, stream):
+    launches on one stream run in order, so they can share both, and the
+    kernel leaves the tickets zero again. While a CUDA graph is being
+    captured the buffers are allocated anew, so that they belong to the
+    graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty(n_floats, device=device),
+                torch.zeros(n_tiles, dtype=torch.int32, device=device))
+    key = (device, stream)
+    held = _WORKSPACES.get(key)
+    if held is None or held[0].numel() < n_floats \
+            or held[1].numel() < n_tiles:
+        held = (torch.empty(max(n_floats, 1 << 22), device=device),
+                torch.zeros(max(n_tiles, 4096), dtype=torch.int32,
+                            device=device))
+        _WORKSPACES[key] = held
+    return held
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            n_out: int, B: int, K: int, N: int, head: Tuple[int, ...],
+            tail: Tuple, *, tiling: Optional[Tuple[int, int, int]] = None
+            ) -> Tuple[torch.Tensor, ...]:
+    """Launch one entry and return its ``n_out`` outputs, each [B, N]
+    (one allocation, cut once: a half-step is short, and the host's time
+    to enqueue it counts). The C arguments are the operands, the outputs,
+    scratch and tickets, the shape, ``head`` (the transpose flag, where
+    the entry has one), the tiling, then ``tail`` (1/T and the seed, where
+    the entry has one)."""
+    tile_rows, slices, k_per_slice = tiling or plan(B, K, N)
+    stream = _cuda.stream_handle(x)
+    out = torch.empty((n_out, B, N), device=x.device)
+    base = out.data_ptr()
+    scratch = tickets = None
+    if slices > 1:
+        scratch, tickets = _workspace(
+            x.device, stream.value, slices * B * _ceil_div(N, 4) * 4,
+            _ceil_div(B, tile_rows) * _ceil_div(N, _TILE_COLS))
+    KERNEL.launch(entry, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  *(base + 4 * B * N * i for i in range(n_out)),
+                  _cuda.ptr(scratch), _cuda.ptr(tickets), B, K, N, *head,
+                  tile_rows, slices, k_per_slice, *tail, stream)
+    return out.unbind(0)
 
 
 def _out_dim(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -82,12 +180,9 @@ def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     N = _out_dim(x, w, b, transpose_w)
     _cuda.check_cuda_operands(x, w, b)
     B, K = x.shape
-    probs = torch.empty((B, N), device=x.device)
-    sample = torch.empty((B, N), device=x.device)
-    KERNEL.launch("half_step_sample", _cuda.ptr(x), _cuda.ptr(w),
-                  _cuda.ptr(b), _cuda.ptr(probs), _cuda.ptr(sample), B, K, N,
-                  int(transpose_w), 1.0 / max(1e-6, T),
-                  int(seed) & ((1 << 64) - 1), _cuda.stream_handle(x))
+    probs, sample = _launch(
+        "half_step_sample", x, w, b, 2, B, K, N, (int(transpose_w),),
+        (1.0 / max(1e-6, T), int(seed) & ((1 << 64) - 1)))
     return probs, sample
 
 
@@ -107,11 +202,8 @@ def half_step_probs(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     H = _out_dim(v, w, b, False)
     _cuda.check_cuda_operands(v, w, b)
     B, V = v.shape
-    probs = torch.empty((B, H), device=v.device)
-    KERNEL.launch("half_step_probs", _cuda.ptr(v), _cuda.ptr(w),
-                  _cuda.ptr(b), _cuda.ptr(probs), B, V, H,
-                  1.0 / max(1e-6, T), _cuda.stream_handle(v))
-    return probs
+    return _launch("half_step_probs", v, w, b, 1, B, V, H, (),
+                   (1.0 / max(1e-6, T),))[0]
 
 
 def hidden_probs_kernel(state, v: torch.Tensor, T=1.0) -> torch.Tensor:
@@ -152,9 +244,6 @@ def half_step_sample_resident(v: torch.Tensor, w: torch.Tensor,
     key = _resident_seed(seed)
     _cuda.check_cuda_operands(v, w, b)
     B, V = v.shape
-    probs = torch.empty((B, H), device=v.device)
-    sample = torch.empty((B, H), device=v.device)
-    KERNEL.launch("half_step_sample_resident", _cuda.ptr(v), _cuda.ptr(w),
-                  _cuda.ptr(b), _cuda.ptr(probs), _cuda.ptr(sample), B, V, H,
-                  1.0 / max(1e-6, T), key, _cuda.stream_handle(v))
+    probs, sample = _launch("half_step_sample_resident", v, w, b, 2, B, V, H,
+                            (), (1.0 / max(1e-6, T), key))
     return probs, sample

@@ -23,6 +23,7 @@ joint RBM, which has a softmax group, uses.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -184,7 +185,7 @@ def conditional_gibbs(state: RBMState, key: int, v_known: torch.Tensor,
     v = _chain_init(rng.fold_in(key, 0), v_known, known_mask)
     n_steps = int(n_steps)
     if not sample_h and not sample_v:
-        sched = torch.tensor([[1.0, 0.0, 0.0]]).repeat(max(0, n_steps), 1)
+        sched = _meanfield_schedule_on(v.device, max(0, n_steps))
         return chain.clamped_chain(state.w, state.hb, state.vb, v, v_known,
                                    known_mask, sched, groups=groups,
                                    final_unclamped=True)
@@ -238,6 +239,24 @@ def annealed_schedule(n_steps: int, T0, T1, sigma0, sharpen_last: int,
                         schedules.mu_pull_eta(n_steps, eta0)], dim=1)
 
 
+@functools.lru_cache(maxsize=64)
+def _meanfield_schedule_on(device: torch.device, n_steps: int
+                           ) -> torch.Tensor:
+    """[n, 3] rows (1, 0, 0) of the plain mean-field chain on ``device``.
+    Cached, so a chain launch copies no schedule from the host."""
+    return torch.tensor([[1.0, 0.0, 0.0]]).repeat(n_steps, 1).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _annealed_schedule_on(device: torch.device, n_steps: int, T0, T1,
+                          sigma0, sharpen_last: int, T_cold_plus, eta0
+                          ) -> torch.Tensor:
+    """``annealed_schedule`` on ``device``, built and copied there once
+    per distinct argument tuple (a run has a handful)."""
+    return annealed_schedule(n_steps, T0, T1, sigma0, sharpen_last,
+                             T_cold_plus, eta0).to(device)
+
+
 def noisy_meanfield_annealed(state: RBMState, key: int,
                              v_known: torch.Tensor,
                              known_mask: torch.Tensor, *,
@@ -260,8 +279,8 @@ def noisy_meanfield_annealed(state: RBMState, key: int,
     n_steps = int(n_steps)
     if n_steps <= 0:
         return v
-    sched = annealed_schedule(n_steps, T0, T1, sigma0, sharpen_last,
-                              T_cold_plus, eta0)
+    sched = _annealed_schedule_on(v.device, n_steps, T0, T1, sigma0,
+                                  sharpen_last, T_cold_plus, eta0)
     seed = rng.fold_in(key, 1) if sigma0 > 0 else None
     return chain.clamped_chain(state.w, state.hb, state.vb, v, v_known,
                                known_mask, sched, groups=groups, mu=mu_k,

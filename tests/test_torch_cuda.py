@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged small shapes the flagship run does not reach (batch not a multiple
-of the tiles, several softmax groups, zero-step chains).
+of the tiles, contraction lengths around the k-tiles and k-slices,
+several softmax groups and groups across tile boundaries, zero-step
+chains), and their run-to-run bit equality.
 
 Needs an NVIDIA GPU (marker ``cuda``); without one every test skips. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -168,3 +170,118 @@ def test_resident_seed_must_be_int32(dev):
         half_step.half_step_probs(x, w[:4], b)
     with rng.deterministic(), pytest.raises(RuntimeError):
         half_step.half_step_sample_resident(x, w, b, 0)
+
+
+# ---------------------------------------------------------------------------
+# Edges of the split-K tensor-core tile and of the cooperative chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B", [1, 12, 129])
+@pytest.mark.parametrize("K", [1, 77, 513, 10000])
+def test_half_step_tile_edges(dev, B, K, transpose):
+    """K below one k-tile, not a multiple of 4 (4-byte copies), ragged
+    across k-slices, and the first-layer length; batches below, at and
+    above the row tiles."""
+    g = torch.Generator().manual_seed(1000 * B + K)
+    N = 131
+    w = _rand(g, *((N, K) if transpose else (K, N)), dev=dev,
+              scale=K ** -0.5)
+    b = _rand(g, N, dev=dev, scale=0.1)
+    x = (torch.rand((B, K), generator=g) < 0.4).float().to(dev)
+    p_k, s_k = half_step.half_step_sample(x, w, b, 5, transpose_w=transpose)
+    p_p, s_p = half_step.half_step_plain(x, w, b, 5, transpose_w=transpose)
+    torch.cuda.synchronize()
+    assert float((p_k - p_p).abs().max()) <= TOL
+    u = rng.philox_uniform(5, B, N, device=dev)
+    assert not bool(((s_k != s_p) & ((p_p - u).abs() > TOL)).any())
+
+
+def test_half_step_refuses_non_contiguous(dev):
+    x = torch.zeros(4, 10, device=dev)[:, ::2]
+    w, b = torch.zeros(5, 3, device=dev), torch.zeros(3, device=dev)
+    with pytest.raises(ValueError):
+        half_step.half_step_sample(x, w, b, 0)
+    with pytest.raises(ValueError):
+        half_step.half_step_probs(x.contiguous(), w.T.contiguous().T, b)
+
+
+@pytest.mark.parametrize("B,K,N", [(128, 10000, 1500), (37, 1501, 499)])
+def test_half_step_entries_are_deterministic(dev, B, K, N):
+    """Two launches on the same inputs give the same bits, for every
+    entry, and the entries agree with each other."""
+    g = torch.Generator().manual_seed(K)
+    w = _rand(g, K, N, dev=dev, scale=K ** -0.5)
+    b = _rand(g, N, dev=dev, scale=0.1)
+    x = (torch.rand((B, K), generator=g) < 0.4).float().to(dev)
+    xt = (torch.rand((B, N), generator=g) < 0.4).float().to(dev)
+    bt = _rand(g, K, dev=dev, scale=0.1)
+    runs = [lambda: half_step.half_step_sample(x, w, b, 9),
+            lambda: half_step.half_step_sample(xt, w, bt, 9,
+                                               transpose_w=True),
+            lambda: (half_step.half_step_probs(x, w, b),),
+            lambda: half_step.half_step_sample_resident(x, w, b, 9)]
+    outs = []
+    for run in runs:
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(first, second))
+        outs.append(first)
+    assert torch.equal(outs[0][0], outs[2][0])
+    assert torch.equal(outs[2][0], outs[3][0])
+
+
+def _chain_case(dev, B, V, H, groups, n_steps, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = _rand(g, V, H, dev=dev, scale=V ** -0.5)
+    hb, vb = _rand(g, H, dev=dev, scale=0.1), _rand(g, V, dev=dev, scale=0.1)
+    vk = torch.rand((B, V), generator=g).to(dev)
+    km = (torch.rand((B, V), generator=g) < 0.3).float().to(dev)
+    v0 = vk * km + (1 - km) * torch.rand((B, V), generator=g).to(dev)
+    sched = rbm_ops.annealed_schedule(n_steps, 3.0, 1.0, 0.9, 2, 0.9, 0.15)
+    mu = torch.rand((B, min(V, 40)), generator=g).to(dev)
+    return (w, hb, vb, v0, vk, km, sched), dict(groups=groups, mu=mu)
+
+
+@pytest.mark.parametrize("B,V,H,groups", [
+    (37, 200, 90, ((56, 72), (120, 200))),       # groups across tile edges
+    (9, 300, 70, tuple((30 * i, 30 * i + 17) for i in range(8))),  # 8 groups
+    (1, 77, 33, ((3, 9),)), (129, 77, 130, ((60, 70),)),
+    (128, 532, 500, ((500, 532),))])
+def test_chain_tiles_and_groups(dev, B, V, H, groups):
+    args, kw = _chain_case(dev, B, V, H, groups, 6, B + V)
+    for extra in (dict(seed=3), dict(seed=None, final_unclamped=True)):
+        out_k = chain.clamped_chain(*args, **kw, **extra)
+        out_p = chain.chain_plain(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        assert float((out_k - out_p).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_chain_zero_steps(dev, final):
+    args, kw = _chain_case(dev, 37, 200, 90, ((56, 72),), 0, 1)
+    out_k = chain.clamped_chain(*args, **kw, final_unclamped=final)
+    out_p = chain.chain_plain(*args, **kw, final_unclamped=final)
+    torch.cuda.synchronize()
+    assert float((out_k - out_p).abs().max()) <= TOL
+    if not final:
+        assert torch.equal(out_k, args[3])
+
+
+@pytest.mark.parametrize("B,V,H,groups", [
+    (128, 2500, 1500, ()), (37, 131, 77, ((60, 70), (100, 131)))])
+def test_chain_is_deterministic_and_launches_cooperatively(dev, B, V, H,
+                                                           groups):
+    """The cooperative launch is taken at the bimodal joint (every block of
+    the planned grid resident), and two launches give the same bits."""
+    args, kw = _chain_case(dev, B, V, H, groups, 8, V)
+    plan = chain.plan(B, V, H, 8, False)
+    assert plan["grid"] >= 1 and plan["barriers"] == 1 + 4 * 8
+    before = chain.KERNEL.launches
+    first = chain.clamped_chain(*args, **kw, seed=4)
+    second = chain.clamped_chain(*args, **kw, seed=4)
+    torch.cuda.synchronize()
+    assert chain.KERNEL.launches == before + 2
+    assert torch.equal(first, second)
+    assert float((first - chain.chain_plain(*args, **kw, seed=4)).abs().max()
+                 ) <= TOL
