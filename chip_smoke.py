@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    kernel, plain version and, for the half-steps, the one-call library
    yardstick ``addmm`` + ``sigmoid`` (``ms``: back-to-back calls through
    the wrapper; ``graph_ms``: the same calls replayed from a CUDA graph,
-   device time without the host):
+   device time without the host; for the chain also ``device_ms``: one
+   launch between two CUDA events):
    - the sampled half-step at every layer shape of both paths, and at two
      edge shapes (K not a multiple of 4 at batch 12: the 4-byte copies;
      K shorter than one k-slice),
@@ -22,7 +23,8 @@ Phases, each fatal on failure:
    - the chain at the flagship joint (532×500, batch 128 and 12, and with
      a second softmax group that straddles a 64-column tile boundary) and
      at the bimodal joint layer 0 (2500×1500, batch 128 and the ragged
-     remainder of 12),
+     remainder of 12), and at the flagship joint at the batch sizes a
+     serving request brings (1, 3, 96, 200; 50 steps, both families),
    - determinism: every entry launched twice on the same inputs must
      return bit-equal tensors, at the first-layer shape and a ragged one;
 3. the RBM learns: ``RBM(64, 32)`` on noisy bars through the fused CD
@@ -39,7 +41,30 @@ Phases, each fatal on failure:
    ``half_step.half_step_sample_resident``) on the trained bimodal model,
    encoding MOD2 images and the joint input of one batch, with the counts
    reset just before and read just after. No training path calls these
-   two, as in the JAX package, where only tests call their TPU kernels.
+   two, as in the JAX package, where only tests call their TPU kernels;
+6. save -> load -> serve: the trained flagship-cut model is pickled
+   (``save_model``), loaded into fresh objects on the card
+   (``iMDBN.load_model`` + ``from_payload``) and served through
+   ``txt2img`` (all 32 labels x 4, and 3 labels), ``img2txt`` (128 images,
+   and 1) and ``sample_txt2img`` (128 rows). Every state of the loaded
+   model and, under one seed, every output must be bit-equal to the
+   trained model's; ``txt2img`` and ``img2txt`` must launch the chain
+   kernel once and no half-step, ``sample_txt2img`` no kernel; the chain
+   is held against its plain version at the request-sized batches 1, 3,
+   96 and 200;
+7. ``python -m multimodal_idbn_tpu_torch.generate`` as a subprocess on
+   that pickle, sampled and ``--mean``; the ``--mean`` images must equal
+   phase 6's ``txt2img``;
+8. resume: flagship-cut with checkpoints (``cuts.RESUME``) once
+   uninterrupted, and stopped right after a checkpoint write in the image
+   phase, inside the joint warm-up and after the warm-up boundary, each
+   resumed by running the entry point again on the same config; the same
+   for bimodal-cut's joint phase. Final states and metric histories must
+   be bit-equal to the uninterrupted run's, a changed learning rate must
+   refuse to resume, and the checkpoints must be gone after a completed
+   run;
+9. ``train_with_retry`` (two image epochs, one retry allowed) and
+   ``finetune_image_last_layer`` (one epoch) at full width.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -49,6 +74,7 @@ package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -101,6 +127,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: the median over ``reps`` calls of the time
+    between two CUDA events recorded on the stream just before and just
+    after the call. For a call that is one kernel launch (the chain) this
+    is the kernel's time plus the wrapper's barrier memset."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 def bounds(flops: float, nbytes: float):
@@ -369,6 +415,7 @@ def check_chain(dev):
     and the aux-CD init of the bimodal joint layer 0 (2500×1500, no group)
     at batch 128 and at the remainder of 12."""
     import torch
+    from multimodal_idbn_tpu_torch.bench_kernels import graph_ms
     from multimodal_idbn_tpu_torch.ops import chain, rbm_ops
     aux_sched = rbm_ops.annealed_schedule(30, 3.0, 1.0, 0.9, 2, 0.9,
                                           0.15).to(dev)
@@ -407,6 +454,25 @@ def check_chain(dev):
                          torch.zeros((Bb, 1000), device=dev)], 1)
         cases.append((f"bimodal noisy 30 steps B={Bb}", jb, jb["z"] * km1,
                       km1, aux_sched, (), None, 0xFACE, False, True))
+    # the flagship joint at the batch sizes a serving request brings
+    for Br in (1, 3, 96, 200):
+        jr = chain_inputs(dev, Br, Dz + K, 500, Dz, 10 + Br)
+        yr = torch.nn.functional.one_hot(
+            torch.arange(Br) % K, K).float().to(dev)
+        km_r = torch.cat([torch.ones((Br, Dz), device=dev),
+                          torch.zeros((Br, K), device=dev)], 1)
+        cases.append((f"serving txt2img B={Br}: noisy 50 steps + mu", jr,
+                      torch.cat([torch.zeros((Br, Dz), device=dev), yr], 1),
+                      1.0 - km_r,
+                      rbm_ops.annealed_schedule(50, 3.0, 1.0, 0.9, 3, 0.9,
+                                                0.15).to(dev), groups,
+                      jr["mu"], 0x5E21 + Br, False, True))
+        cases.append((f"serving img2txt B={Br}: mean-field 50 steps + final",
+                      jr, torch.cat([jr["z"][:, :Dz],
+                                     torch.zeros((Br, K), device=dev)], 1),
+                      km_r,
+                      torch.tensor([[1.0, 0.0, 0.0]]).repeat(50, 1).to(dev),
+                      groups, None, None, True, True))
     rows = {}
     for name, j, vk, km, sched, groups, mu, seed, final, timed in cases:
         Bc, V = vk.shape
@@ -431,16 +497,20 @@ def check_chain(dev):
         if timed:
             n = sched.shape[0]
             ms = time_ms(lambda: chain.clamped_chain(*args, **kw), 5)
+            device_ms = launch_ms(lambda: chain.clamped_chain(*args, **kw))
+            gms = graph_ms(lambda: chain.clamped_chain(*args, **kw), 10)
             plain_ms = time_ms(lambda: chain.chain_plain(*args, **kw), 3)
             bnd = bounds(
                 (n + int(final)) * 2 * 2.0 * Bc * V * H,
                 4.0 * (V * H + V + H + 4 * Bc * V
                        + (0 if mu is None else mu.numel()) + 3 * n))
             rows[name] = dict(shape=name, max_abs_err=err, ms=ms,
+                              device_ms=device_ms, graph_ms=gms,
                               plain_ms=plain_ms, library_ms=None,
                               grid=plan["grid"], barriers=plan["barriers"],
                               **bnd)
-            log(f"[chain] {name}: kernel {ms:.4f} ms, plain "
+            log(f"[chain] {name}: kernel {ms:.4f} ms (one launch between "
+                f"events {device_ms:.4f}, graph replay {gms:.4f}), plain "
                 f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
                 f"({bnd['bound_by']}), fp32 bound "
                 f"{bnd['bound_fp32_ms']:.4f} ms")
@@ -564,6 +634,354 @@ def run_resident_drive(dev, model):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Save -> load -> serve, generate, resume, retry and fine-tune
+# ---------------------------------------------------------------------------
+
+def model_states(model):
+    """Every parameter and momentum tensor of a model, by name."""
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    return {f"{name}/{f}": getattr(rbm.state, f)
+            for name, rbm in _collect_rbms(model).items()
+            for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m")}
+
+
+def assert_bit_equal(a, b, what: str) -> None:
+    import torch
+    sa, sb = model_states(a), model_states(b)
+    if sorted(sa) != sorted(sb):
+        raise AssertionError(f"{what}: different sets of states")
+    for k in sa:
+        if not torch.equal(sa[k], sb[k]):
+            diff = float((sa[k] - sb[k]).abs().max())
+            raise AssertionError(f"{what}: {k} differs (max abs {diff:.3e})")
+    for attr in ("z_class_mean",):
+        za, zb = getattr(a, attr, None), getattr(b, attr, None)
+        if (za is None) != (zb is None) or (
+                za is not None and not torch.equal(za, zb)):
+            raise AssertionError(f"{what}: {attr} differs")
+
+
+def timed_call(fn):
+    """(result, wall ms on the host clock around the synchronised call,
+    ms between CUDA events just before and just after it)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def busy_ms(fn):
+    """(device busy ms, kernel launches) of one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_idbn_tpu_torch.profile_main_path import _device_kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, busy, _ = _device_kernels(prof)
+    return busy / 1e3, len(kernels)
+
+
+SERVE_SEED = 20261
+
+
+def run_serving(dev, model, workdir: Path):
+    """Phase 6. Returns (launches of the serving drive, the pickle's path,
+    the txt2img images of all 32 labels x 4 under SERVE_SEED)."""
+    import numpy as np
+    import torch
+    from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+    from multimodal_idbn_tpu_torch.models import iMDBN
+
+    pkl = workdir / "served.pkl"
+    t0 = time.perf_counter()
+    model.save_model(str(pkl))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = iMDBN.load_model(str(pkl))
+    loaded = iMDBN.from_payload(payload)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[serve] pickle {pkl.stat().st_size / 2**20:.1f} MiB, written in "
+        f"{save_s:.3f} s, loaded onto the card in {load_s:.3f} s")
+    if loaded.device.type != "cuda" or not loaded.joint_rbm.W.is_cuda:
+        raise AssertionError("the loaded model is not on the card")
+    if loaded.params is not payload["params"] or \
+            loaded.image_idbn.params is not loaded.params:
+        raise AssertionError("from_payload broke the shared params object")
+    assert_bit_equal(model, loaded, "loaded model vs trained model")
+
+    # 128 unseen images at the flagship's size (its cut's own validation
+    # split holds 58)
+    images = create_dataloaders_uniform(
+        batch_size=128, num_classes=32, n_samples=1024, side=100,
+        seed=1)[1].materialize()[0][:128]
+    all_labels = np.repeat(np.arange(32), 4)
+    calls = {  # name: (call, chain launches, result rows)
+        "txt2img B=128": (lambda m: m.txt2img(all_labels), 1, 128),
+        "txt2img B=3": (lambda m: m.txt2img([3, 7, 12]), 1, 3),
+        "img2txt B=128": (lambda m: m.img2txt(images), 1, 128),
+        "img2txt B=1": (lambda m: m.img2txt(images[:1]), 1, 1),
+        "sample_txt2img B=128": (
+            lambda m: m.sample_txt2img(all_labels, seed=SERVE_SEED), 0, 128),
+        "sample_txt2img B=3": (
+            lambda m: m.sample_txt2img([3, 7, 12], seed=SERVE_SEED), 0, 3),
+    }
+    outputs = {}
+    for name, (call, want_chain, rows) in calls.items():
+        for m in (model, loaded):
+            m.joint_rbm.reseed(SERVE_SEED)
+        reset_launches()
+        out = call(model)
+        launches = read_launches()
+        out_loaded = call(loaded)
+        torch.cuda.synchronize()
+        half_steps = sum(v for k, v in launches.items() if k != "chain_run")
+        if launches["chain_run"] != want_chain or half_steps:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want_chain} chain and no half-step")
+        if out.shape[0] != rows or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+        if not torch.equal(out, out_loaded):
+            raise AssertionError(f"{name}: the loaded model's output differs "
+                                 f"from the trained model's")
+        if name.startswith("img2txt"):
+            off = float((out.sum(dim=1) - 1.0).abs().max())
+            if not off <= 1e-5:
+                raise AssertionError(f"{name}: rows sum to 1 +- {off:.2e}")
+        elif float(out.min()) < 0.0 or float(out.max()) > 1.0:
+            raise AssertionError(f"{name}: pixels outside [0, 1]")
+        outputs[name] = out
+        _, wall, ev = timed_call(lambda: call(loaded))
+        busy, kernels = busy_ms(lambda: call(loaded))
+        log(f"[serve] {name}: wall {wall:.3f} ms, between CUDA events "
+            f"{ev:.3f} ms, device busy {busy:.3f} ms in {kernels} device "
+            f"operations; launches {json.dumps(launches)}")
+    again = loaded.sample_txt2img(all_labels, seed=SERVE_SEED)
+    other = loaded.sample_txt2img(all_labels, seed=SERVE_SEED + 1)
+    if not torch.equal(again, outputs["sample_txt2img B=128"]) or \
+            torch.equal(other, again):
+        raise AssertionError("sample_txt2img: one seed must give one draw "
+                             "and two seeds two")
+    reset_launches()
+    for call, _, _ in calls.values():
+        call(loaded)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[serve] serving drive (six calls on the loaded model): launches "
+        f"{json.dumps(launches)}")
+    if launches["chain_run"] != 4:
+        raise AssertionError(f"serving drive: {launches}")
+    return launches, pkl, outputs["txt2img B=128"]
+
+
+def run_generate(pkl: Path, workdir: Path, mean_images):
+    """Phase 7: the serving entry point as a user runs it, both modes
+    started together."""
+    import numpy as np
+    labels = [str(i) for i in range(32)]
+    procs = {}
+    try:
+        for mode in ("sampled", "mean"):
+            out = workdir / f"generate-{mode}.npz"
+            procs[mode] = (out, subprocess.Popen(
+                [sys.executable, "-m", "multimodal_idbn_tpu_torch.generate",
+                 "--model", str(pkl), "--labels", *labels, "--n-per-label",
+                 "4", "--seed", str(SERVE_SEED), "--out", str(out)]
+                + (["--mean"] if mode == "mean" else []),
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        t0 = time.perf_counter()
+        for mode, (out, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"generate ({mode}) exited with "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("[generate]")][-1]
+            with np.load(out) as f:
+                imgs, ids = f["images"], f["labels"]
+            if imgs.shape != (128, 10000) or ids.shape != (128,) or \
+                    not np.array_equal(ids, np.repeat(np.arange(32), 4)):
+                raise AssertionError(f"generate ({mode}): shapes "
+                                     f"{imgs.shape}, {ids.shape}")
+            if not np.isfinite(imgs).all() or imgs.min() < 0 or \
+                    imgs.max() > 1:
+                raise AssertionError(f"generate ({mode}): values outside "
+                                     f"[0, 1]")
+            if mode == "mean" and not np.array_equal(
+                    imgs, mean_images.cpu().numpy()):
+                raise AssertionError("generate --mean differs from txt2img "
+                                     "under the same seed")
+            log(f"[generate] {mode}: exit 0 after "
+                f"{time.perf_counter() - t0:.1f} s; {line}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+class Interrupted(Exception):
+    """Raised right after a checkpoint write, as a kill there would."""
+
+
+@contextlib.contextmanager
+def interrupt_after(at_phase: str, at_epoch: int):
+    """Inside the block, the save of the ``at_phase`` checkpoint that
+    resumes at ``at_epoch`` is written and then raises ``Interrupted``."""
+    from multimodal_idbn_tpu_torch import checkpoint
+    real = checkpoint.save_train_checkpoint
+
+    def interrupting(model, path, phase, next_epoch, loss_history=None):
+        real(model, path, phase=phase, next_epoch=next_epoch,
+             loss_history=loss_history)
+        if phase == at_phase and int(next_epoch) == at_epoch:
+            raise Interrupted(f"{phase} checkpoint of epoch {next_epoch}")
+
+    checkpoint.save_train_checkpoint = interrupting
+    try:
+        yield
+    finally:
+        checkpoint.save_train_checkpoint = real
+
+
+def run_resume(name: str, stops, workdir: Path):
+    """Phase 8 for one cut. ``stops`` are (phase, next_epoch) pairs; each
+    is a run interrupted right after that checkpoint write and then run
+    again with the same config. Returns the launches of the last resumed
+    run."""
+    from multimodal_idbn_tpu_torch import cuts
+    over = cuts.RESUME[name]
+
+    def run(tag):
+        d = workdir / f"{name}-{tag}"
+        d.mkdir(exist_ok=True)
+        return cuts.run_cut(name, d, overrides=over), d
+
+    straight, sdir = run("straight")
+    if any((sdir / "checkpoints").iterdir()):
+        raise AssertionError(f"{name}: checkpoints left after a completed "
+                             f"run")
+    history = straight["model"].joint_metrics_history
+    log(f"[resume] {name}: uninterrupted run with checkpoints every "
+        f"{over['training']['checkpoint_every']} epochs, phase seconds "
+        f"{json.dumps(straight['seconds'])}")
+    launches = None
+    for i, (phase, epoch) in enumerate(stops):
+        tag = f"{phase}-{epoch}"
+        try:
+            with interrupt_after(phase, epoch):
+                run(tag)
+        except Interrupted:
+            pass
+        else:
+            raise AssertionError(f"{name}: no {phase} checkpoint of epoch "
+                                 f"{epoch} was written")
+        ckpt = workdir / f"{name}-{tag}" / "checkpoints" / f"{phase}.ckpt.npz"
+        if not ckpt.exists():
+            raise AssertionError(f"{name}: {ckpt} is missing")
+        size = ckpt.stat().st_size / 2**20
+        if i == 0:
+            # a changed learning rate must refuse to resume
+            changed = {"training": dict(over["training"],
+                                        learning_rate=0.05)}
+            try:
+                cuts.run_cut(name, workdir / f"{name}-{tag}",
+                             overrides=changed)
+            except ValueError as e:
+                if "was written by a run with different training " \
+                        "configuration (LEARNING_RATE: checkpoint=0.1 " \
+                        "run=0.05)" not in str(e):
+                    raise
+                log(f"[resume] {name}: a changed learning_rate refuses to "
+                    f"resume")
+            else:
+                raise AssertionError(f"{name}: a changed learning_rate "
+                                     f"resumed")
+        reset_launches()
+        resumed, rdir = run(tag)
+        launches = read_launches()
+        assert_bit_equal(straight["model"], resumed["model"],
+                         f"{name} resumed after the {phase} checkpoint of "
+                         f"epoch {epoch}")
+        if resumed["model"].joint_metrics_history != history:
+            raise AssertionError(f"{name}: joint_metrics_history differs "
+                                 f"after the resume from {tag}")
+        if any((rdir / "checkpoints").iterdir()):
+            raise AssertionError(f"{name}: checkpoints left after the "
+                                 f"resumed run")
+        log(f"[resume] {name}: stopped after the {phase} checkpoint of "
+            f"epoch {epoch} ({size:.1f} MiB), run again: states and "
+            f"{len(history)} epochs of joint metrics bit-equal to the "
+            f"uninterrupted run; launches {json.dumps(launches)}")
+    return launches, straight["model"]
+
+
+def time_checkpoint(model, workdir: Path, label: str) -> None:
+    from multimodal_idbn_tpu_torch import checkpoint
+    path = workdir / f"{label}.ckpt.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_train_checkpoint(model, str(path), phase="joint",
+                                     next_epoch=1)
+    log(f"[resume] {label} checkpoint: {path.stat().st_size / 2**20:.1f} "
+        f"MiB written in {time.perf_counter() - t0:.3f} s")
+    path.unlink()
+
+
+def run_retry_finetune(dev, workdir: Path):
+    """Phase 9: the retry rescue and the last-layer fine-tune at the
+    flagship's width, through the model's methods."""
+    import yaml
+    import torch
+    from multimodal_idbn_tpu_torch import cuts, train_multimodal
+    from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    cfg = yaml.safe_load(cuts.write_cut("flagship-cut", workdir).read_text())
+    params = train_multimodal.build_params(cfg)
+    train, val, _ = create_dataloaders_uniform(
+        batch_size=cfg["dataset"]["batch_size"],
+        num_classes=cfg["model"]["num_labels"],
+        n_samples=cfg["dataset"]["n_samples"], side=cfg["dataset"]["side"])
+    m = iMDBN(cfg["model"]["image_layers"], cfg["model"]["joint_hidden"],
+              params, train, val, device=dev,
+              num_labels=cfg["model"]["num_labels"], seed=params["SEED"])
+    reset_launches()
+    retries = m.image_idbn.train_with_retry(2, max_retries=1)
+    after_retry = read_launches()
+    ratio = m.image_idbn._recon_collapse_ratio()
+    lr_before = m.image_idbn.layers[-1].lr
+    reset_launches()
+    m.finetune_image_last_layer(epochs=1, lr_scale=0.3)
+    torch.cuda.synchronize()
+    after_ft = read_launches()
+    check_states(m.image_idbn.states(), [(10000, 1500), (1500, 500)])
+    log(f"[retry] train_with_retry(2 epochs, max_retries=1): {retries} "
+        f"retries, recon/blank ratio {ratio:.3f}, launches "
+        f"{json.dumps(after_retry)}; finetune_image_last_layer(1 epoch): "
+        f"launches {json.dumps(after_ft)}")
+    # 2 epochs x 3 batches x 2 layers x (1 + 2 x CD-10) half-steps per
+    # attempt; the fine-tune trains the top layer on 3 batches
+    want = 2 * 3 * 2 * 21 * (1 + retries)
+    if after_retry["half_step_sample"] != want or \
+            after_ft["half_step_sample"] != 3 * 21:
+        raise AssertionError(f"retry / fine-tune launches {after_retry} / "
+                             f"{after_ft}, expected {want} / 63 half-steps")
+    if m.image_idbn.layers[-1].lr != lr_before:
+        raise AssertionError("the fine-tune did not restore the learning "
+                             "rate")
+    total = {k: after_retry[k] + after_ft[k] for k in after_retry}
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -592,10 +1010,26 @@ def main() -> int:
         check_learns(dev)
         by_path = {}
         with tempfile.TemporaryDirectory() as tmp:
-            for name in ("flagship-cut", "bimodal-cut"):
-                by_path[name], summary = run_path(name, Path(tmp))
+            tmp = Path(tmp)
+            by_path["flagship-cut"], flagship = run_path("flagship-cut", tmp)
+            by_path["bimodal-cut"], summary = run_path("bimodal-cut", tmp)
             by_path["resident-drive"] = run_resident_drive(
                 dev, summary["model"])
+            del summary
+            by_path["serving-drive"], pkl, mean_images = run_serving(
+                dev, flagship["model"], tmp)
+            run_generate(pkl, tmp, mean_images)
+            del flagship, mean_images
+            by_path["resume-drive flagship"], model = run_resume(
+                "flagship-cut", (("image", 2), ("joint", 4), ("joint", 8),
+                                 ("joint", 10)), tmp)
+            time_checkpoint(model, tmp, "flagship-cut joint")
+            by_path["resume-drive bimodal"], model = run_resume(
+                "bimodal-cut", (("bimodal_joint", 4), ("bimodal_joint", 10)),
+                tmp)
+            time_checkpoint(model, tmp, "bimodal-cut joint")
+            del model
+            by_path["retry-finetune-drive"] = run_retry_finetune(dev, tmp)
     except Exception:
         traceback.print_exc()
         return 1

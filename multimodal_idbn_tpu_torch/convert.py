@@ -1,7 +1,7 @@
 """Carry parameters between the JAX package and the port as numpy arrays.
 
 Each layout is a flat mapping of names to arrays, written as ``.npz`` by a
-model's ``save_model``. The iMDBN layout (``models.imdbn.iMDBN``):
+model's ``export_npz``. The iMDBN layout (``models.imdbn.iMDBN``):
 
 - ``image.{i}.{field}`` for image layer i,
 - ``joint.{field}`` for the joint RBM,
@@ -14,11 +14,22 @@ layer i of each modality iDBN and of the joint stack.
 ``field`` runs over ``w, hb, vb, w_m, hb_m, vb_m``, the fields of the JAX
 package's ``RBMState`` (multimodal_idbn_tpu/ops/rbm_ops.py:36-44). From
 JAX: ``{f"image.{i}.{k}": np.asarray(v) for k, v in st._asdict().items()}``.
+
+``layout_from_checkpoint`` and ``checkpoint_from_layout`` rename between
+these layouts and the array names of the npz checkpoints that both
+packages' ``checkpoint.save_checkpoint`` write
+(``image_idbn/layer{i}/{field}``, ``joint_rbm/{field}``,
+``mod1_dbn/layer{i}/{field}``, ``mod2_dbn/layer{i}/{field}``,
+``joint/layer{i}/{field}``), so a checkpoint of either package can be read
+as a layout and a layout written as a checkpoint the other package's
+``load_checkpoint`` takes.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -103,3 +114,49 @@ def bimodal_to_numpy(mod1: Sequence[RBMState], mod2: Sequence[RBMState],
         for i, st in enumerate(states):
             out.update(state_to_numpy(st, f"{name}.{i}."))
     return out
+
+
+# (checkpoint prefix, layout prefix) of each RBM family; {i} is the layer
+_PREFIXES = (("image_idbn/layer{i}/", "image.{i}."),
+             ("joint_rbm/", "joint."),
+             ("mod1_dbn/layer{i}/", "mod1.{i}."),
+             ("mod2_dbn/layer{i}/", "mod2.{i}."),
+             ("joint/layer{i}/", "joint.{i}."))
+_SHARED = ("z_class_mean", "z_affine_scale", "z_affine_bias")
+
+
+def _rename(arrays: Mapping[str, np.ndarray], src: int
+            ) -> Dict[str, np.ndarray]:
+    """``arrays`` renamed from column ``src`` of ``_PREFIXES`` to the other
+    column; names of neither an RBM field nor ``_SHARED`` are dropped."""
+    rules = [(re.compile("^" + re.escape(pair[src]).replace(
+        re.escape("{i}"), r"(\d+)") + "(" + "|".join(FIELDS) + ")$"),
+        pair[1 - src]) for pair in _PREFIXES]
+    out = {}
+    for name, arr in arrays.items():
+        if name in _SHARED:
+            out[name] = np.asarray(arr)
+            continue
+        for pattern, template in rules:
+            m = pattern.match(name)
+            if m:
+                *layer, field = m.groups()
+                out[template.format(i=layer[0] if layer else "")
+                    + field] = np.asarray(arr)
+                break
+    return out
+
+
+def layout_from_checkpoint(arrays: Mapping[str, np.ndarray]
+                           ) -> Dict[str, np.ndarray]:
+    """The arrays of an npz checkpoint (of an iMDBN or an iMDBN_BiModal,
+    written by either package) under this module's layout names. Stream
+    positions, extras and the meta record are left out."""
+    return _rename(arrays, 0)
+
+
+def checkpoint_from_layout(arrays: Mapping[str, np.ndarray]
+                           ) -> Dict[str, np.ndarray]:
+    """A layout's arrays under the checkpoint names; ``np.savez`` of the
+    result is a file both packages' ``load_checkpoint`` take."""
+    return _rename(arrays, 1)

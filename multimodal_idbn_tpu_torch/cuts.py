@@ -12,12 +12,17 @@ and only its scale cut (samples and epochs).
 
 With 384 samples the training split is 268 rows: 2 full batches of 128
 and a remainder of 12, so both batch shapes run.
+
+``RESUME`` are the overrides of the resume drive: checkpoints every 2
+epochs, 3 image epochs and 11 joint epochs (8 warm-up + 3 main), so there
+is a checkpoint inside the image phase, inside the warm-up, at its
+boundary and after the first two main epochs.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import yaml
 
@@ -40,24 +45,37 @@ CUTS: Dict[str, dict] = {
 }
 
 
-def write_cut(name: str, workdir: Path) -> Path:
+RESUME: Dict[str, dict] = {
+    "flagship-cut": {"training": {"checkpoint_every": 2, "epochs_image": 3,
+                                  "epochs_joint": 11}},
+    "bimodal-cut": {"training": {"checkpoint_every": 2,
+                                 "epochs_joint": 11}},
+}
+
+
+def write_cut(name: str, workdir: Path,
+              overrides: Optional[dict] = None) -> Path:
     """Write the cut YAML of ``name`` (saving its model under
-    ``workdir``) and return its path."""
+    ``workdir``), with ``overrides`` ({section: {key: value}}) laid over
+    the cut, and return its path."""
     spec = CUTS[name]
     cfg = yaml.safe_load((CONFIGS / spec["yaml"]).read_text())
-    for section, values in spec["cut"].items():
-        cfg[section].update(values)
+    for layer in (spec["cut"], overrides or {}):
+        for section, values in layer.items():
+            cfg[section].update(values)
     cfg["paths"]["save_dir"] = str(workdir)
     path = Path(workdir) / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
 
 
-def run_cut(name: str, workdir: Path, device: str = "cuda") -> dict:
+def run_cut(name: str, workdir: Path, device: str = "cuda",
+            overrides: Optional[dict] = None) -> dict:
     """Train the cut ``name`` through its entry point; returns the entry
     point's summary."""
     from multimodal_idbn_tpu_torch import train_bimodal, train_multimodal
     entry = {"train_multimodal": train_multimodal,
              "train_bimodal": train_bimodal}[CUTS[name]["entry"]]
-    return entry.main(["--config", str(write_cut(name, workdir)),
+    return entry.main(["--config",
+                       str(write_cut(name, workdir, overrides)),
                        "--device", device])

@@ -1,19 +1,30 @@
 """iDBN: iterative Deep Belief Network (stack of RBMs).
 
-Port of multimodal_idbn_tpu/models/idbn.py:30-664 for the main path:
-the constructor, ``train``, ``represent`` and ``decode``. Every layer is
-updated on every batch, layer i+1 fed the post-update mean-field
+Port of multimodal_idbn_tpu/models/idbn.py:30-674: the constructor,
+``train`` with crash-safe resume (``start_epoch``, ``checkpoint_every``,
+``checkpoint_path``, :307-455), the collapse check and the retry rescue
+(``reinit_layers``, ``_recon_collapse_ratio``, ``_warn_if_collapsed``,
+``train_with_retry``, :457-565), ``represent`` / ``reconstruct`` /
+``decode`` (:645-658), ``save_model`` and pickling (:660-674). Every
+layer is updated on every batch, layer i+1 fed the post-update mean-field
 activations of layer i (``ops.dbn_train``), each update through the fused
-half-step kernel on the card. W&B logging, PCA, probes, checkpoints,
-retries, PCD and data parallelism are not in this slice.
+half-step kernel on the card. W&B logging, PCA, probes, PCD, data
+parallelism and the per-batch loop over loaders that cannot materialize
+are not ported.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import List, Optional
 
+import numpy as np
 import torch
 
+from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+                                                  maybe_save_train_checkpoint,
+                                                  save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.rbm import RBM
@@ -22,12 +33,23 @@ from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 
 
+def check_train_args(start_epoch: int, epochs: int, checkpoint_every: int,
+                     checkpoint_path) -> None:
+    """The validation every resumable train loop shares
+    (JAX models/idbn.py:336-342)."""
+    if not 0 <= start_epoch <= epochs:
+        raise ValueError(f"start_epoch {start_epoch} outside [0, {epochs}]")
+    if checkpoint_every and not checkpoint_path:
+        raise ValueError("checkpoint_every needs a checkpoint_path")
+
+
 class iDBN:
     """Stack of RBMs with iterative layer-wise training.
 
     ``dataloader`` must offer ``materialize()`` (the whole split as
     arrays) and ``batch_size``. ``params`` is the UPPERCASE dict of
-    ``train_multimodal.build_params``.
+    ``train_multimodal.build_params``. One validation batch is cached for
+    the collapse check (JAX models/idbn.py:79-83).
     """
 
     def __init__(self, layer_sizes: List[int], params: dict, dataloader,
@@ -40,6 +62,10 @@ class iDBN:
         self.arch_str = "-".join(map(str, layer_sizes))
         self.cd_k = int(params.get("CD", 1))
         self.sparsity_factor = float(params.get("SPARSITY_FACTOR", 0.1))
+        self.val_batch = None
+        if val_loader is not None:
+            self.val_batch = next(iter(val_loader), (None,))[0]
+        self._init_seed = seed
         last_sparse = bool(params.get("SPARSITY", False))
         self.layers: List[RBM] = [
             RBM(num_visible=layer_sizes[i], num_hidden=layer_sizes[i + 1],
@@ -62,51 +88,204 @@ class iDBN:
         for r, s in zip(self.layers, states):
             r.state = s
 
-    def train(self, epochs: int) -> None:
-        """Train for ``epochs`` epochs (JAX models/idbn.py:307-455).
+    def to(self, device: DeviceLike = None) -> "iDBN":
+        """Move every layer to ``device`` (``cuda`` unless ``"cpu"``)."""
+        self.device = resolve_device(device)
+        for r in self.layers:
+            r.to(self.device)
+        return self
 
-        Each epoch permutes the training split with the model's generator,
-        trains the full batches in order (``dbn_train.idbn_epoch``) and
-        then the remainder batch, so every sample trains exactly once per
-        epoch. The loss of an epoch is the mean over its (batch, layer)
-        entries, as in the reference (idbn.py:204-208).
-        """
-        imgs = self.dataloader.materialize()[0]
-        data = as_tensor(imgs, self.device)
+    # -- training (JAX models/idbn.py:244-455) --------------------------------
+
+    def _train_epoch(self, epoch: int, data: torch.Tensor, bs: int) -> float:
+        """One epoch: the split permuted by this epoch's key, its full
+        batches in order (``dbn_train.idbn_epoch``), then the remainder
+        batch, so every sample trains exactly once. Returns the mean loss
+        over the (batch, layer) entries (reference idbn.py:204-208)."""
         n = data.shape[0]
-        bs = int(getattr(self.dataloader, "batch_size", 128))
-        gen = torch.Generator().manual_seed(int(self.params.get("SEED", 0)))
+        key = rng.fold_in(int(self.params.get("SEED", 0)), epoch)
+        data_p = data[rng.permutation(key, n).to(self.device)]
         r0 = self.layers[0]
-        flags = [r.sparsity for r in self.layers]
-        for epoch in range(int(epochs)):
-            key = rng.next_key(gen)
-            perm = torch.randperm(n, generator=gen).to(self.device)
-            data_p = data[perm]
-            kw = dict(lr=effective_lr(r0.lr, epoch, r0.dynamic_lr),
-                      mom=effective_momentum(r0.momentum, r0.final_momentum,
-                                             epoch),
-                      weight_decay=r0.weight_decay,
-                      sparsity_factor=self.sparsity_factor, cd=self.cd_k,
-                      sparsity_flags=flags)
-            states, losses = dbn_train.idbn_epoch(
-                self.states(), key, data_p, batch_size=bs, **kw)
-            loss_sum, count = losses.sum(), losses.numel()
-            rem = n - (n // bs) * bs
-            if rem:
-                states, rl = dbn_train.idbn_batch_step(
-                    states, rng.fold_in(key, 987), data_p[n - rem:], **kw)
-                loss_sum, count = loss_sum + rl.sum(), count + rl.numel()
-            self._set_states(states)
-            self.loss_history.append(float(loss_sum) / max(1, count))
+        kw = dict(lr=effective_lr(r0.lr, epoch, r0.dynamic_lr),
+                  mom=effective_momentum(r0.momentum, r0.final_momentum,
+                                         epoch),
+                  weight_decay=r0.weight_decay,
+                  sparsity_factor=self.sparsity_factor, cd=self.cd_k,
+                  sparsity_flags=[r.sparsity for r in self.layers])
+        states, losses = dbn_train.idbn_epoch(
+            self.states(), key, data_p, batch_size=bs, **kw)
+        loss_sum, count = losses.sum(), losses.numel()
+        rem = n - (n // bs) * bs
+        if rem:
+            states, rl = dbn_train.idbn_batch_step(
+                states, rng.fold_in(key, 987), data_p[n - rem:], **kw)
+            loss_sum, count = loss_sum + rl.sum(), count + rl.numel()
+        self._set_states(states)
+        return float(loss_sum) / max(1, count)
+
+    def _save_train_checkpoint(self, path, next_epoch: int,
+                               phase: str = "image") -> None:
+        save_train_checkpoint(self, path, phase=phase,
+                              next_epoch=next_epoch,
+                              loss_history=self.loss_history)
+
+    def train(self, epochs: int, start_epoch: int = 0,
+              checkpoint_every: int = 0,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_phase: str = "image") -> None:
+        """Train epochs ``start_epoch .. epochs - 1``
+        (JAX models/idbn.py:307-455).
+
+        Crash-safe resume: with ``checkpoint_every=N`` and
+        ``checkpoint_path`` a resumable checkpoint (weights, momentum, loss
+        history) is written every N epochs; ``start_epoch=k`` continues a
+        run restored by ``checkpoint.load_train_checkpoint``. Epoch e draws
+        from ``fold_in(SEED, e)`` alone, so the resumed run is bit-identical
+        to an uninterrupted one (tests/test_torch_resume.py).
+        ``checkpoint_phase`` tags the files ("image", "mod1", "mod2").
+        """
+        epochs, start_epoch = int(epochs), int(start_epoch)
+        check_train_args(start_epoch, epochs, checkpoint_every,
+                         checkpoint_path)
+        data = as_tensor(self.dataloader.materialize()[0], self.device)
+        bs = int(getattr(self.dataloader, "batch_size", 128))
+        for b_start, b_end in checkpoint_epochs(
+                start_epoch, epochs,
+                checkpoint_every if checkpoint_path else 0):
+            for epoch in range(b_start, b_end):
+                self.loss_history.append(self._train_epoch(epoch, data, bs))
+            maybe_save_train_checkpoint(
+                self, checkpoint_path, checkpoint_every, checkpoint_phase,
+                b_end, epochs, loss_history=self.loss_history)
+        if epochs > start_epoch:
+            self._warn_if_collapsed()
+
+    def reinit_layers(self, seed_offset: int = 0) -> None:
+        """Re-draw all layer parameters (fresh W, zero biases and momentum)
+        with a derived seed; the loss history is kept
+        (JAX models/idbn.py:457-471)."""
+        base = self._init_seed
+        for i, rbm in enumerate(self.layers):
+            self.layers[i] = RBM(
+                num_visible=rbm.num_visible, num_hidden=rbm.num_hidden,
+                learning_rate=rbm.lr, weight_decay=rbm.weight_decay,
+                momentum=rbm.momentum, dynamic_lr=rbm.dynamic_lr,
+                final_momentum=rbm.final_momentum, sparsity=rbm.sparsity,
+                sparsity_factor=rbm.sparsity_factor,
+                softmax_groups=rbm.softmax_groups,
+                seed=None if base is None else base + i + seed_offset,
+                device=self.device)
+
+    def _recon_collapse_ratio(self) -> Optional[float]:
+        """Auto-reconstruction MSE of the cached validation batch over the
+        blank-reconstruction baseline mean(x²), or None without a batch.
+        Collapsed stacks sit near 1 (JAX models/idbn.py:473-484)."""
+        if self.val_batch is None:
+            return None
+        vb = as_tensor(self.val_batch, self.device)
+        rec = torch.clamp(self.reconstruct(vb), 0, 1)
+        mse = float(torch.mean((vb - rec) ** 2))
+        blank = float(torch.mean(vb * vb))
+        return mse / max(blank, 1e-12)
+
+    def _warn_if_collapsed(self, recon_margin: float = 0.9) -> bool:
+        """Log-only end-of-phase collapse signal
+        (JAX models/idbn.py:486-504)."""
+        if getattr(self, "_suppress_collapse_warn", False):
+            return False
+        ratio = self._recon_collapse_ratio()
+        if ratio is None or ratio < recon_margin:
+            return False
+        print(f"[iDBN] warn/idbn_blank_recon: end-of-phase auto-recon is "
+              f"at {ratio:.2f}x the blank baseline (>= {recon_margin}) — "
+              f"the stack likely collapsed at initialization. Retrain "
+              f"with another seed, or enable the retry rescue "
+              f"(iDBN.train_with_retry / the entry points' "
+              f"training.init_retry).")
+        return True
+
+    def train_with_retry(self, epochs: int, max_retries: int = 2,
+                         recon_margin: float = 0.9, start_epoch: int = 0,
+                         **train_kw) -> int:
+        """Opt-in rescue from CD initialization collapse
+        (JAX models/idbn.py:506-565): train; while the validation batch's
+        auto-reconstruction MSE is not below ``recon_margin`` × the blank
+        baseline, re-initialize with a derived seed and retrain from epoch
+        0, at most ``max_retries`` times. Returns the retries used. With
+        ``start_epoch`` the first attempt continues a restored run, and the
+        collapse check still runs at its end."""
+        def collapsed() -> bool:
+            ratio = self._recon_collapse_ratio()
+            return ratio is not None and ratio >= recon_margin
+
+        # This path handles collapse itself: no end-of-train() warning
+        # telling the user to enable the rescue they enabled.
+        self._suppress_collapse_warn = True
+        try:
+            self.train(epochs, start_epoch=start_epoch, **train_kw)
+            retries = 0
+            still_collapsed = collapsed()
+            while retries < int(max_retries) and still_collapsed:
+                retries += 1
+                print(f"[iDBN] recon at blank level — reinit (retry "
+                      f"{retries}/{max_retries})")
+                # Set the collapsed attempt's checkpoint aside before the
+                # reinit: a crash before the retry's first checkpoint
+                # would otherwise resume the collapsed weights.
+                ckpt = train_kw.get("checkpoint_path")
+                if ckpt is not None and os.path.exists(ckpt):
+                    os.replace(ckpt, str(ckpt) + f".collapsed{retries}")
+                self.reinit_layers(seed_offset=7919 * retries)
+                self.train(epochs, **train_kw)
+                still_collapsed = collapsed()
+        finally:
+            self._suppress_collapse_warn = False
+        if still_collapsed:
+            print(f"[iDBN] warn/idbn_blank_recon: still at blank-level "
+                  f"reconstruction after {retries} reinit "
+                  f"retr{'y' if retries == 1 else 'ies'} — this dataset/"
+                  f"schedule/seed combination may need a different "
+                  f"learning rate or architecture.")
+        return retries
+
+    # -- inference (JAX models/idbn.py:645-658) -------------------------------
 
     def represent(self, x, upto_layer: Optional[int] = None) -> torch.Tensor:
-        """Mean-field encode to a layer (JAX models/idbn.py:645-650)."""
+        """Mean-field encode to a layer."""
         L = (len(self.layers) if upto_layer is None
              else max(0, min(len(self.layers), int(upto_layer))))
         return dbn_train.dbn_represent(self.states(),
                                        as_tensor(x, self.device), upto=L)
 
+    def reconstruct(self, x) -> torch.Tensor:
+        """Encode all the way up, then decode back."""
+        return dbn_train.dbn_reconstruct(self.states(),
+                                         as_tensor(x, self.device))
+
     def decode(self, top) -> torch.Tensor:
-        """Decode top activations to input space (JAX models/idbn.py:656)."""
+        """Decode top activations to input space."""
         return dbn_train.dbn_decode(self.states(),
                                     as_tensor(top, self.device))
+
+    # -- persistence (JAX models/idbn.py:660-674) -----------------------------
+
+    def save_model(self, path: str) -> None:
+        """Pickle ``{"layers", "params"}`` (reference idbn.py:361-373)."""
+        with open(path, "wb") as f:
+            pickle.dump({"layers": self.layers, "params": self.params}, f)
+        print(f"[iDBN] Model saved to {path}")
+
+    # Loaders are runtime attachments, not model state; an unpickled iDBN
+    # lies on the CPU until ``to`` moves it.
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["dataloader"] = None
+        d["val_loader"] = None
+        d["device"] = "cpu"
+        if d.get("val_batch") is not None:
+            d["val_batch"] = np.asarray(d["val_batch"])
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.device = torch.device("cpu")

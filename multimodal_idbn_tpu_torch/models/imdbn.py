@@ -1,26 +1,33 @@
 """iMDBN: image iDBN + joint RBM over [z_img ⊕ y].
 
-Port of multimodal_idbn_tpu/models/imdbn.py:34-1071 for the main path:
-the constructor, ``init_joint_bias_from_data``, ``train_joint`` (8 warm-up
-y-clamp epochs, then free CD + auxiliary clamps, cross-modal metrics per
-batch, :453-616), ``_cross_reconstruct`` and ``save_model``. Image latents
-are computed once per joint run, as the image iDBN is frozen there.
-W&B, PCA, probes, snapshots, checkpoints and the pickle payload are not in
-this slice and print nothing; ``save_model`` writes the ``convert``
-layout as ``.npz``.
+Port of multimodal_idbn_tpu/models/imdbn.py:34-1071: the constructor,
+``init_joint_bias_from_data``, pretrained loading and the last-layer
+fine-tune (:272-338), cross-modal inference (``_cross_reconstruct``,
+``img2txt``, ``txt2img``, ``sample_txt2img``, ``represent``, :342-449),
+``train_joint`` with crash-safe resume (8 warm-up y-clamp epochs, then
+free CD + auxiliary clamps, cross-modal metrics per batch, :453-700) and
+persistence (``save_model`` as the dual-format pickle payload,
+``load_model``, ``from_payload``, pickling, :941-1071). Image latents are
+computed once per joint run, as the image iDBN is frozen there. W&B, PCA,
+probes, snapshots, the validation ``features`` they read and the
+per-batch loop over loaders that cannot materialize are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import datetime
+import pickle
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch import convert
+from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+                                                  maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.models.idbn import iDBN
+from multimodal_idbn_tpu_torch.models.idbn import iDBN, check_train_args
 from multimodal_idbn_tpu_torch.models.rbm import RBM
 from multimodal_idbn_tpu_torch.ops import imdbn_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
@@ -31,9 +38,66 @@ WARMUP_Y_EPOCHS = 8
 ZCLAMP_EVERY = 50
 
 
+def load_pretrained_layers(path: str, tag: str, device) -> Optional[list]:
+    """The RBM layers of a pickled iDBN (a ``{"layers": [...]}`` dict or an
+    object with ``.layers``), moved to ``device`` with their momentum
+    re-zeroed, or None when the file cannot be read or has another shape
+    (JAX models/imdbn.py:272-300, models/imdbn_bimodal.py:453-473)."""
+    try:
+        with open(path, "rb") as f:
+            obj = pickle.load(f)
+    except Exception as e:  # any unreadable file means "train instead"
+        print(f"[{tag}] error: {e}")
+        return None
+    if isinstance(obj, dict) and "layers" in obj:
+        layers = list(obj["layers"])
+    elif hasattr(obj, "layers"):
+        layers = list(obj.layers)
+    else:
+        print(f"[{tag}] unrecognized format")
+        return None
+    for rbm in layers:
+        if hasattr(rbm, "to"):
+            rbm.to(device)
+        if hasattr(rbm, "reset_momentum"):
+            rbm.reset_momentum()
+        if not hasattr(rbm, "softmax_groups"):
+            rbm.softmax_groups = []
+    print(f"[{tag}] loaded from {path}")
+    return layers
+
+
+def finetune_last_layer(dbn: iDBN, loader, epochs: int, lr_scale: float,
+                        cd_k: Optional[int], batch_index: int = 0) -> None:
+    """Fine-tune the top RBM of ``dbn`` at a reduced learning rate on the
+    batches ``loader`` yields, the lower layers frozen; the learning rate
+    is restored afterwards (JAX models/imdbn.py:312-338,
+    models/imdbn_bimodal.py:479-494)."""
+    if epochs <= 0 or loader is None:
+        return
+    last = dbn.layers[-1]
+    old_lr = float(last.lr)
+    last.lr = max(1e-8, old_lr * float(lr_scale))
+    use_cd = int(cd_k) if cd_k is not None else int(dbn.cd_k)
+    try:
+        for ep in range(int(epochs)):
+            for batch in loader:
+                v = as_tensor(batch[batch_index], dbn.device)
+                for rbm in dbn.layers[:-1]:
+                    v = rbm.forward(v)
+                last.train_epoch(v, ep, epochs, CD=use_cd)
+    finally:
+        last.lr = old_lr
+
+
 class iMDBN:
     """Image iDBN + joint RBM whose visible layer is [z_img ⊕ y], the
-    label block a softmax group (JAX models/imdbn.py:34-187)."""
+    label block a softmax group (JAX models/imdbn.py:34-187).
+
+    ``reference_best_of_k_bug`` (default True): the reference's best-of-K
+    candidate selection is a no-op; set it False for the real free-energy
+    selection (``imdbn_ops.cross_reconstruct``).
+    """
 
     def __init__(self, layer_sizes_img: List[int], joint_layer_size: int,
                  params: dict, dataloader, val_loader=None,
@@ -41,32 +105,52 @@ class iMDBN:
                  seed: Optional[int] = None):
         self.params = params
         self.dataloader = dataloader
+        self.val_loader = val_loader
         self.device = resolve_device(device)
         self.num_labels = int(num_labels)
+        self._seed = seed
         self.image_idbn = iDBN(layer_sizes_img, params, dataloader,
                                val_loader, device=self.device, seed=seed)
-        self.Dz_img = int(self.image_idbn.layers[-1].num_hidden)
-        K = self.num_labels
-        self.joint_rbm = RBM(
-            num_visible=self.Dz_img + K, num_hidden=int(joint_layer_size),
-            learning_rate=params.get("JOINT_LEARNING_RATE",
-                                     params.get("LEARNING_RATE", 0.1)),
-            weight_decay=params.get("WEIGHT_PENALTY", 0.0001),
-            momentum=params.get("INIT_MOMENTUM", 0.5),
-            dynamic_lr=params.get("LEARNING_RATE_DYNAMIC", True),
-            final_momentum=params.get("FINAL_MOMENTUM", 0.95),
-            softmax_groups=[(self.Dz_img, self.Dz_img + K)],
-            seed=None if seed is None else seed + 1000, device=self.device)
+        self._build_joint(int(self.image_idbn.layers[-1].num_hidden),
+                          int(joint_layer_size))
         self.joint_cd = int(params.get("JOINT_CD", params.get("CD", 1)))
         self.cross_steps = int(params.get("CROSS_GIBBS_STEPS", 50))
+        self.reference_best_of_k_bug = True
         self.z_class_mean: Optional[torch.Tensor] = None
+        self.features = None
         self.joint_metrics_history: List[Dict[str, float]] = []
         self.last_metrics: Optional[Dict[str, float]] = None
         self.arch_str = (f"IMG{'-'.join(map(str, layer_sizes_img))}"
                          f"_JOINT{joint_layer_size}")
 
+    def _build_joint(self, Dz_img: int, joint_hidden: int) -> None:
+        """Joint RBM over [z_img ⊕ y] (JAX models/imdbn.py:165-184)."""
+        self.Dz_img = int(Dz_img)
+        K = self.num_labels
+        p = self.params
+        self.joint_rbm = RBM(
+            num_visible=self.Dz_img + K, num_hidden=int(joint_hidden),
+            learning_rate=p.get("JOINT_LEARNING_RATE",
+                                p.get("LEARNING_RATE", 0.1)),
+            weight_decay=p.get("WEIGHT_PENALTY", 0.0001),
+            momentum=p.get("INIT_MOMENTUM", 0.5),
+            dynamic_lr=p.get("LEARNING_RATE_DYNAMIC", True),
+            final_momentum=p.get("FINAL_MOMENTUM", 0.95),
+            softmax_groups=[(self.Dz_img, self.Dz_img + K)],
+            seed=None if self._seed is None else self._seed + 1000,
+            device=self.device)
+
     def _joint_groups(self):
         return ((self.Dz_img, self.Dz_img + self.num_labels),)
+
+    def to(self, device: DeviceLike = None) -> "iMDBN":
+        """Move the whole model to ``device`` (``cuda`` unless ``"cpu"``)."""
+        self.device = resolve_device(device)
+        self.image_idbn.to(self.device)
+        self.joint_rbm.to(self.device)
+        if self.z_class_mean is not None:
+            self.z_class_mean = self.z_class_mean.to(self.device)
+        return self
 
     def _materialized_train(self):
         """(images [N, D], one-hot [N, K], z_img [N, Dz]) on the device."""
@@ -93,78 +177,328 @@ class iMDBN:
         vb[self.Dz_img:self.Dz_img + self.num_labels] = y_bias
         self.joint_rbm.vis_bias = vb
 
-    def train_joint(self, epochs: int) -> None:
-        """Joint training (JAX models/imdbn.py:453-616): the first 8 epochs
-        are y-clamped warm-up, then free CD-k + auxiliary clamped CD, with
-        the cross-modal round trip and its metrics on every batch (every
-        ``CROSS_METRICS_EVERY``-th with that setting). Each epoch permutes
-        the split with the model's generator, trains the full batches
-        (``imdbn_ops.joint_epoch``) and then the remainder."""
-        print("[iMDBN] joint training (with warmup y-clamp)")
-        X, Y, Z = self._materialized_train()
-        self.init_joint_bias_from_data(n_batches=10, _cached=(X, Y, Z))
-        bs = int(getattr(self.dataloader, "batch_size", 128))
-        n = Z.shape[0]
-        nb = n // bs
-        aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 10))
-        metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
-        idbn_states = self.image_idbn.states()
-        jr = self.joint_rbm
-        gen = torch.Generator().manual_seed(
-            int(self.params.get("SEED", 0)) + 7)
-        for epoch in range(int(epochs)):
-            warmup = epoch < WARMUP_Y_EPOCHS
-            key = rng.next_key(gen)
-            perm = torch.randperm(n, generator=gen).to(self.device)
-            Zp, Yp, Xp = Z[perm], Y[perm], X[perm]
-            lr = effective_lr(jr.lr, epoch, jr.dynamic_lr)
-            mom = effective_momentum(jr.momentum, jr.final_momentum, epoch)
-            statics = dict(warmup=warmup, joint_cd=self.joint_cd,
-                           aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
-                           steps=self.cross_steps,
-                           groups=self._joint_groups(),
-                           zclamp_every=ZCLAMP_EVERY)
-            joint, _, totals = imdbn_ops.joint_epoch(
-                jr.state, idbn_states, key, Zp, Yp, Xp, lr, mom,
-                jr.weight_decay, self.z_class_mean, batch_size=bs,
-                metrics_every=metrics_every, **statics)
-            if n - nb * bs:
-                joint, _, m_rem = imdbn_ops._joint_train_batch(
-                    joint, idbn_states, rng.fold_in(key, 991),
-                    Zp[nb * bs:], Yp[nb * bs:], Xp[nb * bs:], nb, lr, mom,
-                    jr.weight_decay, self.z_class_mean,
-                    compute_metrics=(nb % max(1, metrics_every) == 0),
-                    **statics)
-                totals = imdbn_ops.add_metrics(totals, m_rem)
-            jr.state = joint
-            tot = {k: float(v) for k, v in totals._asdict().items()}
-            if tot["n"] > 0:
-                self.last_metrics = {
-                    "cross_modality/text_top1": tot["top1"] / tot["n"],
-                    "cross_modality/text_top3": tot["top3"] / tot["n"],
-                    "cross_modality/text_ce": tot["ce_sum"] / tot["n"],
-                    "cross_modality/image_mse":
-                        tot["mse_sum"] / max(1.0, tot["n"] * X.shape[1]),
-                }
-                self.joint_metrics_history.append(
-                    dict(self.last_metrics, epoch=epoch))
-        print("[iMDBN] joint training finished.")
+    # -- pretrained iDBN loading and fine-tuning (JAX :272-338) --------------
+
+    def load_pretrained_image_idbn(self, path: str) -> bool:
+        """Adopt the layers of a pickled iDBN on this model's device, with
+        their momentum re-zeroed; the joint RBM is rebuilt if the top
+        width changed. False when the file cannot be used."""
+        layers = load_pretrained_layers(path, "load_pretrained_image_idbn",
+                                        self.device)
+        if layers is None:
+            return False
+        self.image_idbn.layers = layers
+        dz_pre = int(layers[-1].num_hidden)
+        if dz_pre != self.Dz_img:
+            print(f"[load_pretrained_image_idbn] rebuilding joint: "
+                  f"Dz_img -> {dz_pre}")
+            self._build_joint(dz_pre, self.joint_rbm.num_hidden)
+        return True
+
+    def finetune_image_last_layer(self, epochs: int = 0,
+                                  lr_scale: float = 0.3,
+                                  cd_k: Optional[int] = None) -> None:
+        """Fine-tune the top image RBM at a reduced learning rate on the
+        training loader's batches (JAX models/imdbn.py:312-338)."""
+        if epochs <= 0:
+            return
+        print(f"[finetune_image_last_layer] epochs={epochs}, "
+              f"lr_scale={lr_scale:.4g}")
+        finetune_last_layer(self.image_idbn, self.dataloader, epochs,
+                            lr_scale, cd_k)
+        print("[finetune_image_last_layer] done")
+
+    # -- cross-modal inference (JAX :342-449) ---------------------------------
+
+    def _z_affine(self):
+        scale = getattr(self, "z_affine_scale", None)
+        bias = getattr(self, "z_affine_bias", None)
+        if scale is None or bias is None:
+            return None
+        return (torch.as_tensor(scale, dtype=torch.float32).to(self.device),
+                torch.as_tensor(bias, dtype=torch.float32).to(self.device))
 
     def _cross_reconstruct(self, z_img, y_onehot,
-                           steps: Optional[int] = None):
+                           steps: Optional[int] = None,
+                           direction: str = "both"):
         """IMG→TXT + TXT→IMG round trip; returns (decoded images,
-        p(y|img)) (JAX models/imdbn.py:342-366)."""
+        p(y|img)), the half ``direction`` skips being None
+        (JAX models/imdbn.py:342-366)."""
         return imdbn_ops.cross_reconstruct(
             self.joint_rbm.state, self.image_idbn.states(),
             self.joint_rbm._next_key(), as_tensor(z_img, self.device),
             as_tensor(y_onehot, self.device),
             steps=int(self.cross_steps if steps is None else steps),
             Dz=self.Dz_img, groups=self._joint_groups(),
-            z_class_mean=self.z_class_mean)
+            z_class_mean=self.z_class_mean, z_affine=self._z_affine(),
+            use_free_energy=not self.reference_best_of_k_bug,
+            direction=direction)
+
+    def img2txt(self, images) -> torch.Tensor:
+        """Label posterior p(y|img) [B, K] for raw images [B, D] or
+        [B, H, W]: the IMG→TXT half (mean-field conditional Gibbs with the
+        z block clamped; one chain-kernel launch on the card)."""
+        z = self.image_idbn.represent(images)
+        y0 = torch.zeros((z.shape[0], self.num_labels), device=self.device)
+        return self._cross_reconstruct(z, y0, direction="img2txt")[1]
+
+    def _labels_to_onehot(self, labels) -> np.ndarray:
+        """Integer class ids [B] or one-hot [B, K] -> validated one-hot
+        float32 (JAX models/imdbn.py:383-398)."""
+        if isinstance(labels, torch.Tensor):
+            labels = labels.detach().cpu().numpy()
+        y = np.asarray(labels)
+        if y.ndim == 1:
+            ids = y.astype(np.int64)
+            if ids.size and (ids.min() < 0 or ids.max() >= self.num_labels):
+                raise ValueError(
+                    f"label ids must be in [0, {self.num_labels}); got "
+                    f"range [{ids.min()}, {ids.max()}]")
+            y = np.eye(self.num_labels, dtype=np.float32)[ids]
+        elif y.shape[-1] != self.num_labels:
+            raise ValueError(
+                f"one-hot labels must have width {self.num_labels}; got "
+                f"{y.shape}")
+        return y.astype(np.float32)
+
+    def txt2img(self, labels) -> torch.Tensor:
+        """Decoded images [B, D] from integer class ids [B] or one-hot
+        labels [B, K]: the TXT→IMG half (noisy mean-field annealing with
+        μ-pull, one chain-kernel launch, decoded through the image iDBN)."""
+        y = self._labels_to_onehot(labels)
+        z0 = torch.zeros((y.shape[0], self.Dz_img), device=self.device)
+        return self._cross_reconstruct(z0, y, direction="txt2img")[0]
+
+    def sample_txt2img(self, labels, gibbs_steps: Optional[int] = None,
+                       seed: Optional[int] = None) -> torch.Tensor:
+        """Generate images from labels: sampled conditional Gibbs on the
+        joint RBM (y clamped, h and v sampled each step), then the
+        ancestral-sampled decode (``imdbn_ops.sample_txt2img``). Returns
+        pixel probabilities [B, D] of the sampled configuration; ``seed``
+        fixes the draw (JAX models/imdbn.py:411-439)."""
+        y = as_tensor(self._labels_to_onehot(labels), self.device)
+        steps = int(self.cross_steps if gibbs_steps is None else gibbs_steps)
+        key = rng.fold_in(seed, 0) if seed is not None \
+            else self.joint_rbm._next_key()
+        return imdbn_ops.sample_txt2img(
+            self.joint_rbm.state, self.image_idbn.states(), key, y,
+            steps=steps, Dz=self.Dz_img, groups=self._joint_groups(),
+            z_affine=self._z_affine())[0]
+
+    def represent(self, batch) -> torch.Tensor:
+        """Joint hidden activations for (images, one-hot labels)
+        (JAX models/imdbn.py:441-449)."""
+        img, y = batch
+        z = self.image_idbn.represent(img)
+        return self.joint_rbm.forward(
+            torch.cat([z, as_tensor(y, self.device)], dim=1))
+
+    # -- joint training (JAX :453-700) ------------------------------------------
+
+    def _train_joint_epoch(self, epoch, X, Y, Z, bs, idbn_states,
+                           aux_cond_steps, metrics_every) -> None:
+        """One joint epoch: the split permuted by this epoch's key, its full
+        batches (``imdbn_ops.joint_epoch``), then the remainder; appends
+        the epoch's cross-modal metrics to ``joint_metrics_history``."""
+        n = Z.shape[0]
+        nb = n // bs
+        jr = self.joint_rbm
+        key = rng.fold_in(int(self.params.get("SEED", 0)) + 7, epoch)
+        perm = rng.permutation(key, n).to(self.device)
+        Zp, Yp, Xp = Z[perm], Y[perm], X[perm]
+        lr = effective_lr(jr.lr, epoch, jr.dynamic_lr)
+        mom = effective_momentum(jr.momentum, jr.final_momentum, epoch)
+        statics = dict(warmup=epoch < WARMUP_Y_EPOCHS,
+                       joint_cd=self.joint_cd,
+                       aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
+                       steps=self.cross_steps, groups=self._joint_groups(),
+                       use_free_energy=not self.reference_best_of_k_bug,
+                       zclamp_every=ZCLAMP_EVERY)
+        joint, _, totals = imdbn_ops.joint_epoch(
+            jr.state, idbn_states, key, Zp, Yp, Xp, lr, mom,
+            jr.weight_decay, self.z_class_mean, batch_size=bs,
+            metrics_every=metrics_every, **statics)
+        if n - nb * bs:
+            joint, _, m_rem = imdbn_ops._joint_train_batch(
+                joint, idbn_states, rng.fold_in(key, 991),
+                Zp[nb * bs:], Yp[nb * bs:], Xp[nb * bs:], nb, lr, mom,
+                jr.weight_decay, self.z_class_mean,
+                # the remainder has metrics only at the every-batch cadence
+                # (JAX ops/imdbn_ops.py:430, models/imdbn.py:592)
+                compute_metrics=(max(1, metrics_every) == 1), **statics)
+            totals = imdbn_ops.add_metrics(totals, m_rem)
+        jr.state = joint
+        tot = {k: float(v) for k, v in totals._asdict().items()}
+        if tot["n"] > 0:
+            self.last_metrics = {
+                "cross_modality/text_top1": tot["top1"] / tot["n"],
+                "cross_modality/text_top3": tot["top3"] / tot["n"],
+                "cross_modality/text_ce": tot["ce_sum"] / tot["n"],
+                "cross_modality/image_mse":
+                    tot["mse_sum"] / max(1.0, tot["n"] * X.shape[1]),
+            }
+            self.joint_metrics_history.append(
+                dict(self.last_metrics, epoch=epoch))
+
+    def train_joint(self, epochs: int, start_epoch: int = 0,
+                    checkpoint_every: int = 0,
+                    checkpoint_path: Optional[str] = None) -> None:
+        """Joint training (JAX models/imdbn.py:453-700): the first 8 epochs
+        are y-clamped warm-up, then free CD-k + auxiliary clamped CD, with
+        the cross-modal round trip and its metrics on every batch (every
+        ``CROSS_METRICS_EVERY``-th with that setting).
+
+        Crash-safe resume: ``checkpoint_every=N`` + ``checkpoint_path``
+        write a resumable checkpoint (joint and image states, momentum,
+        ``z_class_mean``, the metrics history) every N epochs and at the
+        warm-up boundary; ``start_epoch=k`` continues a restored run, with
+        the data-derived bias init skipped, since the restored state holds
+        the trained biases. Epoch e draws from ``fold_in(SEED + 7, e)``
+        alone, so the resumed run is bit-identical
+        (tests/test_torch_resume.py).
+        """
+        print("[iMDBN] joint training (with warmup y-clamp)")
+        epochs, start_epoch = int(epochs), int(start_epoch)
+        check_train_args(start_epoch, epochs, checkpoint_every,
+                         checkpoint_path)
+        X, Y, Z = self._materialized_train()
+        if start_epoch == 0:
+            self.init_joint_bias_from_data(n_batches=10, _cached=(X, Y, Z))
+            self.joint_metrics_history = []
+        bs = int(getattr(self.dataloader, "batch_size", 128))
+        aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 10))
+        metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
+        idbn_states = self.image_idbn.states()
+        for b_start, b_end in checkpoint_epochs(
+                start_epoch, epochs,
+                checkpoint_every if checkpoint_path else 0,
+                min(WARMUP_Y_EPOCHS, epochs)):
+            for epoch in range(b_start, b_end):
+                self._train_joint_epoch(epoch, X, Y, Z, bs, idbn_states,
+                                        aux_cond_steps, metrics_every)
+            maybe_save_train_checkpoint(self, checkpoint_path,
+                                        checkpoint_every, "joint", b_end,
+                                        epochs)
+        print("[iMDBN] joint training finished.")
+
+    # -- persistence (JAX :941-1071) ---------------------------------------------
 
     def save_model(self, path: str) -> None:
+        """Dual-format pickle payload (reference imdbn.py:815-883): both
+        the DBN-compatible ``{"layers", "params"}`` shape and the extended
+        iMDBN fields. Parameters are pickled as numpy arrays, so the file
+        loads on a machine without a GPU."""
+        all_layers = list(self.image_idbn.layers) + [self.joint_rbm]
+        payload: Dict[str, Any] = {
+            "layers": all_layers,
+            "params": self.params,
+            "image_idbn": self.image_idbn,
+            "joint_rbm": self.joint_rbm,
+            "num_labels": self.num_labels,
+            "Dz_img": self.Dz_img,
+            "arch_str": self.arch_str,
+            "features": self.features,
+            "metadata": {
+                "saved_at": datetime.datetime.now().isoformat(),
+                "model_type": "iMDBN",
+                "architecture": self.arch_str,
+            },
+        }
+        if self.z_class_mean is not None:
+            payload["z_class_mean"] = self.z_class_mean.detach().cpu().numpy()
+        for attr in ("z_affine_scale", "z_affine_bias"):
+            if getattr(self, attr, None) is not None:
+                payload[attr] = np.asarray(
+                    torch.as_tensor(getattr(self, attr)).detach().cpu())
+        if getattr(self, "class_names", None) is not None:
+            payload["class_names"] = self.class_names
+        payload["reference_best_of_k_bug"] = bool(
+            self.reference_best_of_k_bug)
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+        print(f"[iMDBN] Model saved to {path}")
+        print(f"[iMDBN] Architecture: {self.arch_str}")
+        print(f"[iMDBN] Total layers: {len(all_layers)} "
+              f"(image: {len(self.image_idbn.layers)}, joint: 1)")
+
+    def export_npz(self, path: str) -> None:
         """Write the parameters as ``.npz`` in the ``convert`` layout."""
         np.savez(path, **convert.to_numpy(self.image_idbn.states(),
                                           self.joint_rbm.state,
-                                          self.z_class_mean))
-        print(f"[iMDBN] Model saved to {path}")
+                                          self.z_class_mean,
+                                          self._z_affine()))
+
+    @staticmethod
+    def load_model(path: str, device: DeviceLike = None) -> Dict[str, Any]:
+        """Load a ``save_model`` payload with its RBMs moved to ``device``
+        (``cuda`` unless ``"cpu"`` is asked for). Returns the raw dict
+        (reference imdbn.py:885-934); ``from_payload`` rebuilds a model."""
+        device = resolve_device(device)
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        payload["image_idbn"].to(device)
+        payload["joint_rbm"].to(device)
+        print(f"[iMDBN] Model loaded from {path}")
+        if "arch_str" in payload:
+            print(f"[iMDBN] Architecture: {payload['arch_str']}")
+        if "metadata" in payload:
+            print(f"[iMDBN] Saved at: "
+                  f"{payload['metadata'].get('saved_at', 'unknown')}")
+        return payload
+
+    @classmethod
+    def from_payload(cls, payload: Dict[str, Any], dataloader=None,
+                     val_loader=None) -> "iMDBN":
+        """Rebuild a working iMDBN from a ``load_model`` payload, on the
+        device its RBMs lie on (JAX models/imdbn.py:1004-1056). The loaded
+        ``image_idbn`` / ``joint_rbm`` objects are adopted as they are, so
+        all inference paths work at once; training needs a dataloader."""
+        m = cls.__new__(cls)
+        # The payload's params object as it is: pickle keeps the identity
+        # it shares with image_idbn.params, which a copy would break.
+        m.params = payload.get("params") if payload.get("params") \
+            is not None else {}
+        m.dataloader = dataloader
+        m.val_loader = val_loader
+        m._seed = m.params.get("SEED")
+        m.num_labels = int(payload["num_labels"])
+        m.Dz_img = int(payload["Dz_img"])
+        m.image_idbn = payload["image_idbn"]
+        m.joint_rbm = payload["joint_rbm"]
+        m.device = m.joint_rbm.device
+        # pickling strips the loaders of the embedded iDBN
+        m.image_idbn.dataloader = dataloader
+        m.image_idbn.val_loader = val_loader
+        m.arch_str = payload.get("arch_str",
+                                 f"IMG?_JOINT{m.joint_rbm.num_hidden}")
+        m.features = payload.get("features")
+        m.joint_cd = int(m.params.get("JOINT_CD", m.params.get("CD", 1)))
+        m.cross_steps = int(m.params.get("CROSS_GIBBS_STEPS", 50))
+        m.reference_best_of_k_bug = bool(
+            payload.get("reference_best_of_k_bug", True))
+        m.joint_metrics_history = []
+        m.last_metrics = None
+        zcm = payload.get("z_class_mean")
+        m.z_class_mean = None if zcm is None else torch.as_tensor(
+            np.asarray(zcm, np.float32)).to(m.device)
+        for attr in ("z_affine_scale", "z_affine_bias", "class_names"):
+            if attr in payload:
+                setattr(m, attr, payload[attr])
+        return m
+
+    # Loaders are runtime attachments; device tensors pickle as numpy.
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["dataloader"] = None
+        d["val_loader"] = None
+        d["device"] = "cpu"
+        d["z_class_mean"] = (None if self.z_class_mean is None else
+                             self.z_class_mean.detach().cpu().numpy())
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.device = torch.device("cpu")
+        if d.get("z_class_mean") is not None:
+            self.z_class_mean = torch.from_numpy(
+                np.array(d["z_class_mean"], np.float32))

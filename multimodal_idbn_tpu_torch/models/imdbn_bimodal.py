@@ -1,30 +1,37 @@
 """iMDBN_BiModal: two modality iDBNs joined by a multi-layer joint DBN.
 
 Port of multimodal_idbn_tpu/models/imdbn_bimodal.py:324-828 and
-:1013-1050: the constructor (seed offsets +100 for MOD2, +2000+i for joint
-layer i), ``init_joint_bias_from_data``, the cross-modal inference
+:1013-1056: the constructor (seed offsets +100 for MOD2, +2000+i for joint
+layer i), pretrained modality DBNs and the last-layer fine-tunes
+(:447-516), ``init_joint_bias_from_data``, the cross-modal inference
 (``_cross_reconstruct``, ``mod1_to_mod2``, ``mod2_to_mod1``, the sampled
 ``sample_mod1_to_mod2`` / ``sample_mod2_to_mod1``, ``represent``),
-``train_joint`` over materialized loaders (8 warm-up epochs, then free CD
-down the joint stack plus the aux clamps; ``ops.bimodal_ops``), and
-``save_model`` / ``load_model`` in the ``convert`` bimodal layout as
-``.npz``. Modality latents are computed once per joint run, as the
-modality iDBNs are frozen there. W&B, probe, PCA and trajectory logging,
-pretrained loading, fine-tuning, checkpoint resume and data parallelism
-are not ported.
+``train_joint`` over materialized loaders with crash-safe resume (8
+warm-up epochs, then free CD down the joint stack plus the aux clamps;
+``ops.bimodal_ops``), and the pickle ``save_model`` / ``load_model``.
+Modality latents are computed once per joint run, as the modality iDBNs
+are frozen there. W&B, probe, PCA and trajectory logging, the per-batch
+loop over loaders that cannot materialize and data parallelism are not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import datetime
+import pickle
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch import convert
+from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+                                                  maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.models.idbn import iDBN
+from multimodal_idbn_tpu_torch.models.idbn import iDBN, check_train_args
+from multimodal_idbn_tpu_torch.models.imdbn import (finetune_last_layer,
+                                                    load_pretrained_layers)
 from multimodal_idbn_tpu_torch.models.rbm import RBM
 from multimodal_idbn_tpu_torch.ops import bimodal_ops, dbn_train, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
@@ -83,6 +90,7 @@ class iMDBN_BiModal:
         self.joint_cd = int(self.params.get("JOINT_CD",
                                             self.params.get("CD", 1)))
         self.cross_steps = int(self.params.get("CROSS_GIBBS_STEPS", 50))
+        self.features = None
         self.last_metrics: Optional[Dict[str, float]] = None
         self.joint_metrics_history: List[Dict[str, float]] = []
         self.arch_str = (
@@ -100,6 +108,48 @@ class iMDBN_BiModal:
     def _latents(self, mod1, mod2) -> Tuple[torch.Tensor, torch.Tensor]:
         return (self.mod1_dbn.represent(as_tensor(mod1, self.device)),
                 self.mod2_dbn.represent(as_tensor(mod2, self.device)))
+
+    def to(self, device: DeviceLike = None) -> "iMDBN_BiModal":
+        """Move the whole model to ``device`` (``cuda`` unless ``"cpu"``)."""
+        self.device = resolve_device(device)
+        for part in (self.mod1_dbn, self.mod2_dbn, *self.joint_layers):
+            part.to(self.device)
+        return self
+
+    # -- pretrained loading and fine-tuning (JAX :447-516) -------------------
+
+    def load_pretrained_mod1_dbn(self, path: str) -> bool:
+        return self._load_pretrained_dbn(self.mod1_dbn, path, "mod1")
+
+    def load_pretrained_mod2_dbn(self, path: str) -> bool:
+        return self._load_pretrained_dbn(self.mod2_dbn, path, "mod2")
+
+    def _load_pretrained_dbn(self, dbn: iDBN, path: str, name: str) -> bool:
+        layers = load_pretrained_layers(
+            path, f"load_pretrained_{name}_dbn", self.device)
+        if layers is None:
+            return False
+        dbn.layers = layers
+        return True
+
+    def _finetune(self, dbn: iDBN, modality_idx: int, epochs: int,
+                  lr_scale: float, cd_k: Optional[int]) -> None:
+        loader, batch_index = getattr(dbn, "dataloader", None), 0
+        if loader is None:
+            # the bimodal loader yields (mod1, mod2): pick this modality
+            loader, batch_index = self.dataloader, modality_idx
+        finetune_last_layer(dbn, loader, epochs, lr_scale, cd_k,
+                            batch_index=batch_index)
+
+    def finetune_mod1_last_layer(self, epochs: int = 0,
+                                 lr_scale: float = 0.3,
+                                 cd_k: Optional[int] = None) -> None:
+        self._finetune(self.mod1_dbn, 0, epochs, lr_scale, cd_k)
+
+    def finetune_mod2_last_layer(self, epochs: int = 0,
+                                 lr_scale: float = 0.3,
+                                 cd_k: Optional[int] = None) -> None:
+        self._finetune(self.mod2_dbn, 1, epochs, lr_scale, cd_k)
 
     # -- bias init (JAX :520-544) -------------------------------------------
 
@@ -188,17 +238,30 @@ class iMDBN_BiModal:
 
     # -- joint training (JAX :653-828) --------------------------------------
 
-    def train_joint(self, epochs: int) -> None:
+    def train_joint(self, epochs: int, start_epoch: int = 0,
+                    checkpoint_every: int = 0,
+                    checkpoint_path: Optional[str] = None) -> None:
         """Alternating-modality warm-up for the first ``WARMUP_EPOCHS``
         epochs, then free CD down the joint stack + the aux clamps, with
         the cross-reconstruction metrics on every ``CROSS_METRICS_EVERY``-th
-        batch (JAX models/imdbn_bimodal.py:653-828). Each epoch permutes
-        the split with a generator seeded from ``SEED + 11`` and trains its
-        full batches and then the remainder (``bimodal_ops.bimodal_epoch``).
+        batch (JAX models/imdbn_bimodal.py:653-828). Epoch e permutes the
+        split and keys its batches from ``fold_in(SEED + 11, e)`` alone
+        and trains its full batches and then the remainder
+        (``bimodal_ops.bimodal_epoch``).
+
+        ``start_epoch`` / ``checkpoint_every`` / ``checkpoint_path``:
+        crash-safe resume under the contract of ``iMDBN.train_joint``
+        (phase tag "bimodal_joint"; bit-identical,
+        tests/test_torch_resume.py).
         """
+        epochs, start_epoch = int(epochs), int(start_epoch)
+        check_train_args(start_epoch, epochs, checkpoint_every,
+                         checkpoint_path)
         print(f"[iMDBN_BiModal] joint training: {self.num_joint_layers} "
-              f"layers, {int(epochs)} epochs total")
-        self.init_joint_bias_from_data(n_batches=10)
+              f"layers, {epochs} epochs total")
+        if start_epoch == 0:
+            self.init_joint_bias_from_data(n_batches=10)
+            self.joint_metrics_history = []
         m1, m2 = self.dataloader.materialize()
         V1, V2 = as_tensor(m1, self.device), as_tensor(m2, self.device)
         Z1, Z2 = self._latents(V1, V2)
@@ -210,48 +273,102 @@ class iMDBN_BiModal:
         mod2_states = self.mod2_dbn.states()
         npix1, npix2 = V1.shape[1], V2.shape[1]
         jr = self.joint_rbm
-        gen = torch.Generator().manual_seed(
-            int(self.params.get("SEED", 0)) + 11)
-        for epoch in range(int(epochs)):
-            key = rng.next_key(gen)
-            perm = torch.randperm(n, generator=gen).to(self.device)
-            joint, _, _, totals = bimodal_ops.bimodal_epoch(
-                self._joint_states(), mod1_states, mod2_states, key,
-                Z1[perm], Z2[perm], V1[perm], V2[perm],
-                effective_lr(jr.lr, epoch, jr.dynamic_lr),
-                effective_momentum(jr.momentum, jr.final_momentum, epoch),
-                jr.weight_decay, warmup=epoch < WARMUP_EPOCHS,
-                joint_cd=self.joint_cd, aux_cond_steps=aux_cond_steps,
-                Dz1=self.Dz_mod1, steps=self.cross_steps, batch_size=bs,
-                metrics_every=metrics_every)
-            self._set_joint_states(joint)
-            tot = {k: float(v) for k, v in totals._asdict().items()}
-            self.last_metrics = None
-            if tot["n"] > 0:
-                self.last_metrics = {
-                    "cross_modality/mod1_mse":
-                        tot["mse_mod1"] / (tot["n"] * npix1),
-                    "cross_modality/mod2_mse":
-                        tot["mse_mod2"] / (tot["n"] * npix2),
-                }
-                self.joint_metrics_history.append(
-                    dict(self.last_metrics, epoch=epoch))
+        seed = int(self.params.get("SEED", 0)) + 11
+        for b_start, b_end in checkpoint_epochs(
+                start_epoch, epochs,
+                checkpoint_every if checkpoint_path else 0,
+                min(WARMUP_EPOCHS, epochs)):
+            for epoch in range(b_start, b_end):
+                key = rng.fold_in(seed, epoch)
+                perm = rng.permutation(key, n).to(self.device)
+                joint, _, _, totals = bimodal_ops.bimodal_epoch(
+                    self._joint_states(), mod1_states, mod2_states, key,
+                    Z1[perm], Z2[perm], V1[perm], V2[perm],
+                    effective_lr(jr.lr, epoch, jr.dynamic_lr),
+                    effective_momentum(jr.momentum, jr.final_momentum,
+                                       epoch),
+                    jr.weight_decay, warmup=epoch < WARMUP_EPOCHS,
+                    joint_cd=self.joint_cd, aux_cond_steps=aux_cond_steps,
+                    Dz1=self.Dz_mod1, steps=self.cross_steps, batch_size=bs,
+                    metrics_every=metrics_every)
+                self._set_joint_states(joint)
+                tot = {k: float(v) for k, v in totals._asdict().items()}
+                self.last_metrics = None
+                if tot["n"] > 0:
+                    self.last_metrics = {
+                        "cross_modality/mod1_mse":
+                            tot["mse_mod1"] / (tot["n"] * npix1),
+                        "cross_modality/mod2_mse":
+                            tot["mse_mod2"] / (tot["n"] * npix2),
+                    }
+                    self.joint_metrics_history.append(
+                        dict(self.last_metrics, epoch=epoch))
+            maybe_save_train_checkpoint(self, checkpoint_path,
+                                        checkpoint_every, "bimodal_joint",
+                                        b_end, epochs)
         print("[iMDBN_BiModal] joint training finished.")
 
-    # -- persistence (JAX :1013-1050) ----------------------------------------
+    # -- persistence (JAX :1013-1056) ----------------------------------------
 
     def save_model(self, path: str) -> None:
-        """Write every state as ``.npz`` in the ``convert`` bimodal layout."""
-        np.savez(path, **convert.bimodal_to_numpy(
-            self.mod1_dbn.states(), self.mod2_dbn.states(),
-            self._joint_states()))
+        """Pickle payload of the reference (imdbn_bimodal.py:1017-1042):
+        both modality iDBNs, the joint layers and the architecture.
+        Parameters are pickled as numpy arrays."""
+        payload = {
+            "mod1_dbn": self.mod1_dbn,
+            "mod2_dbn": self.mod2_dbn,
+            "joint_layers": self.joint_layers,
+            "num_joint_layers": self.num_joint_layers,
+            "Dz_mod1": self.Dz_mod1,
+            "Dz_mod2": self.Dz_mod2,
+            "params": self.params,
+            "arch_str": self.arch_str,
+            "features": self.features,
+            "metadata": {
+                "saved_at": datetime.datetime.now().isoformat(),
+                "model_type": "iMDBN_BiModal",
+                "architecture": self.arch_str,
+            },
+        }
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
         print(f"[iMDBN_BiModal] Model saved to {path}")
         print(f"[iMDBN_BiModal] Architecture: {self.arch_str}")
 
+    def export_npz(self, path: str) -> None:
+        """Write every state as ``.npz`` in the ``convert`` bimodal layout
+        (``convert.bimodal_from_numpy`` reads it)."""
+        np.savez(path, **convert.bimodal_to_numpy(
+            self.mod1_dbn.states(), self.mod2_dbn.states(),
+            self._joint_states()))
+
     @staticmethod
-    def load_model(path: str, device: DeviceLike = None) -> dict:
-        """{"mod1": [RBMState], "mod2": [...], "joint": [...]} from a file
-        ``save_model`` wrote, on ``device`` (``cuda`` unless asked)."""
-        with np.load(path) as f:
-            return convert.bimodal_from_numpy(dict(f),
-                                              device=resolve_device(device))
+    def load_model(path: str, device: DeviceLike = None) -> Dict[str, Any]:
+        """Load a ``save_model`` payload with its parts moved to ``device``
+        (``cuda`` unless ``"cpu"`` is asked for); old single-``joint_rbm``
+        payloads are upgraded to ``joint_layers``
+        (JAX models/imdbn_bimodal.py:1036-1049)."""
+        device = resolve_device(device)
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        if "joint_layers" not in payload and "joint_rbm" in payload:
+            payload["joint_layers"] = [payload["joint_rbm"]]
+            payload["num_joint_layers"] = 1
+        for part in (payload["mod1_dbn"], payload["mod2_dbn"],
+                     *payload["joint_layers"]):
+            part.to(device)
+        print(f"[iMDBN_BiModal] Model loaded from {path}")
+        if "arch_str" in payload:
+            print(f"[iMDBN_BiModal] Architecture: {payload['arch_str']}")
+        return payload
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["dataloader"] = None
+        d["val_loader"] = None
+        d["device"] = "cpu"
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.device = torch.device("cpu")

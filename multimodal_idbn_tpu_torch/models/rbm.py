@@ -1,21 +1,28 @@
 """RBM object shell over the port's functional core.
 
 Port of multimodal_idbn_tpu/models/rbm.py:163-486 with the same public
-names (``W``, ``hid_bias``, ``vis_bias``, ``W_m``, ``hb_m``, ``vb_m``,
-``forward``, ``backward``, ``conditional_gibbs``,
-``noisy_meanfield_annealed``). The shell owns an ``RBMState``, an explicit
-``torch.Generator`` (its key stream, ``ops.rng.next_key``) and its device.
+names: the attribute surface (``W``, ``hid_bias``, ``vis_bias``, ``W_m``,
+``hb_m``, ``vb_m``), the conditionals and samplers (:282-341), training
+(``train_epoch``, ``train_epoch_clamped``, :355-388), conditional
+inference (:392-466) and pickling (:470-481). The shell owns an
+``RBMState``, an explicit ``torch.Generator`` (its key stream,
+``ops.rng.next_key``) and its device. It pickles as numpy arrays plus the
+generator's state, never as device tensors, and unpickles onto the CPU;
+``to(device)`` moves it.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from multimodal_idbn_tpu_torch import convert
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng, sampling
+from multimodal_idbn_tpu_torch.ops.rbm_ops import RBMState
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 
@@ -98,6 +105,29 @@ class RBM:
     def vb_m(self) -> torch.Tensor:
         return self.state.vb_m
 
+    def reset_momentum(self) -> None:
+        """Zero the momentum buffers, as the reference does on load
+        (JAX models/rbm.py:282-287)."""
+        st = self.state
+        self.state = st.replace(w_m=torch.zeros_like(st.w),
+                                hb_m=torch.zeros_like(st.hb),
+                                vb_m=torch.zeros_like(st.vb))
+
+    def reseed(self, seed: int) -> None:
+        """Restart this instance's key stream from ``seed``, so that the
+        next inference call draws what a fresh ``seed`` draws."""
+        self._gen.manual_seed(int(seed))
+
+    def to(self, device: DeviceLike = None) -> "RBM":
+        """Move the parameters to ``device`` (``cuda`` unless ``"cpu"`` is
+        asked for) and return ``self``. The JAX shell's ``to`` is a no-op
+        (models/rbm.py:289-292); here a model loaded from a pickle lies on
+        the CPU until it is moved."""
+        self.device = resolve_device(device)
+        self.state = RBMState(*(getattr(self.state, f).to(self.device)
+                                for f in convert.FIELDS))
+        return self
+
     # -- conditionals -----------------------------------------------------
 
     def forward(self, v, T: float = 1.0) -> torch.Tensor:
@@ -106,13 +136,37 @@ class RBM:
 
     __call__ = forward
 
+    def visible_probs(self, h, T: float = 1.0) -> torch.Tensor:
+        """p(v|h) with softmax groups (JAX models/rbm.py:306-309)."""
+        return rbm_ops.visible_probs(self.state, self._as(h), T,
+                                     groups=self._groups())
+
+    def sample_visible(self, v_prob) -> torch.Tensor:
+        """Sample v ~ p(v|h) respecting softmax groups
+        (JAX models/rbm.py:311-314)."""
+        return sampling.sample_visible(self._next_key(), self._as(v_prob),
+                                       self._groups())
+
     def backward(self, h, return_logits: bool = False) -> torch.Tensor:
         """p(v|h) with softmax groups, or its logits
         (JAX models/rbm.py:316-320)."""
-        h = self._as(h)
         if return_logits:
-            return rbm_ops.visible_logits(self.state, h)
-        return rbm_ops.visible_probs(self.state, h, groups=self._groups())
+            return rbm_ops.visible_logits(self.state, self._as(h))
+        return self.visible_probs(h)
+
+    def backward_sample(self, h) -> torch.Tensor:
+        return self.sample_visible(self.visible_probs(h))
+
+    def gibbs_step(self, v, sample_h: bool = True, sample_v: bool = True):
+        """One v→h→v' step; returns (v_next, v_prob, h, h_prob)
+        (JAX models/rbm.py:325-330)."""
+        return rbm_ops.gibbs_step(self.state, self._next_key(), self._as(v),
+                                  sample_h=sample_h, sample_v=sample_v,
+                                  groups=self._groups())
+
+    def free_energy(self, v) -> torch.Tensor:
+        """F(v) = −v·b_v − Σ softplus(b_h + vW) (JAX models/rbm.py:332-340)."""
+        return rbm_ops.free_energy(self.state, self._as(v))
 
     # -- training ---------------------------------------------------------
 
@@ -136,7 +190,38 @@ class RBM:
                 self.state, self._next_key(), self._as(data), **kw)
         return loss
 
+    def train_epoch_clamped(self, v_known, known_mask, epoch: int,
+                            max_epochs: int, CD: int = 1,
+                            cond_init_steps: int = 50, sample_h: bool = True,
+                            sample_v: bool = False,
+                            reclamp_negative: bool = True,
+                            aux_lr_mult: float = 0.3,
+                            use_noisy_init: bool = True) -> torch.Tensor:
+        """Auxiliary clamped-CD update with the μ-pull of ``self._mu_pull``
+        (JAX models/rbm.py:367-388)."""
+        del max_epochs
+        mu_k, eta0 = self._mu_pull_args()
+        self.state, loss = rbm_ops.clamped_cd_update(
+            self.state, self._next_key(), self._as(v_known),
+            self._as(known_mask),
+            lr=effective_lr(self.lr, epoch, self.dynamic_lr),
+            mom=effective_momentum(self.momentum, self.final_momentum,
+                                   epoch),
+            weight_decay=self.weight_decay, cd=int(CD),
+            cond_init_steps=int(cond_init_steps), sample_h=sample_h,
+            sample_v=sample_v, reclamp_negative=reclamp_negative,
+            aux_lr_mult=aux_lr_mult, use_noisy_init=use_noisy_init,
+            mu_k=mu_k, eta0=eta0, groups=self._groups())
+        return loss
+
     # -- conditional inference ---------------------------------------------
+
+    def _mu_pull_args(self):
+        """(mu_k, eta0) of the μ-pull side channel (rbm.py:359-363)."""
+        mu = self._mu_pull
+        if mu is None:
+            return None, 0.15
+        return self._as(mu["mu_k"]), float(mu.get("eta0", 0.15))
 
     def conditional_gibbs(self, v_known, known_mask, n_steps: int = 30,
                           sample_h: bool = False,
@@ -148,6 +233,20 @@ class RBM:
             self._as(known_mask), n_steps=int(n_steps), sample_h=sample_h,
             sample_v=sample_v, groups=self._groups())
 
+    def conditional_gibbs_annealed(self, v_known, known_mask,
+                                   n_steps: int = 40, T0: float = 2.5,
+                                   T1: float = 1.0, sample_h_until: int = 20,
+                                   sample_v_every: int = 0,
+                                   final_meanfield: bool = True
+                                   ) -> torch.Tensor:
+        """Annealed conditional Gibbs (JAX models/rbm.py:423-434)."""
+        return rbm_ops.conditional_gibbs_annealed(
+            self.state, self._next_key(), self._as(v_known),
+            self._as(known_mask), n_steps=int(n_steps), T0=T0, T1=T1,
+            sample_h_until=int(sample_h_until),
+            sample_v_every=int(sample_v_every),
+            final_meanfield=final_meanfield, groups=self._groups())
+
     def noisy_meanfield_annealed(self, v_known, known_mask,
                                  n_steps: int = 72, T0: float = 3.0,
                                  T1: float = 1.0, sigma0: float = 0.9,
@@ -157,15 +256,34 @@ class RBM:
         """Noisy mean-field annealing with μ-pull read from
         ``self._mu_pull`` ({"mu_k": [B,Dz], "eta0": η}), as the reference
         API (JAX models/rbm.py:436-466)."""
-        mu = self._mu_pull
-        mu_k = None if mu is None else self._as(mu["mu_k"])
-        eta0 = 0.15 if mu is None else float(mu.get("eta0", 0.15))
+        mu_k, eta0 = self._mu_pull_args()
         return rbm_ops.noisy_meanfield_annealed(
             self.state, self._next_key(), self._as(v_known),
             self._as(known_mask), n_steps=int(n_steps), T0=T0, T1=T1,
             sigma0=float(sigma0), hot_frac=float(hot_frac),
             sharpen_last=int(sharpen_last), T_cold_plus=T_cold_plus,
             mu_k=mu_k, eta0=eta0, groups=self._groups())
+
+    # -- pickling (JAX models/rbm.py:470-481) --------------------------------
+
+    def __getstate__(self):
+        """numpy arrays and the generator's state: a payload written on the
+        card loads on a machine without one."""
+        d = dict(self.__dict__)
+        d["state"] = tuple(getattr(self.state, f).detach().cpu().numpy()
+                           for f in convert.FIELDS)
+        d["_gen"] = self._gen.get_state().numpy()
+        d["device"] = "cpu"
+        d["_mu_pull"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.state = RBMState(*(
+            torch.from_numpy(np.array(a, np.float32)) for a in d["state"]))
+        self._gen = torch.Generator()
+        self._gen.set_state(torch.from_numpy(np.array(d["_gen"], np.uint8)))
+        self.device = torch.device("cpu")
 
     def __repr__(self):
         return (f"RBM(num_visible={self.num_visible}, "

@@ -1,7 +1,8 @@
 """iDBN training epochs and the DBN encode/decode passes.
 
 Port of multimodal_idbn_tpu/ops/dbn_train.py:31-139 (``idbn_epoch``) and
-:388-424 (``dbn_represent``, ``dbn_decode``, ``dbn_decode_sampled``). The
+:388-434 (``dbn_represent``, ``dbn_decode``, ``dbn_decode_sampled``,
+``dbn_reconstruct``). The
 JAX epoch is one ``lax.scan``; here it is a Python loop over static batch slices of
 already-permuted data (``shuffle=False``), with the same iterative
 schedule: every layer updates on every batch, and layer i+1 is fed the
@@ -95,3 +96,9 @@ def dbn_decode_sampled(states: Sequence[rbm_ops.RBMState],
         if i < len(states) - 1:
             cur = sample_bernoulli(rng.fold_in(key, i), cur)
     return cur
+
+
+def dbn_reconstruct(states: Sequence[rbm_ops.RBMState],
+                    v: torch.Tensor) -> torch.Tensor:
+    """Encode through all layers, then decode back (dbn_train.py:427-434)."""
+    return dbn_decode(states, dbn_represent(states, v, len(states)))

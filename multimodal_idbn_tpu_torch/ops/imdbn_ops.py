@@ -1,8 +1,8 @@
 """Joint-RBM training and cross-modal inference of the iMDBN.
 
-Port of multimodal_idbn_tpu/ops/imdbn_ops.py:27-337: ``joint_bias_stats``,
-``cross_reconstruct``, ``cross_metrics_batch``, ``_joint_train_batch`` and
-``joint_epoch``. The JAX epoch is one ``lax.scan``; here it is a Python
+Port of multimodal_idbn_tpu/ops/imdbn_ops.py:27-337 (``joint_bias_stats``,
+``cross_reconstruct``, ``cross_metrics_batch``, ``_joint_train_batch``,
+``joint_epoch``) and :473-507 (``sample_txt2img``). The JAX epoch is one ``lax.scan``; here it is a Python
 loop over static batch slices of already-permuted data, the remainder
 left to the caller. Every chain of a batch (the 30-step noisy init of each
 auxiliary clamped CD, the 50-step IMG→TXT mean-field chain and the 50-step
@@ -66,38 +66,68 @@ def cross_reconstruct(joint: rbm_ops.RBMState,
                       steps: int, Dz: int, groups: SoftmaxGroups,
                       z_class_mean: Optional[torch.Tensor] = None,
                       z_affine: Optional[Tuple[torch.Tensor,
-                                               torch.Tensor]] = None):
+                                               torch.Tensor]] = None,
+                      use_free_energy: bool = False, best_of_k: int = 5,
+                      direction: str = "both"):
     """IMG→TXT then TXT→IMG through the joint RBM; returns
     (decoded image [B, D], p(y|img) [B, K]) (imdbn_ops.py:78-171).
 
-    Best-of-K is the reference's no-op: its free-energy guard never fires,
-    so candidate 0, the full annealed chain, is always chosen
-    (imdbn_ops.py:94-101, :144-163), and the dead candidates are skipped.
+    ``direction`` ("both" | "img2txt" | "txt2img") skips the unused half,
+    whose output is then ``None``; the keys of the two halves are
+    ``fold_in(key, 0)`` and ``fold_in(key, 1)`` whatever the direction, so
+    the kept half is bit-identical to the same half of "both".
+
+    Best-of-K: with ``use_free_energy=False`` (the default) it is the
+    reference's no-op: its free-energy guard never fires, so candidate 0,
+    the full annealed chain, is always chosen (imdbn_ops.py:94-101), and
+    the dead candidates are skipped. With ``use_free_energy=True``,
+    candidate i+1 is a 1-step cold refinement (T=0.9, σ=0) of candidate i,
+    keyed ``fold_in(fold_in(key, 2), i)``, and each sample takes the
+    candidate of least ``rbm_ops.free_energy`` (imdbn_ops.py:144-161).
     """
+    if direction not in ("both", "img2txt", "txt2img"):
+        raise ValueError(f"unknown direction {direction!r}")
     B, K = y_onehot.shape
     dev = z_img.device
-    k_i2t, k_t2i = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    k_i2t, k_t2i, k_ref = (rng.fold_in(key, i) for i in range(3))
     zeros_k = torch.zeros((B, K), device=dev)
-    ones_z = torch.ones((B, Dz), device=dev)
+    km = torch.cat([torch.ones((B, Dz), device=dev), zeros_k], dim=1)
 
-    # IMG→TXT: z clamped, mean-field conditional Gibbs (imdbn_ops.py:116-125)
-    km = torch.cat([ones_z, zeros_k], dim=1)
-    v_img2txt = rbm_ops.conditional_gibbs(
-        joint, k_i2t, torch.cat([z_img, zeros_k], dim=1), km, n_steps=steps,
-        sample_h=False, sample_v=False, groups=groups)
-    p_y_given_img = v_img2txt[:, Dz:]
+    p_y_given_img = None
+    if direction in ("both", "img2txt"):
+        # IMG→TXT: z clamped, mean-field conditional Gibbs (:116-125)
+        v_img2txt = rbm_ops.conditional_gibbs(
+            joint, k_i2t, torch.cat([z_img, zeros_k], dim=1), km,
+            n_steps=steps, sample_h=False, sample_v=False, groups=groups)
+        p_y_given_img = v_img2txt[:, Dz:]
+    if direction == "img2txt":
+        return None, p_y_given_img
 
     # TXT→IMG: y clamped, μ-pull, noisy annealing (imdbn_ops.py:129-142)
     v_known2 = torch.cat([torch.zeros((B, Dz), device=dev), y_onehot], dim=1)
+    km2 = 1.0 - km
     mu_k = None
     if z_class_mean is not None:
         mu_k = z_class_mean[y_onehot.argmax(dim=1)]
-    v_chain = rbm_ops.noisy_meanfield_annealed(
-        joint, k_t2i, v_known2, 1.0 - km, n_steps=steps, T0=3.0, T1=1.0,
+    v_pick = rbm_ops.noisy_meanfield_annealed(
+        joint, k_t2i, v_known2, km2, n_steps=steps, T0=3.0, T1=1.0,
         sigma0=0.9, hot_frac=0.7, sharpen_last=3, T_cold_plus=0.9,
         mu_k=mu_k, eta0=0.15, groups=groups)
 
-    z_from_y = v_chain[:, :Dz]
+    if use_free_energy and best_of_k > 1:
+        cands = [v_pick]
+        for i in range(best_of_k - 1):
+            # the chain re-draws the unknown block each time (:145-147)
+            cands.append(rbm_ops.noisy_meanfield_annealed(
+                joint, rng.fold_in(k_ref, i), cands[-1], km2, n_steps=1,
+                T0=0.9, T1=0.9, sigma0=0.0, hot_frac=0.0, sharpen_last=0,
+                T_cold_plus=0.9, mu_k=mu_k, eta0=0.15, groups=groups))
+        cands = torch.stack(cands)                             # [Kb, B, V]
+        best = torch.stack([rbm_ops.free_energy(joint, v)
+                            for v in cands]).argmin(dim=0)     # [B]
+        v_pick = cands[best, torch.arange(B, device=dev)]
+
+    z_from_y = v_pick[:, :Dz]
     if z_affine is not None:
         scale, bias = z_affine
         z_from_y = (z_from_y - bias) / (scale + 1e-6)
@@ -128,7 +158,8 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
                        weight_decay, z_class_mean, *, warmup: bool,
                        joint_cd: int, aux_cond_steps: int, Dz: int,
                        steps: int, groups: SoftmaxGroups,
-                       zclamp_every: int, compute_metrics: bool):
+                       zclamp_every: int, compute_metrics: bool,
+                       use_free_energy: bool = False):
     """One joint-training batch (imdbn_ops.py:195-262).
 
     Warm-up: 2× y-clamped aux CD. Main: free CD + y-clamp aux every batch
@@ -170,7 +201,8 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
     if compute_metrics:
         img_from_txt, p_y = cross_reconstruct(
             joint, idbn_states, keys[3], zb, yb, steps=steps, Dz=Dz,
-            groups=groups, z_class_mean=z_class_mean)
+            groups=groups, z_class_mean=z_class_mean,
+            use_free_energy=use_free_energy)
         metrics = cross_metrics_batch(img_from_txt, p_y, imgb, yb)
     return joint, cd_loss, metrics
 
@@ -180,8 +212,9 @@ def joint_epoch(joint: rbm_ops.RBMState,
                 Z: torch.Tensor, Y: torch.Tensor, IMG: torch.Tensor, lr,
                 mom, weight_decay, z_class_mean, *, warmup: bool,
                 joint_cd: int, aux_cond_steps: int, Dz: int, steps: int,
-                groups: SoftmaxGroups, zclamp_every: int = 50,
-                batch_size: int = 128, metrics_every: int = 1):
+                groups: SoftmaxGroups, use_free_energy: bool = False,
+                zclamp_every: int = 50, batch_size: int = 128,
+                metrics_every: int = 1):
     """One joint epoch over the full batches of already-permuted data
     (imdbn_ops.py:265-337). Returns (joint, mean_cd_loss, CrossMetrics
     sums). With ``metrics_every > 1`` the round trip runs on every Nth
@@ -196,7 +229,40 @@ def joint_epoch(joint: rbm_ops.RBMState,
             b, lr, mom, weight_decay, z_class_mean, warmup=warmup,
             joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz=Dz,
             steps=steps, groups=groups, zclamp_every=zclamp_every,
-            compute_metrics=(b % max(1, metrics_every) == 0))
+            compute_metrics=(b % max(1, metrics_every) == 0),
+            use_free_energy=use_free_energy)
         totals = add_metrics(totals, m)
         loss_sum = loss_sum + cd_loss
     return joint, loss_sum / max(1, nb), totals
+
+
+def sample_txt2img(joint: rbm_ops.RBMState,
+                   idbn_states: Sequence[rbm_ops.RBMState], key: int,
+                   y_onehot: torch.Tensor, *, steps: int, Dz: int,
+                   groups: SoftmaxGroups,
+                   z_affine: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None):
+    """Draw images from p(img | y) (imdbn_ops.py:473-507): the fully
+    sampled conditional chain on the joint RBM with the label block
+    clamped (``rbm_ops.sampled_conditional_chain``, keyed
+    ``fold_in(key, 0)``), then the ancestral-sampled decode through the
+    image iDBN (``dbn_train.dbn_decode_sampled``, ``fold_in(key, 1)``).
+    Plain torch, as both are plain XLA in the JAX package. Returns
+    (images [B, D], pixel probabilities of the sampled configuration;
+    z_sample [B, Dz], the binary top-layer sample)."""
+    B, K = y_onehot.shape
+    dev = y_onehot.device
+    v_known = torch.cat([torch.zeros((B, Dz), device=dev),
+                         y_onehot.to(torch.float32)], dim=1)
+    km = torch.cat([torch.zeros((Dz,), device=dev),
+                    torch.ones((K,), device=dev)])
+    v = rbm_ops.sampled_conditional_chain(joint, rng.fold_in(key, 0),
+                                          v_known, km, n_steps=steps,
+                                          groups=groups)
+    z_sample = v[:, :Dz]
+    z_dec = z_sample
+    if z_affine is not None:
+        scale, bias = z_affine
+        z_dec = (z_dec - bias) / (scale + 1e-6)
+    return dbn_train.dbn_decode_sampled(idbn_states, z_dec,
+                                        rng.fold_in(key, 1)), z_sample

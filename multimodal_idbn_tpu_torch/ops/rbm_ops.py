@@ -1,9 +1,10 @@
 """RBM operations over an explicit parameter state (fp32).
 
 Port of multimodal_idbn_tpu/ops/rbm_ops.py: ``RBMState``, the
-conditionals of both directions, ``free_energy``, the CD-k update in the
-exact order of rbm_ops.py:192-323, the conditional chains
-(rbm_ops.py:403-473, :522-577) and the auxiliary clamped CD
+conditionals of both directions, ``free_energy``, ``gibbs_step``
+(rbm_ops.py:95), the CD-k update in the exact order of rbm_ops.py:192-323,
+the conditional chains (rbm_ops.py:403-577, ``conditional_gibbs_annealed``
+among them) and the auxiliary clamped CD
 (rbm_ops.py:584-664). ``lax.scan`` becomes a Python loop; keys are 64-bit
 ints (``ops.rng``). The bf16, stochastic-rounding and ``compute_cast``
 paths of the JAX module are not ported.
@@ -97,6 +98,19 @@ def free_energy(state: RBMState, v: torch.Tensor) -> torch.Tensor:
     """F(v) = −v·b_v − Σ_j softplus(b_h + vW)_j (rbm_ops.py:85-92)."""
     return -(v @ state.vb) - torch.nn.functional.softplus(
         state.hb + v @ state.w).sum(dim=1)
+
+
+def gibbs_step(state: RBMState, key: int, v: torch.Tensor,
+               sample_h: bool = True, sample_v: bool = True,
+               groups: SoftmaxGroups = ()):
+    """One v -> h -> v' Gibbs step; returns (v_next, v_prob, h, h_prob)
+    (rbm_ops.py:95-105)."""
+    h_prob = hidden_probs(state, v)
+    h = sample_bernoulli(rng.fold_in(key, 0), h_prob) if sample_h else h_prob
+    v_prob = visible_probs(state, h, groups=groups)
+    v_next = sample_visible(rng.fold_in(key, 1), v_prob, groups) \
+        if sample_v else v_prob
+    return v_next, v_prob, h, h_prob
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +238,40 @@ def sampled_conditional_chain(state: RBMState, key: int,
         v_prob = visible_probs(state, h, groups=groups)
         v = clamp_mask(sample_visible(rng.fold_in(k, 1), v_prob, groups),
                        v_known, known_mask)
+    return v
+
+
+def conditional_gibbs_annealed(state: RBMState, key: int,
+                               v_known: torch.Tensor,
+                               known_mask: torch.Tensor, *,
+                               n_steps: int = 40, T0: float = 2.5,
+                               T1: float = 1.0, sample_h_until: int = 20,
+                               sample_v_every: int = 0,
+                               final_meanfield: bool = True,
+                               groups: SoftmaxGroups = ()) -> torch.Tensor:
+    """Annealed conditional Gibbs (rbm_ops.py:475-519): linear T0→T1 with
+    the last 3 steps sharpened to min(0.9, T); h sampled while
+    ``t < sample_h_until``; v sampled on every ``sample_v_every``-th hot
+    step; an optional final T=1 mean-field pass, re-clamped. Plain torch,
+    as in the JAX package: the chain kernel computes the mean-field
+    family only."""
+    n_steps = int(n_steps)
+    v = _chain_init(rng.fold_in(key, 0), v_known, known_mask)
+    hot = int(max(0, min(n_steps, sample_h_until)))
+    temps = schedules.gibbs_annealed_temperature(n_steps, T0, T1).tolist()
+    kloop = rng.fold_in(key, 1)
+    for t, T in enumerate(temps):
+        k = rng.fold_in(kloop, t)
+        h = hidden_probs(state, v, T)
+        if t < hot:
+            h = sample_bernoulli(rng.fold_in(k, 0), h)
+        v_new = visible_probs(state, h, T, groups=groups)
+        if sample_v_every > 0 and t < hot and t % sample_v_every == 0:
+            v_new = sample_visible(rng.fold_in(k, 1), v_new, groups)
+        v = clamp_mask(v_new, v_known, known_mask)
+    if final_meanfield:
+        v = clamp_mask(visible_probs(state, hidden_probs(state, v),
+                                     groups=groups), v_known, known_mask)
     return v
 
 

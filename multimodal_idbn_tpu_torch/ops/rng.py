@@ -7,9 +7,12 @@ ops/pallas_chain.py:72-82). The port replaces them so:
 
 - A *key* is a 64-bit Python int. ``fold_in`` derives child keys
   (splitmix64 mixing), the way JAX code derives per-step keys.
-  ``next_key`` draws a fresh key from an explicit ``torch.Generator``;
-  the models hold one, seeded from ``SEED``, and derive every
-  per-(epoch, batch, layer) key from it.
+  ``next_key`` draws a fresh key from an explicit ``torch.Generator``,
+  the stream each RBM shell holds for its own calls. The training loops
+  use no stream: epoch e's key is ``fold_in(SEED-derived key, e)`` and
+  its permutation ``permutation(key, n)``, as the JAX package derives
+  ``fold_in(epoch_key, epoch)`` (models/idbn.py:348, :433), so a run
+  resumed at epoch e draws what the uninterrupted run draws.
 - Draws made by plain torch code (chain inits, the Bernoulli and Gumbel
   draws of the generic CD) come from a ``torch.Generator`` seeded by a key.
 - Draws made inside the CUDA kernels come from Philox4x32-10 keyed by a
@@ -92,6 +95,14 @@ def generator(key: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(key) & _M64)
     return gen
+
+
+def permutation(key: int, n: int) -> torch.Tensor:
+    """Permutation of ``range(n)`` drawn on the CPU from ``key`` alone (a
+    child key that no batch or layer index reaches), so an epoch's order
+    depends on (seed, epoch) and not on the epochs run before it."""
+    return torch.randperm(n, generator=generator(fold_in(key, 0x7065726D),
+                                                 "cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,12 @@ def lin_schedule(t, t_max: int, start, end) -> torch.Tensor:
             + (torch.tensor(end, dtype=_F32) - start) * alpha)
 
 
+def hot_steps(n_steps: int, hot_frac: float) -> int:
+    """Number of 'hot' (stochastic) steps, a Python int
+    (schedules.py:28-30)."""
+    return int(max(0, min(n_steps, round(hot_frac * n_steps))))
+
+
 def _iota(n_steps: int) -> torch.Tensor:
     return torch.arange(n_steps, dtype=_F32)
 
@@ -36,6 +42,14 @@ def annealed_temperature(n_steps: int, T0, T1, sharpen_last: int,
     tail = max(1, int(sharpen_last))
     return torch.where((n_steps - t) <= tail,
                        torch.tensor(T_cold_plus, dtype=_F32), T)
+
+
+def gibbs_annealed_temperature(n_steps: int, T0, T1) -> torch.Tensor:
+    """Linear T0→T1 with the last 3 steps sharpened to ``min(0.9, T)``
+    (schedules.py:49-56)."""
+    t = _iota(n_steps)
+    T = lin_schedule(t, n_steps, T0, T1)
+    return torch.where((n_steps - t) <= 3, torch.clamp(T, max=0.9), T)
 
 
 def noise_sigma(n_steps: int, sigma0) -> torch.Tensor:

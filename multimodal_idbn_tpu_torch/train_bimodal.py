@@ -1,18 +1,23 @@
 """Train the bimodal DBN (numerosity + MNIST-100).
 
 Port of scripts/train_bimodal.py: it reads the same YAML configs, maps
-them to the same UPPERCASE params (:44-83) and runs the same flow: the
-MOD1 iDBN and then the MOD2 iDBN, each on a loader of its own modality
-(:116-160), then the joint DBN, then the save. Run it as
+them to the same UPPERCASE params (:44-83) and runs the same flow
+(:225-359): the MOD1 iDBN and then the MOD2 iDBN (each pretrained, or
+trained on a loader of its own modality, :116-160, with ``init_retry``
+through ``train_with_retry``, then the optional last-layer fine-tune), the
+joint DBN, the save. Run it as
 
     python -m multimodal_idbn_tpu_torch.train_bimodal \
         --config configs/bimodal_training_config.yaml [--device cpu]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU. Settings the port does not cover (pretrained modality DBNs,
-fine-tuning, resume, data parallelism, W&B and the other opt-in variants)
-raise ``NotImplementedError``; none is ignored. The model is saved as
-``{save_dir}/{save_name}.npz`` (``convert`` bimodal layout).
+GPU. ``training.checkpoint_every`` makes every phase resumable as in
+``train_multimodal`` (phases "mod1", "mod2", "bimodal_joint"; a
+phase-complete marker keeps a crash in a later phase from retraining an
+earlier one). Settings the port does not cover (data parallelism, W&B and
+the other opt-in variants) raise ``NotImplementedError``; none is ignored.
+The model is saved as ``{save_dir}/{save_name}.pkl``
+(``iMDBN_BiModal.save_model``).
 """
 
 from __future__ import annotations
@@ -24,13 +29,18 @@ from typing import List, Optional
 
 import numpy as np
 
+from multimodal_idbn_tpu_torch.checkpoint import (
+    cli_checkpoint_paths, config_fingerprint,
+    load_train_checkpoint_expecting, remove_checkpoints,
+    save_train_checkpoint)
 from multimodal_idbn_tpu_torch.data import (DataLoader, NumerosityDataset,
                                             create_dataloaders_uniform)
 from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
 from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
 from multimodal_idbn_tpu_torch.train_multimodal import (check_common,
                                                         load_config,
-                                                        not_ported)
+                                                        matmul_precision,
+                                                        train_dbn)
 
 DEFAULT_CONFIG_PATH = (Path(__file__).resolve().parent.parent / "configs"
                        / "bimodal_training_config.yaml")
@@ -49,13 +59,6 @@ def check_supported(cfg: dict) -> None:
     for what is not ported, ``ValueError`` for a dataset without a second
     modality (as scripts/train_bimodal.py:196-204)."""
     check_common(cfg)
-    paths = cfg.get("paths", {}) or {}
-    for m in ("mod1", "mod2"):
-        if paths.get(f"{m}_pretrained"):
-            not_ported(f"paths.{m}_pretrained", "checkpoint/ slice")
-        if int(paths.get(f"{m}_finetune_last_epochs", 0) or 0) > 0:
-            not_ported(f"paths.{m}_finetune_last_epochs",
-                       "models slice (finetune_mod*_last_layer)")
     if not (cfg.get("dataset", {}) or {}).get("second_modality"):
         raise ValueError(
             "bimodal training needs a second modality but the dataset has "
@@ -85,6 +88,13 @@ def build_params(cfg: dict) -> dict:
                                       t.get("aux_cond_steps", 50)),
         "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
         "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
+        # read for the fingerprint's sake, as in train_multimodal
+        "DP_DEVICES": t.get("dp_devices"),
+        "INIT_RETRY": t.get("init_retry", 0),
+        "CHECKPOINT_EVERY": t.get("checkpoint_every", 0),
+        "DTYPE": t.get("dtype", "float32"),
+        "COMPUTE_DTYPE": t.get("compute_dtype"),
+        "SR": t.get("stochastic_rounding"),
         "SEED": t.get("seed", 0),
     }
 
@@ -134,27 +144,93 @@ def main(argv: Optional[List[str]] = None) -> dict:
     synchronize(device)
     seconds = {"setup": time.perf_counter() - t0}
 
-    for i, (name, dbn) in enumerate((("mod1", bimodal.mod1_dbn),
-                                     ("mod2", bimodal.mod2_dbn))):
+    # Crash-safe resume (scripts/train_bimodal.py:225-283): a joint
+    # checkpoint restores every RBM of the model, so both modality phases
+    # are skipped; else each modality resumes from its own checkpoint.
+    t_cfg = cfg.get("training", {}) or {}
+    paths = cfg.get("paths", {}) or {}
+    ckpt_every = int(params.get("CHECKPOINT_EVERY", 0) or 0)
+    ckpts = {"mod1": None, "mod2": None, "bimodal_joint": None}
+    start = {"mod1": 0, "mod2": 0, "bimodal_joint": 0}
+    done = {"mod1": False, "mod2": False}
+    dbns = {"mod1": bimodal.mod1_dbn, "mod2": bimodal.mod2_dbn}
+    fp = config_fingerprint(
+        params,
+        mod1_layers=model.get("mod1_layers", [10000, 1500, 500]),
+        mod2_layers=model.get("mod2_layers", [1568, 500, 500]),
+        joint_layers=([joint_hidden] if isinstance(joint_hidden, int)
+                      else joint_hidden),
+        matmul_precision=matmul_precision(cfg))
+    for m in (bimodal, *dbns.values()):
+        m._ckpt_fingerprint = fp
+    ignore_cfg = bool(t_cfg.get("resume_ignore_config", False))
+    if ckpt_every > 0:
+        ckpts = cli_checkpoint_paths(cfg, tuple(ckpts))
+        if ckpts["bimodal_joint"].exists():
+            start["bimodal_joint"] = load_train_checkpoint_expecting(
+                bimodal, ckpts["bimodal_joint"], "bimodal_joint",
+                ignore_config=ignore_cfg)
+            done = {"mod1": True, "mod2": True}
+            print(f"[train_bimodal] resuming joint training at epoch "
+                  f"{start['bimodal_joint']}/{params['EPOCHS_JOINT']}")
+        else:
+            for name, dbn in dbns.items():
+                if not ckpts[name].exists():
+                    continue
+                epochs = int(params[f"EPOCHS_{name.upper()}"])
+                start[name] = load_train_checkpoint_expecting(
+                    dbn, ckpts[name], name, ignore_config=ignore_cfg)
+                done[name] = start[name] >= epochs
+                print(f"[train_bimodal] resuming {name.upper()} training "
+                      f"at epoch {start[name]}/{epochs}")
+
+    # 1), 2) the modality DBNs: load if available, otherwise train
+    for i, (name, dbn) in enumerate(dbns.items()):
         epochs = params[f"EPOCHS_{name.upper()}"]
-        print(f"Training {name.upper()} iDBN for {epochs} epochs...")
         t = time.perf_counter()
-        dbn.dataloader = modality_loader(train_loader, i)
-        dbn.train(epochs)
+        pre = paths.get(f"{name}_pretrained")
+        loader = getattr(bimodal, f"load_pretrained_{name}_dbn")
+        if not (done[name] or (pre and loader(pre))):
+            print(f"Training {name.upper()} iDBN for {epochs} epochs..."
+                  if not pre else f"[main] fallback: training "
+                  f"{name.upper()} iDBN from scratch...")
+            dbn.dataloader = modality_loader(train_loader, i)
+            train_dbn(dbn, epochs, int(params.get("INIT_RETRY", 0) or 0),
+                      start[name],
+                      ({"checkpoint_every": ckpt_every,
+                        "checkpoint_path": str(ckpts[name]),
+                        "checkpoint_phase": name} if ckpt_every else {}),
+                      f"train_bimodal {name.upper()}")
+        ft = int(paths.get(f"{name}_finetune_last_epochs", 0) or 0)
+        if ft > 0 and not done[name]:
+            getattr(bimodal, f"finetune_{name}_last_layer")(epochs=ft,
+                                                            lr_scale=0.3)
+        if ckpt_every and not done[name]:
+            # phase-complete marker, after the fine-tune hook
+            save_train_checkpoint(dbn, str(ckpts[name]), phase=name,
+                                  next_epoch=int(epochs),
+                                  loss_history=dbn.loss_history)
         synchronize(device)
         seconds[name] = time.perf_counter() - t
 
+    # 3) joint training
     print("Training joint RBM...")
     t = time.perf_counter()
-    bimodal.train_joint(params["EPOCHS_JOINT"])
+    bimodal.train_joint(
+        params["EPOCHS_JOINT"],
+        **({"checkpoint_every": ckpt_every,
+            "checkpoint_path": str(ckpts["bimodal_joint"]),
+            "start_epoch": start["bimodal_joint"]} if ckpt_every else {}))
     synchronize(device)
     seconds["joint"] = time.perf_counter() - t
 
-    paths = cfg.get("paths", {}) or {}
     save_dir = Path(paths.get("save_dir", "./networks")).expanduser()
     save_dir.mkdir(parents=True, exist_ok=True)
-    save_path = save_dir / f"{paths.get('save_name', 'bimodal_trained')}.npz"
+    save_path = save_dir / f"{paths.get('save_name', 'bimodal_trained')}.pkl"
     bimodal.save_model(str(save_path))
+    print(f"Saved bimodal model to {save_path}")
+    if ckpt_every:  # the run completed and the model is saved
+        remove_checkpoints(ckpts.values())
 
     m = bimodal.last_metrics or {}
     summary = {

@@ -1,16 +1,25 @@
 """Train the multimodal iDBN (image) + joint RBM with a label softmax group.
 
 Port of scripts/train_multimodal.py: it reads the same YAML configs,
-maps them to the same UPPERCASE params (:42-84) and runs the same
-image → joint → save flow. Run it as
+maps them to the same UPPERCASE params (:42-84) and runs the same flow
+(:184-292): image iDBN (pretrained, or trained, with ``init_retry`` through
+``train_with_retry``), the optional last-layer fine-tune, joint training,
+save. Run it as
 
     python -m multimodal_idbn_tpu_torch.train_multimodal \
         --config configs/multimodal_training_config.yaml [--device cpu]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU. Settings this slice does not cover raise ``NotImplementedError``
-naming the part of the port that will bring them; none is ignored.
-The model is saved as ``{save_dir}/{save_name}.npz`` (``convert`` layout).
+GPU. With ``training.checkpoint_every: N`` a resumable checkpoint is
+written every N epochs under ``paths.checkpoint_dir`` (default
+``{save_dir}/checkpoints``); running the same command again continues
+bit-identically from the last one, refuses if the training configuration
+changed (unless ``training.resume_ignore_config``), and the checkpoints
+are removed after the final save. Settings the port does not cover raise
+``NotImplementedError`` naming the part of the port that will bring them;
+none is ignored. The model is saved as ``{save_dir}/{save_name}.pkl``
+(``iMDBN.save_model``; ``python -m multimodal_idbn_tpu_torch.generate``
+serves it).
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from typing import List, Optional
 
 import yaml
 
+from multimodal_idbn_tpu_torch.checkpoint import (
+    cli_checkpoint_paths, config_fingerprint,
+    load_train_checkpoint_expecting, remove_checkpoints)
 from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
 from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
 from multimodal_idbn_tpu_torch.models import iMDBN
@@ -58,8 +70,6 @@ def check_common(cfg: dict) -> None:
     if t.get("dp_devices"):
         not_ported("training.dp_devices (data parallelism)",
                    "parallel/ slice")
-    if int(t.get("checkpoint_every", 0) or 0) > 0:
-        not_ported("training.checkpoint_every", "checkpoint/ slice")
     if str(t.get("dtype", "float32")).lower() not in ("float32", "f32",
                                                       "fp32"):
         not_ported(f"training.dtype={t.get('dtype')}",
@@ -75,8 +85,6 @@ def check_common(cfg: dict) -> None:
     if str(t.get("matmul_precision", "highest")) != "highest":
         not_ported(f"training.matmul_precision={t.get('matmul_precision')}",
                    "opt-in variants slice (TF32 / bf16 matmuls)")
-    if int(t.get("init_retry", 0) or 0) > 0:
-        not_ported("training.init_retry", "models slice (train_with_retry)")
     if (cfg.get("wandb", {}) or {}).get("enable", False):
         not_ported("wandb.enable", "logging slice (utils/ diagnostics)")
     if (cfg.get("dataset", {}) or {}).get("distribution",
@@ -88,12 +96,6 @@ def check_supported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` for every setting outside this entry
     point's port."""
     check_common(cfg)
-    paths = cfg.get("paths", {}) or {}
-    if paths.get("image_idbn_pretrained"):
-        not_ported("paths.image_idbn_pretrained", "checkpoint/ slice")
-    if int(paths.get("image_idbn_finetune_last_epochs", 0) or 0) > 0:
-        not_ported("paths.image_idbn_finetune_last_epochs",
-                   "models slice (finetune_image_last_layer)")
 
 
 def build_params(cfg: dict) -> dict:
@@ -117,8 +119,37 @@ def build_params(cfg: dict) -> dict:
                                       t.get("aux_cond_steps", 50)),
         "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
         "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
+        # read for the fingerprint's sake; check_common refuses a value of
+        # the next one and of the last three that the port does not cover
+        "DP_DEVICES": t.get("dp_devices"),
+        "INIT_RETRY": t.get("init_retry", 0),
+        "CHECKPOINT_EVERY": t.get("checkpoint_every", 0),
+        "DTYPE": t.get("dtype", "float32"),
+        "COMPUTE_DTYPE": t.get("compute_dtype"),
+        "SR": t.get("stochastic_rounding"),
         "SEED": t.get("seed", 0),
     }
+
+
+def train_dbn(dbn, epochs: int, init_retry: int, start_epoch: int,
+              ckpt_kw: dict, tag: str) -> None:
+    """Train one iDBN phase, through ``train_with_retry`` when
+    ``training.init_retry`` asks for it. With ``start_epoch`` the first
+    attempt continues a restored run and the collapse check still runs at
+    its end (scripts/train_multimodal.py:238-255)."""
+    if init_retry > 0:
+        retries = dbn.train_with_retry(epochs, max_retries=init_retry,
+                                       start_epoch=start_epoch, **ckpt_kw)
+        if retries:
+            print(f"[{tag}] init_retry: re-initialized {retries} time(s) "
+                  f"after blank-level recon")
+    else:
+        dbn.train(epochs, start_epoch=start_epoch, **ckpt_kw)
+
+
+def matmul_precision(cfg: dict) -> str:
+    return str((cfg.get("training", {}) or {}).get("matmul_precision",
+                                                   "highest"))
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -147,21 +178,81 @@ def main(argv: Optional[List[str]] = None) -> dict:
     synchronize(device)
     t1 = time.perf_counter()
 
-    print("Training image iDBN...")
-    imdbn.image_idbn.train(params["EPOCHS_IMG"])
+    # Crash-safe resume (scripts/train_multimodal.py:184-227). The
+    # training-relevant config is fingerprinted into every checkpoint, so
+    # a resume after a hyperparameter edit refuses.
+    t_cfg = cfg.get("training", {}) or {}
+    paths = cfg.get("paths", {}) or {}
+    ckpt_every = int(params.get("CHECKPOINT_EVERY", 0) or 0)
+    image_ckpt = joint_ckpt = None
+    image_start = joint_start = 0
+    image_done = False
+    fp = config_fingerprint(
+        params,
+        image_layers=model.get("image_layers", [10000, 1500, 1500]),
+        joint_hidden=model.get("joint_hidden", 1000),
+        num_labels=model.get("num_labels", 32),
+        matmul_precision=matmul_precision(cfg))
+    imdbn._ckpt_fingerprint = fp
+    imdbn.image_idbn._ckpt_fingerprint = fp
+    ignore_cfg = bool(t_cfg.get("resume_ignore_config", False))
+    if ckpt_every > 0:
+        ckpts = cli_checkpoint_paths(cfg, ("image", "joint"))
+        image_ckpt, joint_ckpt = ckpts["image"], ckpts["joint"]
+        if joint_ckpt.exists():
+            joint_start = load_train_checkpoint_expecting(
+                imdbn, joint_ckpt, "joint", ignore_config=ignore_cfg)
+            image_done = True
+            print(f"[train_multimodal] resuming joint training at epoch "
+                  f"{joint_start}/{params['EPOCHS_JOINT']}")
+        elif image_ckpt.exists():
+            image_start = load_train_checkpoint_expecting(
+                imdbn.image_idbn, image_ckpt, "image",
+                ignore_config=ignore_cfg)
+            image_done = image_start >= int(params["EPOCHS_IMG"])
+            print(f"[train_multimodal] resuming image training at epoch "
+                  f"{image_start}/{params['EPOCHS_IMG']}")
+
+    # 1) image iDBN: load if available, otherwise train
+    image_pre = paths.get("image_idbn_pretrained")
+    if not (image_done
+            or (image_pre and imdbn.load_pretrained_image_idbn(image_pre))):
+        print("Training image iDBN..." if not image_pre else
+              "[main] fallback: training image iDBN from scratch...")
+        train_dbn(imdbn.image_idbn, params["EPOCHS_IMG"],
+                  int(params.get("INIT_RETRY", 0) or 0), image_start,
+                  ({"checkpoint_every": ckpt_every,
+                    "checkpoint_path": str(image_ckpt)}
+                   if ckpt_every else {}), "train_multimodal")
+    # optional last-layer fine-tune; skipped when the image phase had
+    # completed, since the restored states are past it
+    ft_epochs = int(paths.get("image_idbn_finetune_last_epochs", 0) or 0)
+    if ft_epochs > 0 and not image_done:
+        imdbn.finetune_image_last_layer(epochs=ft_epochs, lr_scale=0.3)
+    if ckpt_every and not image_done:
+        # phase-complete marker, after the fine-tune hook: a crash during
+        # joint training must not retrain or re-fine-tune the image stack
+        imdbn.image_idbn._save_train_checkpoint(
+            str(image_ckpt), int(params["EPOCHS_IMG"]))
     synchronize(device)
     t2 = time.perf_counter()
 
+    # 2) joint training
     print("Training joint RBM...")
-    imdbn.train_joint(params["EPOCHS_JOINT"])
+    imdbn.train_joint(params["EPOCHS_JOINT"],
+                      **({"checkpoint_every": ckpt_every,
+                          "checkpoint_path": str(joint_ckpt),
+                          "start_epoch": joint_start} if ckpt_every else {}))
     synchronize(device)
     t3 = time.perf_counter()
 
-    paths = cfg.get("paths", {}) or {}
     save_dir = Path(paths.get("save_dir", "./networks")).expanduser()
     save_dir.mkdir(parents=True, exist_ok=True)
-    save_path = save_dir / f"{paths.get('save_name', 'imdbn_trained')}.npz"
+    save_path = save_dir / f"{paths.get('save_name', 'imdbn_trained')}.pkl"
     imdbn.save_model(str(save_path))
+    print(f"Saved multimodal model to {save_path}")
+    if ckpt_every:  # the run completed and the model is saved
+        remove_checkpoints((image_ckpt, joint_ckpt))
 
     summary = {
         "device": str(device),

@@ -144,9 +144,10 @@ def test_bimodal_convert_round_trip():
         np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
 
 
-def _smoke_config(tmp_path, **training):
+def _smoke_config(tmp_path, paths=None, **training):
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg["paths"]["save_dir"] = str(tmp_path)
+    cfg["paths"].update(paths or {})
     cfg["training"].update(training)
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -164,7 +165,17 @@ def test_train_bimodal_cpu_smoke(tmp_path):
         assert np.isfinite(v) and 0.0 < v < 1.0
     model = summary["model"]
     assert len(model.joint_metrics_history) == 9
-    parts = iMDBN_BiModal.load_model(summary["save_path"], device="cpu")
+    payload = iMDBN_BiModal.load_model(summary["save_path"], device="cpu")
+    assert payload["arch_str"] == model.arch_str
+    assert payload["mod1_dbn"].params is payload["params"]
+    model.export_npz(str(tmp_path / "layout.npz"))
+    parts = convert.bimodal_from_numpy(
+        dict(np.load(tmp_path / "layout.npz")), device="cpu")
+    for name, dbn in (("mod1", payload["mod1_dbn"]),
+                      ("mod2", payload["mod2_dbn"])):
+        for st, loaded in zip(parts[name], dbn.states()):
+            for f, a in state_np(st).items():
+                np.testing.assert_array_equal(a, state_np(loaded)[f])
     assert [s.w.shape for s in parts["mod1"]] == [(256, 32)]
     assert [s.w.shape for s in parts["mod2"]] == [(1568, 32)]
     assert [s.w.shape for s in parts["joint"]] == [(64, 16)]
@@ -182,20 +193,82 @@ def test_train_bimodal_cpu_smoke(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("training", "dp_devices", 2), ("training", "checkpoint_every", 5),
+    ("training", "dp_devices", 2),
     ("training", "dtype", "bfloat16"), ("training", "compute_dtype", "bf16"),
-    ("training", "stochastic_rounding", True), ("training", "init_retry", 1),
+    ("training", "stochastic_rounding", True),
     ("training", "matmul_precision", "default"),
-    ("paths", "mod1_pretrained", "m1.pkl"),
-    ("paths", "mod2_pretrained", "m2.pkl"),
-    ("paths", "mod1_finetune_last_epochs", 2),
-    ("paths", "mod2_finetune_last_epochs", 1),
     ("wandb", "enable", True), ("dataset", "distribution", "zipfian")])
 def test_unsupported_bimodal_settings_raise(section, key, value):
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg.setdefault(section, {})[key] = value
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_bimodal.check_supported(cfg)
+
+
+@pytest.mark.parametrize("setting", [
+    "checkpoint_every", "init_retry", "mod1_pretrained", "mod2_pretrained",
+    "mod1_finetune_last_epochs", "mod2_finetune_last_epochs"])
+def test_bimodal_setting_is_accepted_and_takes_effect(tmp_path, monkeypatch,
+                                                      capsys, setting):
+    """The settings that used to raise now run, and each changes the run."""
+    import multimodal_idbn_tpu_torch.checkpoint as ckpt
+    from multimodal_idbn_tpu_torch.models import iDBN
+    training, paths = {"epochs_joint": 1}, {}
+    saves, seen_lr = [], []
+    if setting == "checkpoint_every":
+        training["checkpoint_every"] = 1
+        real = ckpt.save_train_checkpoint
+
+        def counting(model, path, phase, next_epoch, loss_history=None):
+            saves.append((phase, next_epoch))
+            real(model, path, phase, next_epoch, loss_history)
+
+        monkeypatch.setattr(ckpt, "save_train_checkpoint", counting)
+        monkeypatch.setattr(train_bimodal, "save_train_checkpoint", counting)
+    elif setting == "init_retry":
+        training["init_retry"] = 1
+        monkeypatch.setattr(iDBN, "_recon_collapse_ratio", lambda self: 1.0)
+        real_reinit = iDBN.reinit_layers
+        monkeypatch.setattr(
+            iDBN, "reinit_layers", lambda self, seed_offset=0: (
+                saves.append(seed_offset), real_reinit(self, seed_offset)))
+    elif setting.endswith("_pretrained"):
+        sizes = [256, 32] if setting.startswith("mod1") else [1568, 32]
+        pre = iDBN(sizes, PARAMS, None, device="cpu", seed=9)
+        pre.save_model(str(tmp_path / "pre.pkl"))
+        paths[setting] = str(tmp_path / "pre.pkl")
+    else:
+        paths[setting] = 1
+        from multimodal_idbn_tpu_torch.models import RBM
+        real_epoch = RBM.train_epoch
+        monkeypatch.setattr(
+            RBM, "train_epoch", lambda self, *a, **kw: (
+                seen_lr.append(self.lr), real_epoch(self, *a, **kw))[1])
+    summary = train_bimodal.main(
+        ["--config", str(_smoke_config(tmp_path, paths, **training)),
+         "--device", "cpu"])
+    out = capsys.readouterr().out
+    name = setting[:4]
+    if setting == "checkpoint_every":
+        # a cadence save and the phase-complete marker per modality
+        assert saves == [("mod1", 1), ("mod1", 2), ("mod2", 1), ("mod2", 2)]
+        assert not any((tmp_path / "checkpoints").iterdir())
+    elif setting == "init_retry":
+        # the val-less modality stacks have no collapse ratio of their own;
+        # the patched one retries each stack once
+        assert saves == [7919, 7919]
+        assert len(summary["mod1_loss"]) == 4
+    elif setting.endswith("_pretrained"):
+        assert f"[load_pretrained_{name}_dbn] loaded from" in out
+        assert summary[f"{name}_loss"] == []
+        np.testing.assert_array_equal(
+            getattr(summary["model"], f"{name}_dbn").layers[0].W.numpy(),
+            pre.layers[0].W.numpy())
+    else:
+        top = getattr(summary["model"], f"{name}_dbn").layers[-1]
+        assert seen_lr and all(abs(lr - 0.3 * top.lr) < 1e-12
+                               for lr in seen_lr)
+    assert np.isfinite(summary["mse_mod1"])
 
 
 def test_bimodal_configs_are_supported_and_cut():

@@ -285,3 +285,106 @@ def test_chain_is_deterministic_and_launches_cooperatively(dev, B, V, H,
     assert torch.equal(first, second)
     assert float((first - chain.chain_plain(*args, **kw, seed=4)).abs().max()
                  ) <= TOL
+
+
+@pytest.mark.parametrize("B", [1, 3, 96, 200])
+@pytest.mark.parametrize("family", ["noisy + mu", "mean-field + final pass"])
+def test_chain_at_request_sized_batches(dev, B, family):
+    """The flagship joint (532x500, the 32-wide label group) at the batch
+    sizes a serving request brings, 200 rows being more than one 128-row
+    tile: 50 steps as ``txt2img`` and ``img2txt`` run them."""
+    args, kw = _chain_case(dev, B, 532, 500, ((500, 532),), 50, B)
+    if family == "noisy + mu":
+        extra = dict(seed=B + 1)
+    else:
+        args = args[:6] + (torch.tensor([[1.0, 0.0, 0.0]]).repeat(50, 1),)
+        kw = dict(kw, mu=None)
+        extra = dict(seed=None, final_unclamped=True)
+    before = chain.KERNEL.launches
+    out_k = chain.clamped_chain(*args, **kw, **extra)
+    assert chain.KERNEL.launches == before + 1
+    out_p = chain.chain_plain(*args, **kw, **extra)
+    torch.cuda.synchronize()
+    assert tuple(out_k.shape) == (B, 532)
+    assert float((out_k - out_p).abs().max()) <= TOL
+    assert torch.equal(out_k, chain.clamped_chain(*args, **kw, **extra))
+
+
+def _small_imdbn(device, seed=0):
+    from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    params = {"LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4,
+              "INIT_MOMENTUM": 0.5, "FINAL_MOMENTUM": 0.9,
+              "LEARNING_RATE_DYNAMIC": True, "CD": 1, "JOINT_CD": 1,
+              "JOINT_LEARNING_RATE": 0.04, "CROSS_GIBBS_STEPS": 5,
+              "JOINT_AUX_COND_STEPS": 2, "SEED": 0}
+    train, val, _ = create_dataloaders_uniform(
+        batch_size=16, n_samples=64, num_classes=4, side=16, seed=0)
+    return iMDBN([256, 64, 32], 24, params, train, val, device=device,
+                 num_labels=4, seed=seed)
+
+
+def _states(model):
+    return [getattr(r.state, f).cpu() for r in
+            model.image_idbn.layers + [model.joint_rbm]
+            for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m")]
+
+
+def test_model_saved_on_the_card_loads_on_the_cpu_and_back(dev, tmp_path):
+    """Train on the card, save; the pickle holds no device tensor, loads
+    on the CPU with equal states and serves there within the kernels'
+    tolerance; saved again from the CPU it loads back onto the card
+    bit-equal, and serves through one chain launch per call."""
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    m = _small_imdbn(dev)
+    m.image_idbn.train(1)
+    m.train_joint(1)
+    p = str(tmp_path / "card.pkl")
+    m.save_model(p)
+    on_cpu = iMDBN.from_payload(iMDBN.load_model(p, device="cpu"))
+    assert on_cpu.device == torch.device("cpu")
+    assert all(not t.is_cuda for t in _states(on_cpu))
+    assert all(torch.equal(a, b) for a, b in zip(_states(m), _states(on_cpu)))
+    imgs = m.dataloader.materialize()[0][:5]
+    for model in (m, on_cpu):
+        model.joint_rbm.reseed(1)
+    assert float((m.img2txt(imgs).cpu() - on_cpu.img2txt(imgs)).abs().max()
+                 ) <= TOL
+    p2 = str(tmp_path / "cpu.pkl")
+    on_cpu.save_model(p2)
+    back = iMDBN.from_payload(iMDBN.load_model(p2))
+    assert back.device.type == "cuda" and back.joint_rbm.W.is_cuda
+    assert back.z_class_mean.is_cuda
+    assert all(torch.equal(a, b) for a, b in zip(_states(m), _states(back)))
+    for model in (m, back):
+        model.joint_rbm.reseed(2)
+    c0, h0 = chain.KERNEL.launches, half_step.KERNEL.launches
+    a = m.txt2img([0, 1, 2])
+    assert (chain.KERNEL.launches, half_step.KERNEL.launches) == (c0 + 1, h0)
+    assert torch.equal(a, back.txt2img([0, 1, 2]))
+    assert torch.equal(m.img2txt(imgs), back.img2txt(imgs))
+    assert chain.KERNEL.launches == c0 + 4
+    assert torch.equal(m.sample_txt2img([3, 3], seed=5),
+                       back.sample_txt2img([3, 3], seed=5))
+    assert (chain.KERNEL.launches, half_step.KERNEL.launches) == (c0 + 4, h0)
+
+
+def test_resume_on_the_card_is_bit_identical(dev, tmp_path):
+    from multimodal_idbn_tpu_torch import checkpoint
+    straight = _small_imdbn(dev)
+    straight.image_idbn.train(3)
+    straight.train_joint(10)
+    ck_i, ck_j = str(tmp_path / "i.npz"), str(tmp_path / "j.npz")
+    first = _small_imdbn(dev)
+    first.image_idbn.train(3, checkpoint_every=2, checkpoint_path=ck_i)
+    first.train_joint(10, checkpoint_every=9, checkpoint_path=ck_j)
+    resumed = _small_imdbn(dev, seed=3)
+    assert checkpoint.load_train_checkpoint(resumed.image_idbn, ck_i) == (
+        "image", 2)
+    resumed.image_idbn.train(3, start_epoch=2)
+    assert checkpoint.load_train_checkpoint(resumed, ck_j) == ("joint", 9)
+    resumed.train_joint(10, start_epoch=9)
+    for other in (first, resumed):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_states(straight), _states(other)))
+        assert other.joint_metrics_history == straight.joint_metrics_history

@@ -10,6 +10,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multimodal_idbn_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "multimodal_idbn_tpu"}
@@ -92,3 +95,48 @@ def test_bimodal_slice_modules_are_covered():
             'print("ok", len(names))')],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_serving_slice_modules_are_covered(tmp_path):
+    """The modules of the save / load / resume / serve slice are among the
+    sources checked above and are walked by the blocked import."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"checkpoint/__init__.py", "checkpoint/reference_pickle.py",
+            "generate.py", "convert.py", "models/rbm.py", "models/idbn.py",
+            "models/imdbn.py", "ops/schedules.py"} <= names
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.replace(
+            'print("ok", len(names))',
+            'for n in ("checkpoint", "checkpoint.reference_pickle", '
+            '"generate"):\n'
+            '    assert "multimodal_idbn_tpu_torch." + n in names, n\n'
+            'import pickle\n'
+            'from multimodal_idbn_tpu_torch import checkpoint\n'
+            'r2 = pickle.loads(pickle.dumps(rbm))\n'
+            f'checkpoint.save_checkpoint(r2, {str(tmp_path / "r")!r})\n'
+            'assert not [m for m in sys.modules '
+            'if m.split(".")[0] in BLOCK]\n'
+            'print("ok", len(names))')],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("entry", ["profile_main_path", "bench_kernels",
+                                   "generate", "cuts"])
+def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch,
+                                                  tmp_path):
+    """The measuring and serving entry points run on the card only (or,
+    for ``generate``, on the CPU when asked): with no GPU they raise and
+    do not drift to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    import importlib
+    mod = importlib.import_module(f"multimodal_idbn_tpu_torch.{entry}")
+    monkeypatch.setattr(sys, "argv", [entry])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        if entry == "generate":
+            mod.main(["--model", "absent.pkl", "--labels", "0"])
+        elif entry == "cuts":
+            mod.run_cut("flagship-cut", tmp_path)
+        else:
+            mod.main()

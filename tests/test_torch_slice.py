@@ -22,6 +22,7 @@ from multimodal_idbn_tpu_torch import convert, resolve_device
 from multimodal_idbn_tpu_torch import train_multimodal
 from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
 from multimodal_idbn_tpu_torch.data import numerosity as tnum
+from multimodal_idbn_tpu_torch.models import iDBN, iMDBN
 from multimodal_idbn_tpu_torch.ops import dbn_train as tdbn
 from multimodal_idbn_tpu_torch.ops import imdbn_ops as timdbn
 
@@ -139,6 +140,39 @@ def test_joint_epoch_and_bias_stats(monkeypatch):
         close(a, b, 1e-3)
 
 
+@pytest.mark.parametrize("every,batches", [(1, [16, 16, 12]), (2, [16]),
+                                           (3, [16])])
+def test_remainder_batch_metrics_follow_jax(monkeypatch, every, batches):
+    """With ``CROSS_METRICS_EVERY`` > 1 the JAX package computes the
+    cross-modal metrics on every Nth full batch and never on the remainder
+    batch (ops/imdbn_ops.py:430); the rows that enter an epoch's metrics
+    are the same in the port."""
+    from torch_parity import small_imdbn
+    rs = np.random.RandomState(6)
+    n, bs = 44, 16
+    Z = rs.rand(n, Dz).astype(np.float32)
+    Y = np.eye(K, dtype=np.float32)[rs.randint(0, K, n)]
+    X = (rs.rand(n, D) > 0.5).astype(np.float32)
+    _, _, _, totals = jimdbn.joint_epoch_block(
+        jax_state(np_state(rs, V, Hj)), (jax_state(np_state(rs, D, Dz)),),
+        KEY, jnp.asarray(Z), jnp.asarray(Y), jnp.asarray(X),
+        jnp.arange(1, dtype=jnp.int32), jnp.asarray([0.04]),
+        jnp.asarray([0.5]), 1e-4, jnp.asarray(Z[:K]), warmup=True,
+        joint_cd=1, aux_cond_steps=2, Dz=Dz, steps=2, groups=GROUPS,
+        use_free_energy=False, zclamp_every=50, batch_size=bs,
+        metrics_every=every, n_epochs=1)
+    assert float(totals.n[0]) == sum(batches)
+
+    seen = []
+    real = timdbn.cross_metrics_batch
+    monkeypatch.setattr(timdbn, "cross_metrics_batch", lambda *a: (
+        seen.append(a[0].shape[0]), real(*a))[1])
+    m = small_imdbn(CROSS_METRICS_EVERY=every)  # 44 training rows
+    m.train_joint(1)
+    assert seen == batches
+    assert len(m.joint_metrics_history) == 1
+
+
 def test_data_copy_matches_python_backend():
     j = jnum.generate_numerosity_dataset(n_samples=12, num_classes=6, side=24,
                                          seed=4, backend="python")
@@ -176,9 +210,10 @@ def test_convert_round_trip():
         np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
 
 
-def _smoke_config(tmp_path, **training):
+def _smoke_config(tmp_path, paths=None, **training):
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg["paths"]["save_dir"] = str(tmp_path)
+    cfg["paths"].update(paths or {})
     cfg["training"]["epochs_joint"] = 9  # 8 warm-up epochs + 1 main epoch
     cfg["training"].update(training)
     path = tmp_path / "cfg.yaml"
@@ -194,28 +229,87 @@ def test_train_multimodal_cpu_smoke(tmp_path):
     assert all(np.isfinite(summary["image_loss"]))
     m = summary["cross_metrics"]
     assert 0.0 <= m["cross_modality/text_top1"] <= 1.0
-    saved = dict(np.load(summary["save_path"]))
-    parts = convert.from_jax_numpy(saved)
+    assert summary["save_path"].endswith(".pkl")
+    loaded = iMDBN.from_payload(iMDBN.load_model(summary["save_path"],
+                                                 device="cpu"))
+    npz = tmp_path / "layout.npz"
+    loaded.export_npz(str(npz))
+    saved = dict(np.load(npz))
+    parts = convert.from_jax_numpy(saved, device="cpu")
     assert [s.w.shape for s in parts["image"]] == [(256, 64), (64, 32)]
     assert parts["joint"].w.shape == (32 + 4, 24)
     assert parts["z_class_mean"].shape == (4, 32)
     for k, a in saved.items():
         assert np.isfinite(a).all(), k
+    live = convert.to_numpy(summary["model"].image_idbn.states(),
+                            summary["model"].joint_rbm.state,
+                            summary["model"].z_class_mean)
+    assert sorted(live) == sorted(saved)
+    for k, a in live.items():
+        np.testing.assert_array_equal(saved[k], a, err_msg=k)
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("training", "dp_devices", 2), ("training", "checkpoint_every", 5),
+    ("training", "dp_devices", 2),
     ("training", "dtype", "bfloat16"), ("training", "compute_dtype", "bf16"),
-    ("training", "stochastic_rounding", True), ("training", "init_retry", 1),
+    ("training", "stochastic_rounding", True),
     ("training", "matmul_precision", "default"),
-    ("paths", "image_idbn_pretrained", "x.pkl"),
-    ("paths", "image_idbn_finetune_last_epochs", 2),
     ("wandb", "enable", True), ("dataset", "distribution", "zipfian")])
 def test_unsupported_settings_raise(section, key, value):
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg.setdefault(section, {})[key] = value
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_multimodal.check_supported(cfg)
+
+
+@pytest.mark.parametrize("setting", [
+    "checkpoint_every", "init_retry", "image_idbn_pretrained",
+    "image_idbn_finetune_last_epochs"])
+def test_setting_is_accepted_and_takes_effect(tmp_path, monkeypatch, capsys,
+                                              setting):
+    """The settings that used to raise now run, and each changes the run."""
+    import multimodal_idbn_tpu_torch.checkpoint as ckpt
+    training, paths = {"epochs_joint": 1}, {}
+    saves = []
+    if setting == "checkpoint_every":
+        training["checkpoint_every"] = 1
+        real = ckpt.save_train_checkpoint
+
+        def counting(model, path, phase, next_epoch, loss_history=None):
+            saves.append((phase, next_epoch))
+            real(model, path, phase, next_epoch, loss_history)
+
+        monkeypatch.setattr(ckpt, "save_train_checkpoint", counting)
+    elif setting == "init_retry":
+        training["init_retry"] = 1
+        monkeypatch.setattr(iDBN, "_recon_collapse_ratio", lambda self: 1.0)
+    elif setting == "image_idbn_pretrained":
+        pre = iDBN([256, 64, 32], train_multimodal.build_params(
+            yaml.safe_load(open(SMOKE_YAML))), None, device="cpu", seed=3)
+        pre.save_model(str(tmp_path / "pre.pkl"))
+        paths["image_idbn_pretrained"] = str(tmp_path / "pre.pkl")
+    else:
+        paths[setting] = 1
+    summary = train_multimodal.main(
+        ["--config", str(_smoke_config(tmp_path, paths, **training)),
+         "--device", "cpu"])
+    out = capsys.readouterr().out
+    if setting == "checkpoint_every":
+        # cadence saves of the 4 image epochs; the joint phase has 1 epoch
+        assert saves == [("image", 1), ("image", 2), ("image", 3)]
+        assert not any((tmp_path / "checkpoints").iterdir())
+    elif setting == "init_retry":
+        assert "init_retry: re-initialized 1 time(s)" in out
+        assert len(summary["image_loss"]) == 8
+    elif setting == "image_idbn_pretrained":
+        assert "[load_pretrained_image_idbn] loaded from" in out
+        assert summary["image_loss"] == []
+        np.testing.assert_array_equal(
+            summary["model"].image_idbn.layers[0].W.numpy(),
+            pre.layers[0].W.numpy())
+    else:
+        assert "[finetune_image_last_layer] done" in out
+    assert np.isfinite(summary["cross_metrics"]["cross_modality/text_ce"])
 
 
 def test_flagship_configs_are_supported():

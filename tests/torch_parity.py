@@ -1,7 +1,8 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: seeded numpy inputs, state conversion both ways, and the two
+package: seeded numpy inputs, state conversion both ways, the two
 deterministic-sampler modes (JAX: the ``det_random`` monkeypatch of
-tests/test_rbm_oracle.py:24-38; port: ``ops.rng.deterministic``)."""
+tests/test_rbm_oracle.py:24-38; port: ``ops.rng.deterministic``), and the
+same small iMDBN / iMDBN_BiModal built in both packages."""
 
 import contextlib
 
@@ -40,7 +41,7 @@ def state_np(state) -> dict:
     """numpy fields of a JAX or a port state."""
     if isinstance(state, jrbm.RBMState):
         return {f: np.asarray(getattr(state, f)) for f in FIELDS}
-    return {f: getattr(state, f).numpy() for f in FIELDS}
+    return {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
 
 
 def assert_states_close(a, b, atol):
@@ -85,3 +86,69 @@ def both_deterministic(monkeypatch):
     finally:
         monkeypatch.undo()
         jax.clear_caches()
+
+
+# The small models of the persistence, resume and inference tests: image
+# [256, 64, 32], joint 36x24, 4 labels; bimodal [256, 32] + [1568, 32],
+# joint [16].
+SMALL_PARAMS = {
+    "LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4, "INIT_MOMENTUM": 0.5,
+    "FINAL_MOMENTUM": 0.9, "LEARNING_RATE_DYNAMIC": True, "CD": 1,
+    "JOINT_CD": 1, "JOINT_LEARNING_RATE": 0.04, "CROSS_GIBBS_STEPS": 3,
+    "JOINT_AUX_COND_STEPS": 2, "SEED": 0}
+SIDE, K = 16, 4
+IMG_LAYERS, JOINT_HIDDEN = [SIDE * SIDE, 64, 32], 24
+MOD1_LAYERS, MOD2_LAYERS, BIMODAL_JOINT = [SIDE * SIDE, 32], [1568, 32], [16]
+
+
+def small_loaders(bimodal=False, **kw):
+    """The port's loaders over 64 seeded samples (44 training rows: two
+    batches of 16 and a remainder of 12)."""
+    from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+    kw = dict(dict(batch_size=16, n_samples=64, num_classes=K, side=SIDE,
+                   seed=0), **kw)
+    if bimodal:
+        kw["second_modality"] = "mnist100"
+    return create_dataloaders_uniform(**kw)
+
+
+def small_imdbn(seed=0, loaders=None, **params):
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    train, val, _ = loaders or small_loaders()
+    return iMDBN(IMG_LAYERS, JOINT_HIDDEN, dict(SMALL_PARAMS, **params),
+                 train, val, device="cpu", num_labels=K, seed=seed)
+
+
+def small_bimodal(seed=0, loaders=None, **params):
+    from multimodal_idbn_tpu_torch.models import iMDBN_BiModal
+    train, val, _ = loaders or small_loaders(bimodal=True)
+    return iMDBN_BiModal(MOD1_LAYERS, MOD2_LAYERS, BIMODAL_JOINT,
+                         dict(SMALL_PARAMS, **params), train, val,
+                         device="cpu", seed=seed)
+
+
+def randomize(model, rs, momentum=True):
+    """Seeded weights, biases and momentum into every RBM of a port model."""
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    for rbm in _collect_rbms(model).values():
+        rbm.state = torch_state(np_state(rs, rbm.num_visible, rbm.num_hidden,
+                                         momentum=momentum))
+    return model
+
+
+def rbm_arrays(model) -> dict:
+    """{checkpoint name/field: numpy array} of a model of either package."""
+    if type(model).__module__.startswith("multimodal_idbn_tpu_torch"):
+        from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    else:
+        from multimodal_idbn_tpu.checkpoint import _collect_rbms
+    return {f"{name}/{f}": a for name, rbm in _collect_rbms(model).items()
+            for f, a in state_np(rbm.state).items()}
+
+
+def assert_models_equal(a, b):
+    """Every state of two models (of either package) is bit-equal."""
+    fa, fb = rbm_arrays(a), rbm_arrays(b)
+    assert sorted(fa) == sorted(fb) and fa
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
