@@ -27,6 +27,8 @@ Phases, each fatal on failure:
      serving request brings (1, 3, 96, 200; 50 steps, both families),
    - determinism: every entry launched twice on the same inputs must
      return bit-equal tensors, at the first-layer shape and a ragged one;
+   - ``half_step_sample_big`` (JAX's standalone wrapper of the sampled
+     half-step, here the same entry) at one ragged shape;
 3. the RBM learns: ``RBM(64, 32)`` on noisy bars through the fused CD
    path; reconstruction MSE must drop by more than 2x;
 4. the two training paths at full width, each a shipped YAML with every
@@ -64,7 +66,22 @@ Phases, each fatal on failure:
    refuse to resume, and the checkpoints must be gone after a completed
    run;
 9. ``train_with_retry`` (two image epochs, one retry allowed) and
-   ``finetune_image_last_layer`` (one epoch) at full width.
+   ``finetune_image_last_layer`` (one epoch) at full width;
+10. the diagnostics drive: both cuts trained again through their entry
+   points with W&B on (``cuts.DIAGNOSTICS``: every ``logging`` section
+   enabled, every cadence 8), W&B's ``init`` replaced by one that returns
+   a ``RecorderRun``. The final states must be bit-equal to phase 4's;
+   every numeric key finite; one probe accuracy in [0, 1] per target and
+   monitored layer at each firing; no ``warn/*`` key but the figures
+   skipped for want of matplotlib (and the collapse verdict
+   ``warn/idbn_blank_recon``, which the model logs as JAX's does); and the
+   numeric keys the same set as the same cut's at small widths on the CPU
+   (``cuts.TINY``). Then each diagnostic once more on the trained model,
+   alone, with its seconds and chain / half-step launches, and the device
+   busy ms and device operations of one more, profiled call (the probes'
+   at ``PROBE_PROFILE_STEPS`` steps); ``measure_gibbs_steps_per_sec`` at
+   its defaults, and one ``utils.profiling.trace`` around one joint
+   epoch.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -272,6 +289,40 @@ def check_half_step(dev):
             f"ms ({row['bound_by']}), fp32 bound "
             f"{row['bound_fp32_ms']:.4f} ms")
     return rows[0], rows
+
+
+def check_half_step_big(dev):
+    """``half_step_sample_big`` (TPU pallas_kernels.py:311) against its
+    plain version at one ragged shape; returns its kernels-line row."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import half_step
+    B, K, N = 37, 1501, 499
+    x, w, b = half_step_inputs(torch.Generator().manual_seed(4), dev, B, K,
+                               N, False, 0.3)
+    seed = 0x5EED_B16
+    p_k, s_k = half_step.half_step_sample_big(x, w, b, seed)
+    p_p, s_p = half_step.half_step_sample_big_plain(x, w, b, seed)
+    torch.cuda.synchronize()
+    err = float((p_k - p_p).abs().max())
+    flips, bad = sample_flips(p_p, s_k, s_p, seed)
+    log(f"[half_step_sample_big] [{B},{K}]x[{K},{N}]: max|dp| {err:.3e}, "
+        f"sample flips {flips} (outside tol: {bad})")
+    if not err <= TOL_HALF_STEP or bad:
+        raise AssertionError("half_step_sample_big disagrees with plain")
+    row = dict(shape=f"[{B},{K}]x[{K},{N}]", max_abs_err=err,
+               sample_flips=flips,
+               ms=time_ms(lambda: half_step.half_step_sample_big(
+                   x, w, b, seed), 100),
+               plain_ms=time_ms(lambda: half_step.half_step_sample_big_plain(
+                   x, w, b, seed), 10),
+               library_ms=time_ms(lambda: torch.sigmoid(torch.addmm(b, x, w)),
+                                  100),
+               **bounds(2.0 * B * K * N,
+                        4.0 * (B * K + K * N + N + 2 * B * N)))
+    log(f"[half_step_sample_big]: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, addmm+sigmoid {row['library_ms']:.4f} "
+        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
 
 
 def check_determinism(dev):
@@ -677,17 +728,49 @@ def timed_call(fn):
     return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
 
 
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                "cuLaunchKernelEx"}
+# spin kernels launched, and waited for, at the start of each profile
+HEAD = 32
+
+
 def busy_ms(fn):
-    """(device busy ms, kernel launches) of one profiled call."""
+    """(device busy ms, device operations, kernel records missing) of one
+    profiled call.
+
+    A profile is complete when it holds a device record for every kernel
+    launch it saw on the host. On the H100 the profiler keeps every launch
+    call but can lose the records of the first kernels launched after it
+    starts, all of a small call's at times. So each profile starts
+    with ``HEAD`` spin kernels, waited for and left out of the counts,
+    before the call. A profile with records missing all the same is taken
+    once more, and the attempt with fewer missing is returned; its busy ms
+    then count only the recorded kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from multimodal_idbn_tpu_torch.profile_main_path import _device_kernels
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels, busy, _ = _device_kernels(prof)
-    return busy / 1e3, len(kernels)
+    best = None
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(HEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        kernels, busy, _ = _device_kernels(prof, skip="spin_kernel")
+        launched = sum(e.name in LAUNCH_CALLS for e in prof.events()) - HEAD
+        ran = sum(not e.name.startswith(("Memcpy", "Memset"))
+                  for e in kernels)
+        got = (busy / 1e3, len(kernels), max(launched - ran, 0))
+        if best is None or got[2] < best[2]:
+            best = got
+        if not got[2]:
+            break
+        log(f"[profile] attempt {attempt}: {launched} kernel launches on the "
+            f"host, {ran} kernel records on the device")
+    return best
 
 
 SERVE_SEED = 20261
@@ -761,10 +844,11 @@ def run_serving(dev, model, workdir: Path):
             raise AssertionError(f"{name}: pixels outside [0, 1]")
         outputs[name] = out
         _, wall, ev = timed_call(lambda: call(loaded))
-        busy, kernels = busy_ms(lambda: call(loaded))
+        busy, kernels, missing = busy_ms(lambda: call(loaded))
         log(f"[serve] {name}: wall {wall:.3f} ms, between CUDA events "
-            f"{ev:.3f} ms, device busy {busy:.3f} ms in {kernels} device "
-            f"operations; launches {json.dumps(launches)}")
+            f"{ev:.3f} ms, device busy {busy} ms in {kernels} device "
+            f"operations ({missing} kernel records missing); launches "
+            f"{json.dumps(launches)}")
     again = loaded.sample_txt2img(all_labels, seed=SERVE_SEED)
     other = loaded.sample_txt2img(all_labels, seed=SERVE_SEED + 1)
     if not torch.equal(again, outputs["sample_txt2img B=128"]) or \
@@ -982,6 +1066,215 @@ def run_retry_finetune(dev, workdir: Path):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the diagnostics drive
+# ---------------------------------------------------------------------------
+
+def state_copy(model):
+    """Every state of a model, copied off the card."""
+    return {k: v.detach().cpu().clone() for k, v in
+            model_states(model).items()}
+
+
+def check_diagnostics_run(name: str, run, model, ref_states, ref_keys):
+    """Phase 10 (c) and (d) for one cut's logged run."""
+    import torch
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import all_finite
+    now = state_copy(model)
+    if sorted(now) != sorted(ref_states) or not all(
+            torch.equal(now[k], ref_states[k]) for k in now):
+        raise AssertionError(f"{name}: training with logging did not end in "
+                             f"phase 4's states")
+    numeric = {k for k in run.numeric_keys() if not k.startswith("warn/")}
+    bad = sorted(k for k in numeric if not all(all_finite(v)
+                                               for v in run.values(k)))
+    if bad:
+        raise AssertionError(f"{name}: non-finite values under {bad}")
+    warns = sorted(k for k in run.keys() if k.startswith("warn/"))
+    unexpected = [k for k in warns if not k.endswith("_figure_skipped")
+                  and k != "warn/idbn_blank_recon"]
+    if unexpected:
+        raise AssertionError(f"{name}: diagnostics failed: " + "; ".join(
+            f"{k}: {run.values(k)[0]}" for k in unexpected))
+    targets = ["cum_area", "convex_hull", "labels"] + (
+        ["density"] if "Density" in (model.features or {}) else [])
+    firings = ({"layer1": 1, "layer2": 1, "joint": 2}
+               if name == "flagship-cut" else {"joint": 2})
+    want = {f"probe/{tag}/{t}/acc": n for tag, n in firings.items()
+            for t in targets}
+    got = {k: run.values(k) for k in run.keys()
+           if k.startswith("probe/") and k.endswith("/acc")}
+    if {k: len(v) for k, v in got.items()} != want or not all(
+            0.0 <= a <= 1.0 for v in got.values() for a in v):
+        raise AssertionError(f"{name}: probe accuracies {got}, expected "
+                             f"one per target and layer at each firing: "
+                             f"{want}")
+    if numeric != ref_keys:
+        raise AssertionError(
+            f"{name}: numeric keys differ from the CPU run at small widths: "
+            f"only on the card {sorted(numeric - ref_keys)}, only on the "
+            f"CPU {sorted(ref_keys - numeric)}")
+    log(f"[diagnostics {name}] states bit-equal to phase 4; {len(numeric)} "
+        f"numeric keys, all finite and the same set as the CPU run's; probe "
+        f"accuracies " + json.dumps({k: [round(a, 4) for a in v]
+                                     for k, v in sorted(got.items())})
+        + f"; warnings {warns}")
+
+
+def diagnostic_calls(name: str, model, run, probe_steps: int = 1000):
+    """{diagnostic: call} on a trained model, each as the model's hooks
+    call it; the probes take at most ``probe_steps`` steps (1000, the
+    hooks' default)."""
+    from multimodal_idbn_tpu_torch.models import imdbn_bimodal
+    from multimodal_idbn_tpu_torch.models.idbn import feature_map
+    from multimodal_idbn_tpu_torch.utils import (conditional_steps,
+                                                 energy_utils, imdbn_logging,
+                                                 probe_utils)
+    from multimodal_idbn_tpu_torch.utils.wandb_utils import (
+        log_pca_embeddings)
+    model.wandb_run = run
+    if name == "bimodal-cut":
+        return {
+            "joint + MOD2 PCA": lambda: model._log_joint_epoch(
+                1, None, 10 ** 9, 1, 10 ** 9, 10 ** 9),
+            "joint probes": lambda: imdbn_bimodal.log_bimodal_joint_linear_probe(
+                model, epoch=0, steps=probe_steps),
+            "trajectory 2-D (4 samples)": lambda: [
+                imdbn_bimodal.log_bimodal_latent_trajectory(
+                    model, sample_idx=i, steps=model.cross_steps,
+                    tag=f"trajectory/sample{i}") for i in range(4)],
+            "trajectory 3-D": lambda: (
+                imdbn_bimodal.log_bimodal_latent_trajectory_3d(
+                    model, steps=model.cross_steps)),
+            "snapshots": lambda: model._log_snapshots(0),
+        }
+    idbn = model.image_idbn
+    idbn.wandb_run = run
+
+    def image_pca():
+        for layer in (1, 2):
+            E, feats = probe_utils.compute_val_embeddings_and_features(
+                idbn, upto_layer=layer)
+            log_pca_embeddings(run, E, feature_map(feats), f"iDBN_layer{layer}")
+
+    def joint_pca():
+        E, feats = probe_utils.compute_joint_embeddings_and_features(model)
+        log_pca_embeddings(run, E, feature_map(feats), "Joint_top")
+
+    return {
+        "image PCA (layers 1, 2)": image_pca,
+        "image probes (layers 1, 2)": lambda: [
+            probe_utils.log_linear_probe(idbn, 0, upto_layer=layer,
+                                         layer_tag=f"layer{layer}",
+                                         steps=probe_steps)
+            for layer in (1, 2)],
+        "joint PCA": joint_pca,
+        "joint probes": lambda: probe_utils.log_joint_linear_probe(
+            model, 0, steps=probe_steps),
+        "energy fixed case": lambda: energy_utils.run_and_log_fixed_case(
+            model, 0),
+        "convergence panel (50 steps)": lambda: (
+            conditional_steps.run_and_log_cross_panel(model, 0,
+                                                      max_steps=50)),
+        "z-mismatch check": lambda: (
+            conditional_steps.run_and_log_z_mismatch_check(model, 0)),
+        "neighbours": lambda: imdbn_logging.log_vecdb_neighbors_for_traj(
+            model, k=5, dedup="image"),
+        "trajectory 2-D (4 samples)": lambda: [
+            imdbn_logging.log_latent_trajectory_with_recon_panel(
+                model, sample_idx=i, steps=model.cross_steps,
+                tag=f"pca_traj_with_recon/sample{i}") for i in range(4)],
+        "trajectory 3-D": lambda: (
+            imdbn_logging.log_pca3_trajectory_with_recon_panel(
+                model, steps=model.cross_steps)),
+        "joint auto-recon": lambda: imdbn_logging.log_joint_auto_recon(
+            model, 0),
+        "snapshots": lambda: model._log_snapshots(0),
+    }
+
+
+# The probes' profiled call takes at most this many steps: at 1000 steps
+# a probe is ~64 000 host-bound device operations, which the profiler
+# slows most and which make up most of phase 10 at full steps.
+PROBE_PROFILE_STEPS = 100
+
+
+def time_diagnostics(name: str, model):
+    """Each diagnostic alone on the trained model: seconds on the host
+    clock around one synchronised call as the hooks make it, with that
+    call's kernel launches; then device busy ms and operations of one
+    profiled call (``busy_ms``), the probes' at ``PROBE_PROFILE_STEPS``
+    steps."""
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun
+    run = RecorderRun()
+    short = diagnostic_calls(name, model, run, PROBE_PROFILE_STEPS)
+    rows = {}
+    for diag, call in diagnostic_calls(name, model, run).items():
+        reset_launches()
+        _, wall, _ = timed_call(call)
+        launches = read_launches()
+        busy, ops, missing = busy_ms(short[diag])
+        half = sum(v for k, v in launches.items() if k != "chain_run")
+        rows[diag] = dict(seconds=wall / 1e3, busy_ms=busy, operations=ops,
+                          missing_records=missing,
+                          chain=launches["chain_run"], half_step=half)
+        profiled = (f"device busy {busy:.3f} ms in {ops} device operations "
+                    f"({missing} kernel records missing)")
+        if "probes" in diag:
+            profiled += f" at {PROBE_PROFILE_STEPS} probe steps"
+        log(f"[diagnostics {name}] {diag}: {wall / 1e3:.3f} s; {profiled}; "
+            f"chain / half-step launches {launches['chain_run']} / {half}")
+    model.wandb_run = None
+    return rows
+
+
+def run_diagnostics(dev, workdir: Path, ref_states):
+    """Phase 10. ``ref_states``: {cut: phase 4's final states}."""
+    from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.utils.profiling import (
+        measure_gibbs_steps_per_sec, trace)
+    t_phase = time.perf_counter()
+    launches = {}
+    model = None
+    for name in ("flagship-cut", "bimodal-cut"):
+        d = workdir / f"{name}-logged"
+        d.mkdir()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = cuts.run_logged(name, d, "cuda")
+        wall = time.perf_counter() - t0
+        launches[name] = read_launches()
+        log(f"[diagnostics {name}] logged run: {wall:.1f} s (phase seconds "
+            f"{json.dumps(summary['seconds'])}), {len(summary['run'].logged)}"
+            f" log calls; launches {json.dumps(launches[name])}")
+        t0 = time.perf_counter()
+        (d / "cpu").mkdir()
+        cpu = cuts.run_logged(name, d / "cpu", "cpu", tiny=True)["run"]
+        log(f"[diagnostics {name}] the same at small widths on the CPU: "
+            f"{time.perf_counter() - t0:.1f} s")
+        model = summary["model"]
+        check_diagnostics_run(
+            name, summary["run"], model, ref_states[name],
+            {k for k in cpu.numeric_keys() if not k.startswith("warn/")})
+        time_diagnostics(name, model)
+        if name == "flagship-cut":
+            # one joint epoch more, traced
+            tdir = d / "trace"
+            with trace(str(tdir)):
+                model.train_joint(10, start_epoch=9)
+            files = sorted(tdir.glob("*.json"))
+            if not files:
+                raise AssertionError("trace() wrote no file")
+            log(f"[diagnostics] trace() around one joint epoch: {files[0]}, "
+                f"{files[0].stat().st_size / 2**20:.1f} MiB")
+        del summary
+    g = measure_gibbs_steps_per_sec(device=dev)
+    log(f"[diagnostics] measure_gibbs_steps_per_sec (532x500, B=128, 500 "
+        f"steps, one chain launch): {json.dumps(g)}")
+    log(f"[diagnostics] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1004,6 +1297,7 @@ def main() -> int:
             f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
         build_kernels()
         hs_main, hs_rows = check_half_step(dev)
+        hs_big = check_half_step_big(dev)
         resident = check_resident(dev)
         ch_rows = check_chain(dev)
         check_determinism(dev)
@@ -1013,6 +1307,8 @@ def main() -> int:
             tmp = Path(tmp)
             by_path["flagship-cut"], flagship = run_path("flagship-cut", tmp)
             by_path["bimodal-cut"], summary = run_path("bimodal-cut", tmp)
+            trained = {"flagship-cut": state_copy(flagship["model"]),
+                       "bimodal-cut": state_copy(summary["model"])}
             by_path["resident-drive"] = run_resident_drive(
                 dev, summary["model"])
             del summary
@@ -1030,6 +1326,9 @@ def main() -> int:
             time_checkpoint(model, tmp, "bimodal-cut joint")
             del model
             by_path["retry-finetune-drive"] = run_retry_finetune(dev, tmp)
+            diag = run_diagnostics(dev, tmp, trained)
+            for name, counts in diag.items():
+                by_path[f"diagnostics-drive {name}"] = counts
     except Exception:
         traceback.print_exc()
         return 1
@@ -1063,6 +1362,14 @@ def main() -> int:
              **launches("half_step_sample_resident", "resident-drive"),
              **resident["half_step_sample_resident"][-1],
              other_shapes=resident["half_step_sample_resident"][:-1]),
+        # JAX's standalone wrapper of kernel 1: no path calls it by this
+        # name, so its launches are those of the entry it wraps, counted
+        # on the paths as in the first row
+        dict(name="half_step_sample_big", route="cuda",
+             source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
+             replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:311",
+             launches_entry="half_step_sample",
+             **launches("half_step_sample", "flagship-cut"), **hs_big),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ fused half-step kernel (``csrc/half_step.cu``, which also holds the
 probs-only and the resident sampled half-steps) and the joint RBMs'
 clamped mean-field chains run in a hand-written chain kernel
 (``csrc/chain.cu``). Every kernel wrapper launches its kernel on CUDA
-tensors and runs the kernel's plain PyTorch version on CPU tensors.
+tensors and runs the kernel's plain PyTorch version on CPU tensors. The
+diagnostics of ``utils/`` (linear probes, PCA correlations, free energy,
+convergence, neighbours, trajectories, snapshots, timers) log to any run
+object with ``.log(dict)`` during training.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no such request they raise (``device.resolve_device``).

@@ -17,6 +17,14 @@ and a remainder of 12, so both batch shapes run.
 epochs, 3 image epochs and 11 joint epochs (8 warm-up + 3 main), so there
 is a checkpoint inside the image phase, inside the warm-up, at its
 boundary and after the first two main epochs.
+
+``DIAGNOSTICS`` are the overrides of the diagnostics drive: W&B on, every
+``logging`` section of the YAML enabled and every cadence 8, so each
+diagnostic fires at joint epochs 0 and 8 and at image epoch 0 of the
+same cut (the training itself is unchanged). ``TINY`` shrinks a cut's
+hidden widths, nothing else, for a CPU run of the same diagnostics: every
+layer count, image size, step count, sample count and label count is
+kept, so the same keys are logged.
 """
 
 from __future__ import annotations
@@ -53,16 +61,45 @@ RESUME: Dict[str, dict] = {
 }
 
 
+_EVERY = {k: 8 for k in (
+    "log_every", "log_every_pca", "log_every_probe", "log_every_energy",
+    "log_every_trajectory", "log_every_neighbors", "log_every_convergence")}
+DIAGNOSTICS: Dict[str, dict] = {
+    "flagship-cut": {
+        "wandb": {"enable": True},
+        "logging": dict(_EVERY, **{s: {"enable": True} for s in (
+            "snapshots", "pca", "probes", "energy", "trajectory",
+            "neighbors")}, convergence={"enable": True, "num_steps": 50}),
+    },
+    "bimodal-cut": {
+        "wandb": {"enable": True},
+        "logging": dict(_EVERY, **{s: {"enable": True} for s in (
+            "snapshots", "pca", "probes", "trajectory")}),
+    },
+}
+TINY: Dict[str, dict] = {
+    "flagship-cut": {"model": {"image_layers": [10000, 64, 32],
+                               "joint_hidden": 24}},
+    "bimodal-cut": {"model": {"mod1_layers": [10000, 64, 32],
+                              "mod2_layers": [1568, 32, 32, 48],
+                              "joint_hidden": [40, 20]}},
+}
+
+
 def write_cut(name: str, workdir: Path,
               overrides: Optional[dict] = None) -> Path:
     """Write the cut YAML of ``name`` (saving its model under
-    ``workdir``), with ``overrides`` ({section: {key: value}}) laid over
-    the cut, and return its path."""
+    ``workdir``), with ``overrides`` ({section: {key: value}}; a dict
+    value is laid over the YAML's dict, so ``{"enable": True}`` keeps a
+    section's other settings) laid over the cut, and return its path."""
     spec = CUTS[name]
     cfg = yaml.safe_load((CONFIGS / spec["yaml"]).read_text())
     for layer in (spec["cut"], overrides or {}):
         for section, values in layer.items():
-            cfg[section].update(values)
+            for key, value in values.items():
+                old = cfg[section].get(key)
+                cfg[section][key] = (dict(old, **value) if isinstance(
+                    value, dict) and isinstance(old, dict) else value)
     cfg["paths"]["save_dir"] = str(workdir)
     path = Path(workdir) / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -79,3 +116,27 @@ def run_cut(name: str, workdir: Path, device: str = "cuda",
     return entry.main(["--config",
                        str(write_cut(name, workdir, overrides)),
                        "--device", device])
+
+
+def run_logged(name: str, workdir: Path, device: str = "cuda",
+               tiny: bool = False) -> dict:
+    """``run_cut`` under the ``DIAGNOSTICS`` overrides (and ``TINY`` with
+    ``tiny``), through the entry point as a user runs it: W&B's ``init``
+    is replaced, for the run only, by one that returns a
+    ``RecorderRun``, which the summary holds as ``"run"``."""
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import (RecorderRun,
+                                                              wandb)
+    runs = []
+
+    def init(**kw):
+        runs.append(RecorderRun(**kw))
+        return runs[-1]
+
+    wandb.init = init
+    try:
+        summary = run_cut(name, workdir, device, dict(
+            DIAGNOSTICS[name], **(TINY[name] if tiny else {})))
+    finally:
+        del wandb.init
+    summary["run"] = runs[0]
+    return summary

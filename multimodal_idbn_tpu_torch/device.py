@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -40,6 +41,13 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
     if t.ndim > 2:
         t = t.reshape(t.shape[0], -1)
     return t.contiguous()
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def synchronize(device: Optional[torch.device]) -> None:

@@ -5,12 +5,17 @@ Port of multimodal_idbn_tpu/models/idbn.py:30-674: the constructor,
 ``checkpoint_path``, :307-455), the collapse check and the retry rescue
 (``reinit_layers``, ``_recon_collapse_ratio``, ``_warn_if_collapsed``,
 ``train_with_retry``, :457-565), ``represent`` / ``reconstruct`` /
-``decode`` (:645-658), ``save_model`` and pickling (:660-674). Every
-layer is updated on every batch, layer i+1 fed the post-update mean-field
-activations of layer i (``ops.dbn_train``), each update through the fused
-half-step kernel on the card. W&B logging, PCA, probes, PCD, data
-parallelism and the per-batch loop over loaders that cannot materialize
-are not ported.
+``decode`` (:645-658), ``save_model`` and pickling (:660-674), and the
+diagnostics hooks: the validation batch and ``features`` (:79-108), the
+epoch timer and per-epoch logging to a run object (:351, :429-453,
+``_log_epoch``, ``_layers_to_monitor``, ``_layer_tag``, :225-240,
+:567-641) and the collapse warnings sent to the run (:502-503, :562-564).
+Every layer is updated on every batch, layer i+1 fed the post-update
+mean-field activations of layer i (``ops.dbn_train``), each update through
+the fused half-step kernel on the card. The diagnostics draw nothing from
+the training keys, so a run with a run object ends in the same
+parameters as one without. PCD, data parallelism and the per-batch loop
+over loaders that cannot materialize are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +36,44 @@ from multimodal_idbn_tpu_torch.models.rbm import RBM
 from multimodal_idbn_tpu_torch.ops import dbn_train, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
+from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
+
+
+def val_features(val_loader, plain_dataset: bool = False) -> Optional[dict]:
+    """The validation features the probes and the PCA read (cumulative
+    area, convex hull, numeric labels and, where the dataset has them,
+    densities) through the Subset metadata protocol, in the loader's
+    order, or None for a loader without that metadata
+    (JAX models/idbn.py:85-108). ``plain_dataset`` also reads a loader
+    over the dataset itself (models/imdbn_bimodal.py:375-399)."""
+    try:
+        ds = val_loader.dataset
+        if plain_dataset and not hasattr(ds, "indices"):
+            base, indices = ds, range(len(ds))
+        else:
+            base, indices = ds.dataset, ds.indices
+        feats = {
+            "Cumulative Area": np.asarray(
+                [base.cumArea_list[i] for i in indices], np.float32),
+            "Convex Hull": np.asarray([base.CH_list[i] for i in indices],
+                                      np.float32),
+            "Labels": np.asarray([base.labels[i] for i in indices],
+                                 np.float32),
+        }
+        density = getattr(base, "density_list", None)
+        if density is not None:
+            feats["Density"] = np.asarray([density[i] for i in indices],
+                                          np.float32)
+        return feats
+    except (AttributeError, TypeError, IndexError, KeyError):
+        return None
+
+
+def feature_map(feats: dict) -> dict:
+    """Probe feature names -> the figure names of the PCA panels."""
+    return {dst: np.asarray(feats[src]) for src, dst in (
+        ("cum_area", "Cumulative Area"), ("convex_hull", "Convex Hull"),
+        ("labels", "Labels"), ("density", "Density")) if src in feats}
 
 
 def check_train_args(start_epoch: int, epochs: int, checkpoint_every: int,
@@ -49,22 +92,30 @@ class iDBN:
     ``dataloader`` must offer ``materialize()`` (the whole split as
     arrays) and ``batch_size``. ``params`` is the UPPERCASE dict of
     ``train_multimodal.build_params``. One validation batch is cached for
-    the collapse check (JAX models/idbn.py:79-83).
+    the collapse check and the reconstruction snapshots
+    (JAX models/idbn.py:79-83). ``wandb_run``: any object with
+    ``.log(dict)``; when given, ``train`` logs the loss, timings, snapshots,
+    PCA correlations and linear probes per epoch.
     """
 
     def __init__(self, layer_sizes: List[int], params: dict, dataloader,
                  val_loader=None, device: DeviceLike = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, wandb_run=None):
         self.params = params
         self.dataloader = dataloader
         self.val_loader = val_loader
         self.device = resolve_device(device)
+        self.wandb_run = wandb_run
+        self.text_flag = False
         self.arch_str = "-".join(map(str, layer_sizes))
+        self.arch_dir = os.path.join("logs-idbn",
+                                     f"architecture_{self.arch_str}")
         self.cd_k = int(params.get("CD", 1))
         self.sparsity_factor = float(params.get("SPARSITY_FACTOR", 0.1))
         self.val_batch = None
         if val_loader is not None:
             self.val_batch = next(iter(val_loader), (None,))[0]
+        self.features = val_features(val_loader)
         self._init_seed = seed
         last_sparse = bool(params.get("SPARSITY", False))
         self.layers: List[RBM] = [
@@ -129,12 +180,16 @@ class iDBN:
                               next_epoch=next_epoch,
                               loss_history=self.loss_history)
 
-    def train(self, epochs: int, start_epoch: int = 0,
+    def train(self, epochs: int, log_every_pca: int = 25,
+              log_every_probe: int = 10, start_epoch: int = 0,
               checkpoint_every: int = 0,
               checkpoint_path: Optional[str] = None,
               checkpoint_phase: str = "image") -> None:
         """Train epochs ``start_epoch .. epochs - 1``
-        (JAX models/idbn.py:307-455).
+        (JAX models/idbn.py:307-455). Each epoch is timed
+        (``epoch_timer``); with a run object it is logged
+        (``_log_epoch``: PCA every ``log_every_pca`` epochs, probes every
+        ``log_every_probe``).
 
         Crash-safe resume: with ``checkpoint_every=N`` and
         ``checkpoint_path`` a resumable checkpoint (weights, momentum, loss
@@ -149,14 +204,23 @@ class iDBN:
                          checkpoint_path)
         data = as_tensor(self.dataloader.materialize()[0], self.device)
         bs = int(getattr(self.dataloader, "batch_size", 128))
+        timer = StepTimer(self.device)
         for b_start, b_end in checkpoint_epochs(
                 start_epoch, epochs,
                 checkpoint_every if checkpoint_path else 0):
             for epoch in range(b_start, b_end):
-                self.loss_history.append(self._train_epoch(epoch, data, bs))
+                with timer.step():
+                    mean_loss = self._train_epoch(epoch, data, bs)
+                self.loss_history.append(mean_loss)
+                if self.wandb_run is not None:
+                    timer.log_to(self.wandb_run, prefix="perf/idbn_epoch",
+                                 epoch=epoch)
+                    self._log_epoch(epoch, mean_loss, log_every_pca,
+                                    log_every_probe)
             maybe_save_train_checkpoint(
                 self, checkpoint_path, checkpoint_every, checkpoint_phase,
                 b_end, epochs, loss_history=self.loss_history)
+        self.epoch_timer = timer
         if epochs > start_epoch:
             self._warn_if_collapsed()
 
@@ -202,6 +266,8 @@ class iDBN:
               f"with another seed, or enable the retry rescue "
               f"(iDBN.train_with_retry / the entry points' "
               f"training.init_retry).")
+        if self.wandb_run is not None:
+            self.wandb_run.log({"warn/idbn_blank_recon": ratio})
         return True
 
     def train_with_retry(self, epochs: int, max_retries: int = 2,
@@ -246,7 +312,73 @@ class iDBN:
                   f"retr{'y' if retries == 1 else 'ies'} — this dataset/"
                   f"schedule/seed combination may need a different "
                   f"learning rate or architecture.")
+            if self.wandb_run is not None:
+                self.wandb_run.log(
+                    {"warn/idbn_blank_recon": self._recon_collapse_ratio()})
         return retries
+
+    # -- per-epoch logging (JAX models/idbn.py:225-240, :567-641) -------------
+
+    def _layers_to_monitor(self) -> List[int]:
+        """Top layer plus layer 1 when deeper (reference idbn.py:163-173)."""
+        layers = {len(self.layers)}
+        if len(self.layers) > 1:
+            layers.add(1)
+        return sorted(layers)
+
+    def _layer_tag(self, idx: int) -> str:
+        return f"layer{idx}"
+
+    def _log_epoch(self, epoch: int, mean_loss: float, log_every_pca: int,
+                   log_every_probe: int) -> None:
+        """The reference's logging cadences (idbn.py:207-305): loss every
+        epoch, the auto-reconstruction every 5, PCA correlations and
+        linear probes of the monitored layers at their cadences. A
+        diagnostic that fails logs ``warn/idbn_*_error`` and training goes
+        on."""
+        from multimodal_idbn_tpu_torch.utils.probe_utils import (
+            compute_val_embeddings_and_features, log_linear_probe)
+        from multimodal_idbn_tpu_torch.utils.wandb_utils import (
+            log_pca_embeddings, log_reconstruction_grid)
+        run = self.wandb_run
+        if run is None:
+            return
+        run.log({"idbn/loss": mean_loss, "epoch": epoch})
+
+        if self.val_batch is not None and epoch % 5 == 0:
+            try:
+                vb = as_tensor(self.val_batch, self.device)[:8]
+                rec = self.reconstruct(vb)
+                mse = float(torch.mean((vb - torch.clamp(rec, 0, 1)) ** 2))
+                run.log({"idbn/auto_recon_mse": mse, "epoch": epoch})
+                log_reconstruction_grid(run, vb, rec, epoch,
+                                        key="idbn/auto_recon_grid")
+            except Exception as e:  # a diagnostic must not stop training
+                run.log({"warn/idbn_auto_recon_error": str(e)})
+
+        if self.val_loader is None or self.features is None:
+            return
+        if epoch % log_every_pca == 0:
+            for layer_idx in self._layers_to_monitor():
+                tag = self._layer_tag(layer_idx)
+                try:
+                    E, feats = compute_val_embeddings_and_features(
+                        self, upto_layer=layer_idx)
+                    if E.numel():
+                        log_pca_embeddings(run, E, feature_map(feats),
+                                           f"iDBN_{tag}")
+                except Exception as e:
+                    run.log({f"warn/idbn_pca_error_{tag}": str(e)})
+        if epoch % log_every_probe == 0:
+            for layer_idx in self._layers_to_monitor():
+                tag = self._layer_tag(layer_idx)
+                try:
+                    log_linear_probe(self, epoch=epoch, n_bins=5,
+                                     test_size=0.2, steps=1000, lr=1e-2,
+                                     patience=20, min_delta=0.0,
+                                     upto_layer=layer_idx, layer_tag=tag)
+                except Exception as e:
+                    run.log({f"warn/idbn_probe_error_{tag}": str(e)})
 
     # -- inference (JAX models/idbn.py:645-658) -------------------------------
 
@@ -275,10 +407,11 @@ class iDBN:
             pickle.dump({"layers": self.layers, "params": self.params}, f)
         print(f"[iDBN] Model saved to {path}")
 
-    # Loaders are runtime attachments, not model state; an unpickled iDBN
-    # lies on the CPU until ``to`` moves it.
+    # Loaders and run objects are runtime attachments, not model state; an
+    # unpickled iDBN lies on the CPU until ``to`` moves it.
     def __getstate__(self):
         d = dict(self.__dict__)
+        d["wandb_run"] = None
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
@@ -287,5 +420,11 @@ class iDBN:
         return d
 
     def __setstate__(self, d):
+        # pickles written before the diagnostics hooks lack their fields
+        for k, v in (("wandb_run", None), ("features", None),
+                     ("text_flag", False)):
+            d.setdefault(k, v)
+        d.setdefault("arch_dir", os.path.join(
+            "logs-idbn", f"architecture_{d.get('arch_str', 'loaded')}"))
         self.__dict__.update(d)
         self.device = torch.device("cpu")

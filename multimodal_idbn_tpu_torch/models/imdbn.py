@@ -7,10 +7,15 @@ fine-tune (:272-338), cross-modal inference (``_cross_reconstruct``,
 ``train_joint`` with crash-safe resume (8 warm-up y-clamp epochs, then
 free CD + auxiliary clamps, cross-modal metrics per batch, :453-700) and
 persistence (``save_model`` as the dual-format pickle payload,
-``load_model``, ``from_payload``, pickling, :941-1071). Image latents are
-computed once per joint run, as the image iDBN is frozen there. W&B, PCA,
-probes, snapshots, the validation ``features`` they read and the
-per-batch loop over loaders that cannot materialize are not ported.
+``load_model``, ``from_payload``, pickling, :941-1071), and the
+diagnostics hooks: the validation images, labels and ``features``
+(:95-156), the joint epoch timer (:509-510, :605-606) and the per-epoch
+logging to a run object (``_log_joint_epoch``, ``_get_log_cfg``,
+``_log_cadence``, ``_log_config_gated``, ``_log_snapshots``, :759-937).
+Image latents are computed once per joint run, as the image iDBN is frozen
+there. The diagnostics draw from the joint RBM's own stream, never from
+the training keys, so logging leaves the trained parameters unchanged.
+The per-batch loop over loaders that cannot materialize is not ported.
 """
 
 from __future__ import annotations
@@ -27,11 +32,13 @@ from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
                                                   maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.models.idbn import iDBN, check_train_args
+from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
+                                                   feature_map, val_features)
 from multimodal_idbn_tpu_torch.models.rbm import RBM
 from multimodal_idbn_tpu_torch.ops import imdbn_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
+from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
 
 # Hard-coded in the reference (JAX models/imdbn.py:30-31).
 WARMUP_Y_EPOCHS = 8
@@ -90,6 +97,20 @@ def finetune_last_layer(dbn: iDBN, loader, epochs: int, lr_scale: float,
         last.lr = old_lr
 
 
+def load_logging_cfg(path: Optional[str]) -> dict:
+    """The logging YAML at ``path`` (default
+    ``configs/logging_config.yaml``), or {} where there is none
+    (JAX models/idbn.py:53-67)."""
+    from pathlib import Path
+    import yaml
+    cfg_path = Path(path) if path else Path("configs/logging_config.yaml")
+    if not cfg_path.exists():
+        return {}
+    with cfg_path.open("r") as f:
+        cfg = yaml.safe_load(f)
+    return cfg if isinstance(cfg, dict) else {}
+
+
 class iMDBN:
     """Image iDBN + joint RBM whose visible layer is [z_img ⊕ y], the
     label block a softmax group (JAX models/imdbn.py:34-187).
@@ -97,27 +118,47 @@ class iMDBN:
     ``reference_best_of_k_bug`` (default True): the reference's best-of-K
     candidate selection is a no-op; set it False for the real free-energy
     selection (``imdbn_ops.cross_reconstruct``).
+
+    ``wandb_run``: any object with ``.log(dict)``; when given, both training
+    phases log per epoch. ``logging_cfg`` is the YAML's ``logging:`` tree
+    (which extras run, and how often); without it the file at
+    ``logging_config_path`` is read (JAX models/imdbn.py:76-92).
     """
 
     def __init__(self, layer_sizes_img: List[int], joint_layer_size: int,
                  params: dict, dataloader, val_loader=None,
                  device: DeviceLike = None, num_labels: int = 32,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, wandb_run=None,
+                 logging_config_path: Optional[str] = None,
+                 logging_cfg: Optional[dict] = None):
         self.params = params
         self.dataloader = dataloader
         self.val_loader = val_loader
         self.device = resolve_device(device)
+        self.wandb_run = wandb_run
+        self.logging_cfg = (dict(logging_cfg) if logging_cfg
+                            else load_logging_cfg(logging_config_path))
         self.num_labels = int(num_labels)
         self._seed = seed
+        # the first validation batch, for the snapshots (JAX :96-105)
+        self.validation_images = self.validation_labels = None
+        first = next(iter(val_loader), None) if val_loader is not None \
+            else None
+        if first is not None:
+            n = min(8, len(first[0]))
+            self.validation_images = np.asarray(
+                first[0], np.float32)[:n].reshape(n, -1)
+            self.validation_labels = np.asarray(first[1], np.float32)[:n]
         self.image_idbn = iDBN(layer_sizes_img, params, dataloader,
-                               val_loader, device=self.device, seed=seed)
+                               val_loader, device=self.device, seed=seed,
+                               wandb_run=wandb_run)
         self._build_joint(int(self.image_idbn.layers[-1].num_hidden),
                           int(joint_layer_size))
         self.joint_cd = int(params.get("JOINT_CD", params.get("CD", 1)))
         self.cross_steps = int(params.get("CROSS_GIBBS_STEPS", 50))
         self.reference_best_of_k_bug = True
         self.z_class_mean: Optional[torch.Tensor] = None
-        self.features = None
+        self.features = val_features(val_loader)
         self.joint_metrics_history: List[Dict[str, float]] = []
         self.last_metrics: Optional[Dict[str, float]] = None
         self.arch_str = (f"IMG{'-'.join(map(str, layer_sizes_img))}"
@@ -296,10 +337,12 @@ class iMDBN:
     # -- joint training (JAX :453-700) ------------------------------------------
 
     def _train_joint_epoch(self, epoch, X, Y, Z, bs, idbn_states,
-                           aux_cond_steps, metrics_every) -> None:
+                           aux_cond_steps, metrics_every) -> List[float]:
         """One joint epoch: the split permuted by this epoch's key, its full
-        batches (``imdbn_ops.joint_epoch``), then the remainder; appends
-        the epoch's cross-modal metrics to ``joint_metrics_history``."""
+        batches (``imdbn_ops.joint_epoch``), then the remainder; sets
+        ``last_metrics`` and appends them to ``joint_metrics_history``.
+        Returns the free-CD losses, one per batch (none in the warm-up),
+        as JAX models/imdbn.py:576-597 collects them."""
         n = Z.shape[0]
         nb = n // bs
         jr = self.joint_rbm
@@ -314,12 +357,13 @@ class iMDBN:
                        steps=self.cross_steps, groups=self._joint_groups(),
                        use_free_energy=not self.reference_best_of_k_bug,
                        zclamp_every=ZCLAMP_EVERY)
-        joint, _, totals = imdbn_ops.joint_epoch(
+        joint, mean_cd, totals = imdbn_ops.joint_epoch(
             jr.state, idbn_states, key, Zp, Yp, Xp, lr, mom,
             jr.weight_decay, self.z_class_mean, batch_size=bs,
             metrics_every=metrics_every, **statics)
+        cd_losses = [] if statics["warmup"] else [mean_cd] * nb
         if n - nb * bs:
-            joint, _, m_rem = imdbn_ops._joint_train_batch(
+            joint, cd_rem, m_rem = imdbn_ops._joint_train_batch(
                 joint, idbn_states, rng.fold_in(key, 991),
                 Zp[nb * bs:], Yp[nb * bs:], Xp[nb * bs:], nb, lr, mom,
                 jr.weight_decay, self.z_class_mean,
@@ -327,8 +371,11 @@ class iMDBN:
                 # (JAX ops/imdbn_ops.py:430, models/imdbn.py:592)
                 compute_metrics=(max(1, metrics_every) == 1), **statics)
             totals = imdbn_ops.add_metrics(totals, m_rem)
+            if not statics["warmup"]:
+                cd_losses.append(cd_rem)
         jr.state = joint
         tot = {k: float(v) for k, v in totals._asdict().items()}
+        self.last_metrics = None
         if tot["n"] > 0:
             self.last_metrics = {
                 "cross_modality/text_top1": tot["top1"] / tot["n"],
@@ -339,14 +386,20 @@ class iMDBN:
             }
             self.joint_metrics_history.append(
                 dict(self.last_metrics, epoch=epoch))
+        return [float(c) for c in cd_losses]
 
-    def train_joint(self, epochs: int, start_epoch: int = 0,
-                    checkpoint_every: int = 0,
+    def train_joint(self, epochs: int, log_every_pca: int = 25,
+                    log_every_probe: int = 10, log_every: int = 5,
+                    start_epoch: int = 0, checkpoint_every: int = 0,
                     checkpoint_path: Optional[str] = None) -> None:
         """Joint training (JAX models/imdbn.py:453-700): the first 8 epochs
         are y-clamped warm-up, then free CD-k + auxiliary clamped CD, with
         the cross-modal round trip and its metrics on every batch (every
-        ``CROSS_METRICS_EVERY``-th with that setting).
+        ``CROSS_METRICS_EVERY``-th with that setting). Each epoch is timed
+        (``epoch_timer``); with a run object it is logged
+        (``_log_joint_epoch``: PCA every ``log_every_pca`` epochs, probes
+        every ``log_every_probe``, snapshots every ``log_every``, and the
+        extras the logging config enables).
 
         Crash-safe resume: ``checkpoint_every=N`` + ``checkpoint_path``
         write a resumable checkpoint (joint and image states, momentum,
@@ -369,17 +422,171 @@ class iMDBN:
         aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 10))
         metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
         idbn_states = self.image_idbn.states()
+        timer = StepTimer(self.device)
         for b_start, b_end in checkpoint_epochs(
                 start_epoch, epochs,
                 checkpoint_every if checkpoint_path else 0,
                 min(WARMUP_Y_EPOCHS, epochs)):
             for epoch in range(b_start, b_end):
-                self._train_joint_epoch(epoch, X, Y, Z, bs, idbn_states,
-                                        aux_cond_steps, metrics_every)
+                with timer.step():
+                    cd_losses = self._train_joint_epoch(
+                        epoch, X, Y, Z, bs, idbn_states, aux_cond_steps,
+                        metrics_every)
+                if self.wandb_run is not None:
+                    timer.log_to(self.wandb_run, prefix="perf/joint_epoch",
+                                 epoch=epoch)
+                    self._log_joint_epoch(epoch, cd_losses, log_every_pca,
+                                          log_every_probe, log_every)
             maybe_save_train_checkpoint(self, checkpoint_path,
                                         checkpoint_every, "joint", b_end,
                                         epochs)
+        self.epoch_timer = timer
         print("[iMDBN] joint training finished.")
+
+    # -- per-epoch logging (JAX :759-937) --------------------------------------
+
+    def _log_joint_epoch(self, epoch, cd_losses, log_every_pca,
+                         log_every_probe, log_every) -> None:
+        """Epoch-tail logging (reference imdbn.py:641-710): the CD loss and
+        cross-modal metrics, then the joint PCA and probes at their
+        cadences, the config-gated extras and the snapshots. A diagnostic
+        that fails logs ``warn/*_error`` and training goes on."""
+        from multimodal_idbn_tpu_torch.utils.probe_utils import (
+            compute_joint_embeddings_and_features, log_joint_linear_probe)
+        from multimodal_idbn_tpu_torch.utils.wandb_utils import (
+            log_pca_embeddings)
+        run = self.wandb_run
+        if run is None:
+            return
+        if cd_losses:
+            run.log({"joint/cd_loss": float(np.mean(cd_losses)),
+                     "epoch": epoch})
+        if self.last_metrics is not None:
+            run.log(dict(self.last_metrics, epoch=epoch))
+
+        if self.val_loader is not None and self.features is not None:
+            if epoch % log_every_pca == 0:
+                try:
+                    E, feats = compute_joint_embeddings_and_features(self)
+                    if E.numel():
+                        log_pca_embeddings(run, E, feature_map(feats),
+                                           "Joint_top")
+                except Exception as e:  # a diagnostic must not stop training
+                    run.log({"warn/joint_pca_error": str(e)})
+            if epoch % log_every_probe == 0:
+                try:
+                    log_joint_linear_probe(self, epoch=epoch, n_bins=5,
+                                           test_size=0.2, steps=1000,
+                                           lr=1e-2, patience=20,
+                                           min_delta=0.0,
+                                           metric_prefix="joint")
+                except Exception as e:
+                    run.log({"warn/joint_probe_error": str(e)})
+
+        self._log_config_gated(epoch)
+        if epoch % max(1, int(log_every)) == 0:
+            self._log_snapshots(epoch)
+
+    def _get_log_cfg(self, section: str) -> dict:
+        """Section of the YAML ``logging:`` tree (reference monolith
+        gdbn_model_complete.py:691)."""
+        cfg = self.logging_cfg or {}
+        if "logging" in cfg and isinstance(cfg["logging"], dict):
+            cfg = cfg["logging"]
+        sec = cfg.get(section, {})
+        return sec if isinstance(sec, dict) else {}
+
+    def _log_cadence(self, name: str, default: int) -> int:
+        cfg = self.logging_cfg or {}
+        if "logging" in cfg and isinstance(cfg["logging"], dict):
+            cfg = cfg["logging"]
+        return max(1, int(cfg.get(name, default)))
+
+    def _log_config_gated(self, epoch: int) -> None:
+        """The config-gated extras (JAX models/imdbn.py:845-915): energy
+        trace, cross-modal convergence panel and z-mismatch check,
+        vector-DB neighbours, trajectories and the joint auto-recon. Each
+        gate defaults off like the shipped YAML."""
+        from multimodal_idbn_tpu_torch.utils import (conditional_steps,
+                                                     energy_utils,
+                                                     imdbn_logging)
+        run = self.wandb_run
+        if run is None:
+            return
+        energy_cfg = self._get_log_cfg("energy")
+        if (energy_cfg.get("enable", False)
+                and epoch % self._log_cadence("log_every_energy", 50) == 0):
+            try:
+                energy_utils.run_and_log_fixed_case(self, epoch=epoch)
+            except Exception as e:
+                run.log({"warn/energy_error": str(e)})
+
+        conv_cfg = self._get_log_cfg("convergence")
+        if (conv_cfg.get("enable", False)
+                and epoch % self._log_cadence("log_every_convergence",
+                                              25) == 0):
+            try:
+                if conv_cfg.get("panel_analysis", True):
+                    conditional_steps.run_and_log_cross_panel(
+                        self, epoch=epoch,
+                        max_steps=int(conv_cfg.get("num_steps", 50)))
+                if conv_cfg.get("z_mismatch_check", True):
+                    conditional_steps.run_and_log_z_mismatch_check(
+                        self, epoch=epoch)
+            except Exception as e:
+                run.log({"warn/convergence_error": str(e)})
+
+        nb_cfg = self._get_log_cfg("neighbors")
+        if (nb_cfg.get("enable", False)
+                and epoch % self._log_cadence("log_every_neighbors",
+                                              50) == 0):
+            try:
+                imdbn_logging.log_vecdb_neighbors_for_traj(
+                    self, k=int(nb_cfg.get("k", 5)),
+                    metric=nb_cfg.get("similarity_metric", "cosine"),
+                    dedup=("image" if nb_cfg.get("deduplicate", True)
+                           else "index"))
+            except Exception as e:
+                run.log({"warn/neighbors_error": str(e)})
+
+        traj_cfg = self._get_log_cfg("trajectory")
+        if (traj_cfg.get("enable", False)
+                and epoch % self._log_cadence("log_every_trajectory",
+                                              50) == 0):
+            try:
+                for s_idx in range(int(traj_cfg.get("num_samples", 4))):
+                    if traj_cfg.get("plot_2d", True):
+                        imdbn_logging.log_latent_trajectory_with_recon_panel(
+                            self, sample_idx=s_idx, steps=self.cross_steps,
+                            tag=f"pca_traj_with_recon/sample{s_idx}")
+                if traj_cfg.get("plot_3d", True):
+                    imdbn_logging.log_pca3_trajectory_with_recon_panel(
+                        self, sample_idx=0, steps=self.cross_steps)
+                imdbn_logging.log_joint_auto_recon(self, epoch=epoch)
+            except Exception as e:
+                run.log({"warn/trajectory_error": str(e)})
+
+    def _log_snapshots(self, epoch: int, num: int = 8) -> None:
+        """Reconstruction grid, confusion, image MSE and top-k table of the
+        cross-modal round trip on the first validation images (reference
+        imdbn.py:715-813): two chain-kernel launches on the card."""
+        from multimodal_idbn_tpu_torch.utils.wandb_utils import (
+            log_snapshot_panels)
+        if (self.wandb_run is None or self.validation_images is None
+                or self.validation_labels is None):
+            return
+        try:
+            imgs = as_tensor(self.validation_images[:num], self.device)
+            lbls = as_tensor(self.validation_labels[:num], self.device)
+            img_from_txt, p_y = self._cross_reconstruct(
+                self.image_idbn.represent(imgs), lbls,
+                steps=self.cross_steps)
+            log_snapshot_panels(
+                self.wandb_run, epoch, imgs,
+                torch.clamp(img_from_txt, 0, 1), p_y, lbls,
+                class_names=getattr(self, "class_names", None))
+        except Exception as e:
+            self.wandb_run.log({"warn/snap_error": str(e), "epoch": epoch})
 
     # -- persistence (JAX :941-1071) ---------------------------------------------
 
@@ -448,11 +655,12 @@ class iMDBN:
 
     @classmethod
     def from_payload(cls, payload: Dict[str, Any], dataloader=None,
-                     val_loader=None) -> "iMDBN":
+                     val_loader=None, wandb_run=None) -> "iMDBN":
         """Rebuild a working iMDBN from a ``load_model`` payload, on the
         device its RBMs lie on (JAX models/imdbn.py:1004-1056). The loaded
         ``image_idbn`` / ``joint_rbm`` objects are adopted as they are, so
-        all inference paths work at once; training needs a dataloader."""
+        all inference paths work at once; training needs a dataloader. A
+        payload holds no run object: ``wandb_run`` attaches one."""
         m = cls.__new__(cls)
         # The payload's params object as it is: pickle keeps the identity
         # it shares with image_idbn.params, which a copy would break.
@@ -460,15 +668,19 @@ class iMDBN:
             is not None else {}
         m.dataloader = dataloader
         m.val_loader = val_loader
+        m.wandb_run = wandb_run
+        m.logging_cfg = {}
+        m.validation_images = m.validation_labels = None
         m._seed = m.params.get("SEED")
         m.num_labels = int(payload["num_labels"])
         m.Dz_img = int(payload["Dz_img"])
         m.image_idbn = payload["image_idbn"]
         m.joint_rbm = payload["joint_rbm"]
         m.device = m.joint_rbm.device
-        # pickling strips the loaders of the embedded iDBN
+        # pickling strips the loaders and the run of the embedded iDBN
         m.image_idbn.dataloader = dataloader
         m.image_idbn.val_loader = val_loader
+        m.image_idbn.wandb_run = wandb_run
         m.arch_str = payload.get("arch_str",
                                  f"IMG?_JOINT{m.joint_rbm.num_hidden}")
         m.features = payload.get("features")
@@ -486,9 +698,11 @@ class iMDBN:
                 setattr(m, attr, payload[attr])
         return m
 
-    # Loaders are runtime attachments; device tensors pickle as numpy.
+    # Loaders and run objects are runtime attachments; device tensors
+    # pickle as numpy.
     def __getstate__(self):
         d = dict(self.__dict__)
+        d["wandb_run"] = None
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
@@ -497,6 +711,11 @@ class iMDBN:
         return d
 
     def __setstate__(self, d):
+        # pickles written before the diagnostics hooks lack their fields
+        for k in ("wandb_run", "validation_images", "validation_labels",
+                  "features"):
+            d.setdefault(k, None)
+        d.setdefault("logging_cfg", {})
         self.__dict__.update(d)
         self.device = torch.device("cpu")
         if d.get("z_class_mean") is not None:

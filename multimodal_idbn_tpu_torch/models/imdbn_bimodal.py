@@ -10,9 +10,13 @@ layer i), pretrained modality DBNs and the last-layer fine-tunes
 warm-up epochs, then free CD down the joint stack plus the aux clamps;
 ``ops.bimodal_ops``), and the pickle ``save_model`` / ``load_model``.
 Modality latents are computed once per joint run, as the modality iDBNs
-are frozen there. W&B, probe, PCA and trajectory logging, the per-batch
-loop over loaders that cannot materialize and data parallelism are not
-ported.
+are frozen there. The diagnostics are ported too: the module functions
+(:37-320: joint embeddings and features, the joint probe, the MOD2→MOD1
+chain and the latent trajectories 2-D / 3-D) and the per-epoch logging to
+a run object (``_log_joint_epoch``, ``_log_snapshots``, :863-1011); they
+draw from joint layer 0's own stream, never from the training keys. The
+per-batch loop over loaders that cannot materialize and data parallelism
+are not ported.
 """
 
 from __future__ import annotations
@@ -28,17 +32,251 @@ from multimodal_idbn_tpu_torch import convert
 from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
                                                   maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
-                                              resolve_device)
-from multimodal_idbn_tpu_torch.models.idbn import iDBN, check_train_args
+                                              resolve_device, to_numpy)
+from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
+                                                   feature_map, val_features)
 from multimodal_idbn_tpu_torch.models.imdbn import (finetune_last_layer,
                                                     load_pretrained_layers)
 from multimodal_idbn_tpu_torch.models.rbm import RBM
-from multimodal_idbn_tpu_torch.ops import bimodal_ops, dbn_train, rng
+from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, rbm_ops,
+                                           rng)
+from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
+                                                    sample_bernoulli)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
+from multimodal_idbn_tpu_torch.utils.wandb_compat import pyplot, wandb
 
 # Hard-coded in the reference (JAX models/imdbn_bimodal.py:30).
 WARMUP_EPOCHS = 8
+
+
+# ---------------------------------------------------------------------------
+# Module-level diagnostics (JAX models/imdbn_bimodal.py:37-320)
+# ---------------------------------------------------------------------------
+
+def compute_bimodal_joint_embeddings_and_features(model):
+    """Joint-top embeddings over the val set on the model's device + the
+    feature dict (JAX imdbn_bimodal.py:37-54)."""
+    embeds = [model.represent((mod1, mod2))
+              for mod1, mod2 in model.val_loader]
+    E = (torch.cat(embeds, dim=0) if embeds
+         else torch.zeros((0, 0), device=model.device))
+    feats = {}
+    if model.features is not None:
+        mapping = {"Cumulative Area": "cum_area", "Convex Hull":
+                   "convex_hull", "Labels": "labels", "Density": "density"}
+        for src, dst in mapping.items():
+            if src in model.features:
+                feats[dst] = np.asarray(model.features[src])
+    return E, feats
+
+
+def log_bimodal_joint_linear_probe(model, epoch, n_bins=5, test_size=0.2,
+                                   steps=1000, lr=1e-2, patience=20,
+                                   min_delta=0.0, metric_prefix="joint",
+                                   save_csv=False):
+    """Linear probes on the bimodal joint representation, on the device
+    (JAX imdbn_bimodal.py:57-127). ``save_csv`` is accepted and unused, as
+    there."""
+    from multimodal_idbn_tpu_torch.utils.probe_utils import (
+        _confusion_counts, _format_bin_names, _log_accuracy_wandb,
+        _log_confusion_table_wandb, log_probe_summary, make_bin_labels,
+        stratified_split, train_linear_classifier)
+    del save_csv
+    E, feats = compute_bimodal_joint_embeddings_and_features(model)
+    if E.numel() == 0:
+        return {}
+    run = model.wandb_run
+    probe_targets = ["cum_area", "convex_hull", "labels"]
+    if "density" in feats:
+        probe_targets.append("density")
+
+    summary_rows = []
+    results = {}
+    for mkey in probe_targets:
+        if mkey not in feats:
+            continue
+        y, edges = make_bin_labels(np.asarray(feats[mkey], np.float32),
+                                   n_bins=n_bins)
+        bin_names = _format_bin_names(edges, precision=4)
+        metric_name = f"{metric_prefix}/{mkey}"
+        train_idx, test_idx = stratified_split(y, test_size=test_size,
+                                               rng_seed=42)
+        if len(train_idx) == 0 or len(test_idx) == 0:
+            if run:
+                run.log({f"{metric_name}/warn_empty_split": 0.0,
+                         "epoch": epoch})
+            continue
+        tr = torch.as_tensor(train_idx, device=E.device)
+        te = torch.as_tensor(test_idx, device=E.device)
+        acc, y_true, y_pred = train_linear_classifier(
+            E[tr], y[train_idx], E[te], y[test_idx], n_classes=n_bins,
+            max_steps=steps, lr=lr, weight_decay=0.0, patience=patience,
+            min_delta=min_delta)
+        summary_rows.append((metric_name, acc))
+        results[metric_name] = acc
+        _log_accuracy_wandb(run, metric_name, acc, epoch)
+        _log_confusion_table_wandb(
+            run, _confusion_counts(y_true, y_pred, n_bins), bin_names,
+            metric_name, epoch)
+    log_probe_summary(run, summary_rows, epoch,
+                      f"probe/{metric_prefix}/summary", "indianred",
+                      f"Joint probe summary @ epoch {epoch}",
+                      f"probe_{metric_prefix}_summary", with_epoch=True)
+    return results
+
+
+def _mod2_to_mod1_chain(model, z2: torch.Tensor, steps: int):
+    """MOD2→MOD1 chain with sampled h on joint layer 0; returns the
+    per-step (h_prob, z1) trajectories [steps+1, ·] as host numpy, the
+    init included (JAX imdbn_bimodal.py:130-160). A plain torch loop on
+    the model's device, its draws keyed by joint layer 0's stream."""
+    joint = model.joint_rbm.state
+    Dz1 = model.Dz_mod1
+    B, dev = z2.shape[0], z2.device
+    v_known = torch.cat([torch.zeros((B, Dz1), device=dev), z2], dim=1)
+    km = torch.cat([torch.zeros((B, Dz1), device=dev),
+                    torch.ones_like(z2)], dim=1)
+    h0 = rbm_ops.hidden_probs(joint, v_known)
+    v = clamp_mask(rbm_ops.visible_probs(joint, h0), v_known, km)
+    hs, zs = [h0[0]], [v[0, :Dz1]]
+    key = model.joint_rbm._next_key()
+    for t in range(int(steps)):
+        h_prob = rbm_ops.hidden_probs(joint, v)
+        h = sample_bernoulli(rng.fold_in(key, t), h_prob)
+        v = clamp_mask(torch.sigmoid(h @ joint.w.T + joint.vb), v_known, km)
+        hs.append(h_prob[0])
+        zs.append(v[0, :Dz1])
+    return to_numpy(torch.stack(hs)), to_numpy(torch.stack(zs))
+
+
+def _fetch_bimodal_sample(model, sample_idx: int):
+    seen = 0
+    for mod1, mod2 in model.val_loader:
+        b = len(mod1)
+        if seen + b <= sample_idx:
+            seen += b
+            continue
+        pos = sample_idx - seen
+        return (as_tensor(mod1, model.device)[pos:pos + 1],
+                as_tensor(mod2, model.device)[pos:pos + 1])
+    return None, None
+
+
+def log_bimodal_latent_trajectory(model, sample_idx: int = 0,
+                                  steps: int = 50, tag: str = "trajectory",
+                                  n_frames: int = 8):
+    """MOD2→MOD1 trajectory in joint-hidden PCA space with recon panel
+    (JAX imdbn_bimodal.py:163-268)."""
+    import math
+    if model.val_loader is None or model.wandb_run is None:
+        return
+    # PCA background: h_joint (layer-0 hidden) for all val samples
+    H_all = np.concatenate([to_numpy(model.joint_rbm.forward(
+        torch.cat(model._latents(mod1, mod2), dim=1)))
+        for mod1, mod2 in model.val_loader], axis=0)
+    try:
+        base = model.val_loader.dataset.dataset
+        indices = model.val_loader.dataset.indices
+        all_labels = [base.labels[i] for i in indices]
+    except AttributeError:  # a loader without the Subset protocol
+        all_labels = [0.0] * H_all.shape[0]
+    color_vec = np.asarray(all_labels, float)
+    sample_idx = min(sample_idx, H_all.shape[0] - 1)
+
+    mod1_s, mod2_s = _fetch_bimodal_sample(model, sample_idx)
+    if mod1_s is None:
+        return
+    z1_true, z2_true = model._latents(mod1_s, mod2_s)
+    h_traj, z_traj = _mod2_to_mod1_chain(model, z2_true, steps)
+    recs = to_numpy(model.mod1_dbn.decode(z_traj))       # [steps+1, D1]
+
+    mean = H_all.mean(0, keepdims=True)
+    _, _, Vt = np.linalg.svd(H_all - mean, full_matrices=False)
+    proj = Vt[:2].T
+    H2d = (H_all - mean) @ proj
+    traj_2d = (h_traj - mean) @ proj
+    h_true = to_numpy(model.joint_rbm.forward(
+        torch.cat([z1_true, z2_true], dim=1)))
+    h_true_2d = (h_true - mean) @ proj
+
+    sel_idx = np.unique(np.linspace(0, len(recs) - 1, n_frames,
+                                    dtype=int)).tolist()
+    side = int(round(mod1_s.shape[1] ** 0.5))
+
+    def _to_img(t):
+        return np.clip(to_numpy(t).reshape(-1), 0, 1).reshape(side, side)
+
+    plt = pyplot(model.wandb_run, f"{tag}_mod2_to_mod1".replace("/", "_"))
+    if plt is None:
+        return
+    n_tiles = len(sel_idx) + 1
+    rows = 2
+    cols = math.ceil(n_tiles / rows)
+    fig = plt.figure(figsize=(8 + cols * 2.2, max(6, rows * 2.2)))
+    gs = fig.add_gridspec(nrows=rows, ncols=cols + 4)
+    ax0 = fig.add_subplot(gs[:, :4])
+    sc = ax0.scatter(H2d[:, 0], H2d[:, 1], c=color_vec, cmap="viridis",
+                     s=12, alpha=0.35)
+    ax0.scatter(h_true_2d[0, 0], h_true_2d[0, 1], s=80, marker="*", c="k",
+                edgecolor="w", linewidths=0.8, label="GT", zorder=3)
+    ax0.scatter(traj_2d[0, 0], traj_2d[0, 1], s=50, marker="D", c="red",
+                edgecolor="k", linewidths=0.5, label="start", zorder=3)
+    ax0.plot(traj_2d[:, 0], traj_2d[:, 1], linewidth=1.6, marker="o",
+             markersize=3, c="red", label="trajectory", zorder=2)
+    ax0.set_title(f"PCA h_joint - sample {sample_idx} - steps={steps}")
+    ax0.set_xlabel("PC1")
+    ax0.set_ylabel("PC2")
+    fig.colorbar(sc, ax=ax0, fraction=0.046, pad=0.02, label="Numerosity")
+    ax0.legend(loc="best")
+
+    right_gs = gs[:, 4:].subgridspec(nrows=rows, ncols=cols)
+    ax = fig.add_subplot(right_gs[0, 0])
+    ax.imshow(_to_img(mod1_s), cmap="gray", vmin=0, vmax=1)
+    ax.set_title("GT", fontsize=9)
+    ax.axis("off")
+    for k, si in enumerate(sel_idx):
+        r, c = divmod(k + 1, cols)
+        ax = fig.add_subplot(right_gs[r, c])
+        ax.imshow(_to_img(recs[si]), cmap="gray", vmin=0, vmax=1)
+        ax.set_title(f"step {si}", fontsize=9)
+        ax.axis("off")
+    plt.tight_layout()
+    model.wandb_run.log({f"{tag}/mod2_to_mod1": wandb.Image(fig)})
+    plt.close(fig)
+
+
+def log_bimodal_latent_trajectory_3d(model, sample_idx: int = 0,
+                                     steps: int = 50,
+                                     tag: str = "trajectory"):
+    """3D PCA trajectory in mod1 latent space (JAX :271-317)."""
+    if model.val_loader is None or model.wandb_run is None:
+        return
+    Z1_all = np.concatenate([to_numpy(model.mod1_dbn.represent(mod1))
+                             for mod1, _ in model.val_loader], axis=0)
+    sample_idx = min(sample_idx, Z1_all.shape[0] - 1)
+    _, mod2_s = _fetch_bimodal_sample(model, sample_idx)
+    if mod2_s is None:
+        return
+    _, z_traj = _mod2_to_mod1_chain(model, model.mod2_dbn.represent(mod2_s),
+                                    steps)
+    mean = Z1_all.mean(0, keepdims=True)
+    _, _, Vt = np.linalg.svd(Z1_all - mean, full_matrices=False)
+    proj = Vt[:3].T
+    Z3 = (Z1_all - mean) @ proj
+    T3 = (z_traj - mean) @ proj
+
+    plt = pyplot(model.wandb_run, f"{tag}_mod2_to_mod1_3d".replace("/", "_"))
+    if plt is None:
+        return
+    fig = plt.figure(figsize=(6.5, 6))
+    ax = fig.add_subplot(111, projection="3d")
+    ax.scatter(Z3[:, 0], Z3[:, 1], Z3[:, 2], s=6, alpha=0.15)
+    ax.plot(T3[:, 0], T3[:, 1], T3[:, 2], c="r", linewidth=1.2)
+    ax.set_title(f"PCA-3 trajectory sample {sample_idx}")
+    fig.tight_layout()
+    model.wandb_run.log({f"{tag}/mod2_to_mod1_3d": wandb.Image(fig)})
+    plt.close(fig)
 
 
 class iMDBN_BiModal:
@@ -48,7 +286,8 @@ class iMDBN_BiModal:
 
     ``dataloader`` yields (mod1, mod2) batches and offers
     ``materialize()``; the modality iDBNs are trained on their own loaders
-    (``train_bimodal``).
+    (``train_bimodal``). ``wandb_run``: any object with ``.log(dict)``;
+    ``logging_cfg``: the YAML's ``logging:`` tree (the trajectory gate).
     """
 
     def __init__(self, layer_sizes_mod1: List[int],
@@ -56,16 +295,21 @@ class iMDBN_BiModal:
                  joint_layer_sizes: Union[int, Sequence[int]],
                  params: Optional[dict] = None, dataloader=None,
                  val_loader=None, device: DeviceLike = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, wandb_run=None,
+                 logging_cfg: Optional[dict] = None):
         self.params = params or {}
         self.device = resolve_device(device)
         self.dataloader = dataloader
         self.val_loader = val_loader
+        self.wandb_run = wandb_run
+        self.logging_cfg = logging_cfg or {}
         self.mod1_dbn = iDBN(layer_sizes_mod1, self.params, None,
-                             device=self.device, seed=seed)
+                             device=self.device, seed=seed,
+                             wandb_run=wandb_run)
         self.mod2_dbn = iDBN(layer_sizes_mod2, self.params, None,
                              device=self.device,
-                             seed=None if seed is None else seed + 100)
+                             seed=None if seed is None else seed + 100,
+                             wandb_run=wandb_run)
         self.Dz_mod1 = int(self.mod1_dbn.layers[-1].num_hidden)
         self.Dz_mod2 = int(self.mod2_dbn.layers[-1].num_hidden)
         if isinstance(joint_layer_sizes, int):
@@ -90,7 +334,23 @@ class iMDBN_BiModal:
         self.joint_cd = int(self.params.get("JOINT_CD",
                                             self.params.get("CD", 1)))
         self.cross_steps = int(self.params.get("CROSS_GIBBS_STEPS", 50))
-        self.features = None
+        # the first validation batch, for the snapshots (JAX :367-373)
+        self.validation_mod1 = self.validation_mod2 = None
+        first = next(iter(val_loader), None) if val_loader is not None \
+            else None
+        if first is not None:
+            n = min(8, len(first[0]))
+            self.validation_mod1 = np.asarray(first[0], np.float32)[
+                :8].reshape(n, -1)
+            self.validation_mod2 = np.asarray(first[1], np.float32)[
+                :8].reshape(n, -1)
+        self.features = val_features(val_loader, plain_dataset=True)
+        if self.features is not None:
+            print(f"[iMDBN_BiModal] Extracted features: "
+                  f"{list(self.features.keys())}")
+        else:
+            print("[iMDBN_BiModal] Warning: Could not extract features for "
+                  "probes")
         self.last_metrics: Optional[Dict[str, float]] = None
         self.joint_metrics_history: List[Dict[str, float]] = []
         self.arch_str = (
@@ -238,7 +498,9 @@ class iMDBN_BiModal:
 
     # -- joint training (JAX :653-828) --------------------------------------
 
-    def train_joint(self, epochs: int, start_epoch: int = 0,
+    def train_joint(self, epochs: int, log_every: int = 5,
+                    log_every_pca: int = 25, log_every_probe: int = 10,
+                    log_every_trajectory: int = 50, start_epoch: int = 0,
                     checkpoint_every: int = 0,
                     checkpoint_path: Optional[str] = None) -> None:
         """Alternating-modality warm-up for the first ``WARMUP_EPOCHS``
@@ -247,7 +509,8 @@ class iMDBN_BiModal:
         batch (JAX models/imdbn_bimodal.py:653-828). Epoch e permutes the
         split and keys its batches from ``fold_in(SEED + 11, e)`` alone
         and trains its full batches and then the remainder
-        (``bimodal_ops.bimodal_epoch``).
+        (``bimodal_ops.bimodal_epoch``). With a run object each epoch is
+        logged (``_log_joint_epoch``, at the ``log_every*`` cadences).
 
         ``start_epoch`` / ``checkpoint_every`` / ``checkpoint_path``:
         crash-safe resume under the contract of ``iMDBN.train_joint``
@@ -281,7 +544,7 @@ class iMDBN_BiModal:
             for epoch in range(b_start, b_end):
                 key = rng.fold_in(seed, epoch)
                 perm = rng.permutation(key, n).to(self.device)
-                joint, _, _, totals = bimodal_ops.bimodal_epoch(
+                joint, cd_sum, cd_count, totals = bimodal_ops.bimodal_epoch(
                     self._joint_states(), mod1_states, mod2_states, key,
                     Z1[perm], Z2[perm], V1[perm], V2[perm],
                     effective_lr(jr.lr, epoch, jr.dynamic_lr),
@@ -303,10 +566,116 @@ class iMDBN_BiModal:
                     }
                     self.joint_metrics_history.append(
                         dict(self.last_metrics, epoch=epoch))
+                if self.wandb_run is not None:
+                    cd_mean = (float(cd_sum) / cd_count if cd_count
+                               else None)
+                    self._log_joint_epoch(epoch, cd_mean, log_every,
+                                          log_every_pca, log_every_probe,
+                                          log_every_trajectory)
             maybe_save_train_checkpoint(self, checkpoint_path,
                                         checkpoint_every, "bimodal_joint",
                                         b_end, epochs)
         print("[iMDBN_BiModal] joint training finished.")
+
+    def _log_joint_epoch(self, epoch, cd_mean, log_every, log_every_pca,
+                         log_every_probe, log_every_trajectory) -> None:
+        """Epoch-tail logging (JAX imdbn_bimodal.py:863-965): the CD loss
+        and cross-reconstruction MSEs, the joint and MOD2 PCA, the joint
+        probes, the trajectories when the config enables them, then the
+        snapshots. A diagnostic that fails logs ``warn/*_error`` and
+        training goes on."""
+        from multimodal_idbn_tpu_torch.utils.wandb_utils import (
+            log_pca_embeddings)
+        run = self.wandb_run
+        if run is None:
+            return
+        if cd_mean is not None:
+            run.log({"joint/cd_loss": cd_mean, "epoch": epoch})
+        if self.last_metrics is not None:
+            run.log(dict(self.last_metrics, epoch=epoch))
+
+        if self.val_loader is not None:
+            if epoch % log_every_pca == 0:
+                try:
+                    E, feats = (
+                        compute_bimodal_joint_embeddings_and_features(self))
+                    if E.numel():
+                        log_pca_embeddings(run, E, feature_map(feats),
+                                           "Joint_bimodal")
+                    # MOD2 latent PCA, Labels coloring only (:915-934)
+                    Z2_all = torch.cat([self.mod2_dbn.represent(m2)
+                                        for _m1, m2 in self.val_loader])
+                    log_pca_embeddings(
+                        run, Z2_all,
+                        {"Labels": feats["labels"]} if "labels" in feats
+                        else {}, "MOD2_MNIST100")
+                except Exception as e:  # a diagnostic must not stop training
+                    run.log({"warn/joint_pca_error": str(e)})
+            if epoch % log_every_probe == 0:
+                try:
+                    log_bimodal_joint_linear_probe(
+                        self, epoch=epoch, n_bins=5, test_size=0.2,
+                        steps=1000, lr=1e-2, patience=20, min_delta=0.0,
+                        metric_prefix="joint")
+                except Exception as e:
+                    run.log({"warn/joint_probe_error": str(e)})
+            if epoch % log_every_trajectory == 0:
+                traj_cfg = self.logging_cfg.get("trajectory", {})
+                if traj_cfg.get("enable", False):
+                    try:
+                        for s_idx in range(traj_cfg.get("num_samples", 4)):
+                            log_bimodal_latent_trajectory(
+                                self, sample_idx=s_idx,
+                                steps=self.cross_steps,
+                                tag=f"trajectory/sample{s_idx}", n_frames=8)
+                        if traj_cfg.get("plot_3d", True):
+                            log_bimodal_latent_trajectory_3d(
+                                self, sample_idx=0, steps=self.cross_steps,
+                                tag="trajectory")
+                    except Exception as e:
+                        run.log({"warn/trajectory_error": str(e)})
+
+        if epoch % max(1, int(log_every)) == 0:
+            self._log_snapshots(epoch)
+
+    def _log_snapshots(self, epoch: int, num: int = 8) -> None:
+        """Cross-reconstruction grids and MSEs of the first validation
+        pairs (JAX imdbn_bimodal.py:967-1009)."""
+        from multimodal_idbn_tpu_torch.utils.wandb_utils import make_grid
+        if self.wandb_run is None or self.validation_mod1 is None:
+            return
+        try:
+            m1 = self.validation_mod1[:num]
+            m2 = self.validation_mod2[:num]
+            z1, z2 = self._latents(m1, m2)
+            rec1, rec2 = self._cross_reconstruct(z1, z2,
+                                                 steps=self.cross_steps)
+            B = m1.shape[0]
+            r1 = np.clip(to_numpy(rec1), 0, 1)
+            r2 = np.clip(to_numpy(rec2), 0, 1)
+            mse1 = float(np.mean((r1 - m1) ** 2))
+            mse2 = float(np.mean((r2 - m2) ** 2))
+            self.wandb_run.log({"snap/mod1_mse": mse1, "snap/mod2_mse": mse2,
+                                "epoch": epoch})
+
+            side1 = int(round(m1.shape[1] ** 0.5))
+            pair1 = np.stack([m1.reshape(B, side1, side1),
+                              r1.reshape(B, side1, side1)],
+                             axis=1).reshape(-1, side1, side1)
+            self.wandb_run.log({"snap/mod1_from_mod2":
+                                wandb.Image(make_grid(pair1, nrow=2)),
+                                "epoch": epoch})
+            if m2.shape[1] == 1568:  # 28x56 MNIST-100
+                h2, w2 = 28, 56
+            else:
+                h2 = w2 = int(round(m2.shape[1] ** 0.5))
+            pair2 = np.stack([m2.reshape(B, h2, w2), r2.reshape(B, h2, w2)],
+                             axis=1).reshape(-1, h2, w2)
+            self.wandb_run.log({"snap/mod2_from_mod1":
+                                wandb.Image(make_grid(pair2, nrow=2)),
+                                "epoch": epoch})
+        except Exception as e:
+            self.wandb_run.log({"warn/snap_error": str(e), "epoch": epoch})
 
     # -- persistence (JAX :1013-1056) ----------------------------------------
 
@@ -364,11 +733,16 @@ class iMDBN_BiModal:
 
     def __getstate__(self):
         d = dict(self.__dict__)
+        d["wandb_run"] = None
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
         return d
 
     def __setstate__(self, d):
+        # pickles written before the diagnostics hooks lack their fields
+        for k in ("wandb_run", "validation_mod1", "validation_mod2"):
+            d.setdefault(k, None)
+        d.setdefault("logging_cfg", {})
         self.__dict__.update(d)
         self.device = torch.device("cpu")

@@ -9,6 +9,8 @@ one TPU kernel (multimodal_idbn_tpu/ops/pallas_kernels.py):
 - ``half_step_sample``: ``half_step_sample_aligned`` (:198-306), the
   k-tiled sampled half-step of the image-stack CD trainer.
   ``transpose_w`` computes ``x·Wᵀ`` from the same row-major [V, H] W.
+  ``half_step_sample_big`` is JAX's standalone wrapper of the same kernel
+  (:311-342) under its name.
 - ``half_step_probs`` and ``hidden_probs_kernel``: ``half_step_probs``
   (:95-126) and ``hidden_probs_pallas`` (:174-183), the probabilities
   alone. The port's kernel has no on-chip ceiling on V, so
@@ -184,6 +186,29 @@ def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         "half_step_sample", x, w, b, 2, B, K, N, (int(transpose_w),),
         (1.0 / max(1e-6, T), int(seed) & ((1 << 64) - 1)))
     return probs, sample
+
+
+def half_step_sample_big_plain(v: torch.Tensor, w: torch.Tensor,
+                               b: torch.Tensor, seed: int, T=1.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``half_step_sample_big`` in plain torch (``half_step_plain``)."""
+    return half_step_plain(v, w, b, seed, T)
+
+
+def half_step_sample_big(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         seed: int, T=1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs, Bernoulli sample), both [B, H], of ``v·w`` for any B, V, H
+    (the TPU ``half_step_sample_big``, pallas_kernels.py:311-342, which
+    pads to its tiles and calls ``half_step_sample_aligned``). Here it is
+    the ``half_step_sample`` entry, which takes ragged shapes unpadded: the
+    kernel on CUDA tensors, the plain version on CPU tensors.
+
+    A difference by design: the probabilities are fp32-accurate (three
+    TF32 passes with fp32 sums), where the TPU wrapper's ran the MXU at
+    bf16 operands (:320-324). The seed is a 64-bit int, not an int32
+    pair."""
+    return half_step_sample(v, w, b, seed, T)
 
 
 def half_step_probs_plain(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -42,11 +42,13 @@ def _group(name: str) -> str:
     return "other torch kernels"
 
 
-def _device_kernels(prof):
-    """(device events, busy µs of their union, µs from first to last)."""
+def _device_kernels(prof, skip: str = "\0"):
+    """(device events, busy µs of their union, µs from first to last),
+    leaving out the events whose name holds ``skip``."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.end > e.time_range.start]
+               and e.time_range.end > e.time_range.start
+               and skip not in e.name]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:

@@ -14,8 +14,10 @@ It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 GPU. ``training.checkpoint_every`` makes every phase resumable as in
 ``train_multimodal`` (phases "mod1", "mod2", "bimodal_joint"; a
 phase-complete marker keeps a crash in a later phase from retraining an
-earlier one). Settings the port does not cover (data parallelism, W&B and
-the other opt-in variants) raise ``NotImplementedError``; none is ignored.
+earlier one). ``wandb.enable: true`` logs the diagnostics as in
+``train_multimodal`` (scripts/train_bimodal.py:86-114, :180-221,
+:342-345). Settings the port does not cover (data parallelism and the
+other opt-in variants) raise ``NotImplementedError``; none is ignored.
 The model is saved as ``{save_dir}/{save_name}.pkl``
 (``iMDBN_BiModal.save_model``).
 """
@@ -37,9 +39,11 @@ from multimodal_idbn_tpu_torch.data import (DataLoader, NumerosityDataset,
                                             create_dataloaders_uniform)
 from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
 from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
-from multimodal_idbn_tpu_torch.train_multimodal import (check_common,
+from multimodal_idbn_tpu_torch.train_multimodal import (build_logging_params,
+                                                        check_common,
                                                         load_config,
                                                         matmul_precision,
+                                                        maybe_wandb,
                                                         train_dbn)
 
 DEFAULT_CONFIG_PATH = (Path(__file__).resolve().parent.parent / "configs"
@@ -124,6 +128,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     dataset = cfg.get("dataset", {}) or {}
     model = cfg.get("model", {}) or {}
     params = build_params(cfg)
+    log_params = build_logging_params(cfg)
 
     t0 = time.perf_counter()
     train_loader, val_loader, _ = create_dataloaders_uniform(
@@ -135,12 +140,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         n_samples=dataset.get("n_samples", 512),
         side=dataset.get("side", 100))
     joint_hidden = model.get("joint_hidden", 500)
+    wandb_run = maybe_wandb(cfg, params, project="bimodal-idbn-tpu")
     bimodal = iMDBN_BiModal(
         layer_sizes_mod1=model.get("mod1_layers", [10000, 1500, 500]),
         layer_sizes_mod2=model.get("mod2_layers", [1568, 500, 500]),
         joint_layer_sizes=joint_hidden, params=params,
         dataloader=train_loader, val_loader=val_loader, device=device,
-        seed=params.get("SEED"))
+        seed=params.get("SEED"), wandb_run=wandb_run,
+        logging_cfg=cfg.get("logging", {}) or {})
     synchronize(device)
     seconds = {"setup": time.perf_counter() - t0}
 
@@ -197,9 +204,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
             dbn.dataloader = modality_loader(train_loader, i)
             train_dbn(dbn, epochs, int(params.get("INIT_RETRY", 0) or 0),
                       start[name],
-                      ({"checkpoint_every": ckpt_every,
-                        "checkpoint_path": str(ckpts[name]),
-                        "checkpoint_phase": name} if ckpt_every else {}),
+                      dict({"checkpoint_every": ckpt_every,
+                            "checkpoint_path": str(ckpts[name]),
+                            "checkpoint_phase": name} if ckpt_every else {},
+                           log_every_pca=log_params["LOG_EVERY_PCA"],
+                           log_every_probe=log_params["LOG_EVERY_PROBE"]),
                       f"train_bimodal {name.upper()}")
         ft = int(paths.get(f"{name}_finetune_last_epochs", 0) or 0)
         if ft > 0 and not done[name]:
@@ -217,7 +226,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print("Training joint RBM...")
     t = time.perf_counter()
     bimodal.train_joint(
-        params["EPOCHS_JOINT"],
+        params["EPOCHS_JOINT"], log_every=log_params["LOG_EVERY"],
+        log_every_pca=log_params["LOG_EVERY_PCA"],
+        log_every_probe=log_params["LOG_EVERY_PROBE"],
+        log_every_trajectory=log_params["LOG_EVERY_TRAJECTORY"],
         **({"checkpoint_every": ckpt_every,
             "checkpoint_path": str(ckpts["bimodal_joint"]),
             "start_epoch": start["bimodal_joint"]} if ckpt_every else {}))
@@ -231,6 +243,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"Saved bimodal model to {save_path}")
     if ckpt_every:  # the run completed and the model is saved
         remove_checkpoints(ckpts.values())
+    if wandb_run:
+        wandb_run.finish()
 
     m = bimodal.last_metrics or {}
     summary = {

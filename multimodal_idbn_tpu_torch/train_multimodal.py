@@ -15,7 +15,13 @@ written every N epochs under ``paths.checkpoint_dir`` (default
 ``{save_dir}/checkpoints``); running the same command again continues
 bit-identically from the last one, refuses if the training configuration
 changed (unless ``training.resume_ignore_config``), and the checkpoints
-are removed after the final save. Settings the port does not cover raise
+are removed after the final save. With ``wandb.enable: true`` the run
+object of ``wandb.init`` (``utils.wandb_compat``: the wandb package where
+it is installed; else replace ``wandb_compat.wandb.init`` to hand in a run
+object of one's own) receives the diagnostics at the ``logging:``
+cadences (:87-119, :165-178, :246-279, :294-295): losses, timings, PCA
+correlations, linear probes, snapshots and the extras the ``logging:``
+sections enable. Settings the port does not cover raise
 ``NotImplementedError`` naming the part of the port that will bring them;
 none is ignored. The model is saved as ``{save_dir}/{save_name}.pkl``
 (``iMDBN.save_model``; ``python -m multimodal_idbn_tpu_torch.generate``
@@ -37,6 +43,7 @@ from multimodal_idbn_tpu_torch.checkpoint import (
 from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
 from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
 from multimodal_idbn_tpu_torch.models import iMDBN
+from multimodal_idbn_tpu_torch.utils.wandb_compat import wandb
 
 DEFAULT_CONFIG_PATH = (Path(__file__).resolve().parent.parent / "configs"
                        / "multimodal_training_config.yaml")
@@ -63,9 +70,8 @@ def not_ported(what: str, where: str):
 
 
 def check_common(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for every training, W&B or dataset
-    setting the port does not cover; shared by the training entry points.
-    """
+    """Raise ``NotImplementedError`` for every training or dataset setting
+    the port does not cover; shared by the training entry points."""
     t = cfg.get("training", {}) or {}
     if t.get("dp_devices"):
         not_ported("training.dp_devices (data parallelism)",
@@ -85,8 +91,6 @@ def check_common(cfg: dict) -> None:
     if str(t.get("matmul_precision", "highest")) != "highest":
         not_ported(f"training.matmul_precision={t.get('matmul_precision')}",
                    "opt-in variants slice (TF32 / bf16 matmuls)")
-    if (cfg.get("wandb", {}) or {}).get("enable", False):
-        not_ported("wandb.enable", "logging slice (utils/ diagnostics)")
     if (cfg.get("dataset", {}) or {}).get("distribution",
                                           "uniform") != "uniform":
         not_ported("dataset.distribution=zipfian", "data slice")
@@ -131,20 +135,56 @@ def build_params(cfg: dict) -> dict:
     }
 
 
+def build_logging_params(cfg: dict) -> dict:
+    """The logging cadences the entry points pass to ``train`` /
+    ``train_joint`` (scripts/train_multimodal.py:87-98); the models read
+    the energy, neighbour and convergence cadences from their
+    ``logging_cfg``."""
+    log_cfg = cfg.get("logging", {}) or {}
+    return {
+        "LOG_EVERY": log_cfg.get("log_every", 5),
+        "LOG_EVERY_PCA": log_cfg.get("log_every_pca", 25),
+        "LOG_EVERY_PROBE": log_cfg.get("log_every_probe", 10),
+        "LOG_EVERY_TRAJECTORY": log_cfg.get("log_every_trajectory", 50),
+    }
+
+
+def maybe_wandb(cfg: dict, params: dict,
+                project: str = "multimodal-idbn-tpu"):
+    """The run object of ``wandb.init`` when the YAML's ``wandb.enable``
+    is set, else None (scripts/train_multimodal.py:101-119); a run that
+    cannot start disables logging and says why."""
+    wcfg = cfg.get("wandb", {}) or {}
+    if not wcfg.get("enable", False):
+        return None
+    try:
+        run = wandb.init(project=wcfg.get("project", project),
+                         entity=wcfg.get("entity"),
+                         name=wcfg.get("run_name"), config=cfg)
+        if run is not None and getattr(run, "config", None) is not None:
+            run.config.update({"_derived_params": params},
+                              allow_val_change=True)
+        return run
+    except Exception as e:  # a run that cannot start must not stop training
+        print(f"[maybe_wandb] disabled ({e})")
+        return None
+
+
 def train_dbn(dbn, epochs: int, init_retry: int, start_epoch: int,
-              ckpt_kw: dict, tag: str) -> None:
+              train_kw: dict, tag: str) -> None:
     """Train one iDBN phase, through ``train_with_retry`` when
     ``training.init_retry`` asks for it. With ``start_epoch`` the first
     attempt continues a restored run and the collapse check still runs at
-    its end (scripts/train_multimodal.py:238-255)."""
+    its end (scripts/train_multimodal.py:238-255). ``train_kw``: the
+    checkpoint and logging-cadence arguments of ``iDBN.train``."""
     if init_retry > 0:
         retries = dbn.train_with_retry(epochs, max_retries=init_retry,
-                                       start_epoch=start_epoch, **ckpt_kw)
+                                       start_epoch=start_epoch, **train_kw)
         if retries:
             print(f"[{tag}] init_retry: re-initialized {retries} time(s) "
                   f"after blank-level recon")
     else:
-        dbn.train(epochs, start_epoch=start_epoch, **ckpt_kw)
+        dbn.train(epochs, start_epoch=start_epoch, **train_kw)
 
 
 def matmul_precision(cfg: dict) -> str:
@@ -162,6 +202,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     dataset = cfg.get("dataset", {}) or {}
     model = cfg.get("model", {}) or {}
     params = build_params(cfg)
+    log_params = build_logging_params(cfg)
 
     t0 = time.perf_counter()
     train_loader, val_loader, _ = create_dataloaders_uniform(
@@ -170,11 +211,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
         num_classes=model.get("num_labels", 32),
         n_samples=dataset.get("n_samples", 512),
         side=dataset.get("side", 100))
+    wandb_run = maybe_wandb(cfg, params)
     imdbn = iMDBN(
         layer_sizes_img=model.get("image_layers", [10000, 1500, 1500]),
         joint_layer_size=model.get("joint_hidden", 1000), params=params,
         dataloader=train_loader, val_loader=val_loader, device=device,
-        num_labels=model.get("num_labels", 32), seed=params.get("SEED"))
+        num_labels=model.get("num_labels", 32), seed=params.get("SEED"),
+        wandb_run=wandb_run, logging_cfg=cfg.get("logging", {}) or {})
     synchronize(device)
     t1 = time.perf_counter()
 
@@ -221,9 +264,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
               "[main] fallback: training image iDBN from scratch...")
         train_dbn(imdbn.image_idbn, params["EPOCHS_IMG"],
                   int(params.get("INIT_RETRY", 0) or 0), image_start,
-                  ({"checkpoint_every": ckpt_every,
-                    "checkpoint_path": str(image_ckpt)}
-                   if ckpt_every else {}), "train_multimodal")
+                  dict({"checkpoint_every": ckpt_every,
+                        "checkpoint_path": str(image_ckpt)}
+                       if ckpt_every else {},
+                       log_every_pca=log_params["LOG_EVERY_PCA"],
+                       log_every_probe=log_params["LOG_EVERY_PROBE"]),
+                  "train_multimodal")
     # optional last-layer fine-tune; skipped when the image phase had
     # completed, since the restored states are past it
     ft_epochs = int(paths.get("image_idbn_finetune_last_epochs", 0) or 0)
@@ -240,6 +286,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     # 2) joint training
     print("Training joint RBM...")
     imdbn.train_joint(params["EPOCHS_JOINT"],
+                      log_every=log_params["LOG_EVERY"],
+                      log_every_pca=log_params["LOG_EVERY_PCA"],
+                      log_every_probe=log_params["LOG_EVERY_PROBE"],
                       **({"checkpoint_every": ckpt_every,
                           "checkpoint_path": str(joint_ckpt),
                           "start_epoch": joint_start} if ckpt_every else {}))
@@ -253,6 +302,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"Saved multimodal model to {save_path}")
     if ckpt_every:  # the run completed and the model is saved
         remove_checkpoints((image_ckpt, joint_ckpt))
+    if wandb_run:
+        wandb_run.finish()
 
     summary = {
         "device": str(device),

@@ -2,7 +2,9 @@
 ragged small shapes the flagship run does not reach (batch not a multiple
 of the tiles, contraction lengths around the k-tiles and k-slices,
 several softmax groups and groups across tile boundaries, zero-step
-chains), and their run-to-run bit equality.
+chains), and their run-to-run bit equality; ``half_step_sample_big``;
+the diagnostics on the card: the same keys as on the CPU, training
+unchanged by logging, the probe's predictions the same on both devices.
 
 Needs an NVIDIA GPU (marker ``cuda``); without one every test skips. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -310,7 +312,28 @@ def test_chain_at_request_sized_batches(dev, B, family):
     assert torch.equal(out_k, chain.clamped_chain(*args, **kw, **extra))
 
 
-def _small_imdbn(device, seed=0):
+@pytest.mark.parametrize("B,V,H", [(37, 1501, 499), (1, 1, 1),
+                                   (129, 513, 65)])
+def test_half_step_sample_big_vs_plain(dev, B, V, H):
+    """JAX's standalone wrapper of the sampled half-step (one launch of
+    the ``half_step_sample`` entry, unpadded) against its plain version."""
+    g = torch.Generator().manual_seed(V)
+    w = _rand(g, V, H, dev=dev, scale=V ** -0.5)
+    b = _rand(g, H, dev=dev, scale=0.1)
+    v = (torch.rand((B, V), generator=g) < 0.4).float().to(dev)
+    before = half_step.KERNEL.launches_by_entry["half_step_sample"]
+    p_k, s_k = half_step.half_step_sample_big(v, w, b, 21)
+    assert half_step.KERNEL.launches_by_entry["half_step_sample"] == \
+        before + 1
+    p_p, s_p = half_step.half_step_sample_big_plain(v, w, b, 21)
+    torch.cuda.synchronize()
+    assert p_k.shape == s_k.shape == (B, H)
+    assert float((p_k - p_p).abs().max()) <= TOL
+    u = rng.philox_uniform(21, B, H, device=dev)
+    assert not bool(((s_k != s_p) & ((p_p - u).abs() > TOL)).any())
+
+
+def _small_imdbn(device, seed=0, **kw):
     from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
     from multimodal_idbn_tpu_torch.models import iMDBN
     params = {"LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4,
@@ -321,7 +344,7 @@ def _small_imdbn(device, seed=0):
     train, val, _ = create_dataloaders_uniform(
         batch_size=16, n_samples=64, num_classes=4, side=16, seed=0)
     return iMDBN([256, 64, 32], 24, params, train, val, device=device,
-                 num_labels=4, seed=seed)
+                 num_labels=4, seed=seed, **kw)
 
 
 def _states(model):
@@ -388,3 +411,62 @@ def test_resume_on_the_card_is_bit_identical(dev, tmp_path):
         assert all(torch.equal(a, b)
                    for a, b in zip(_states(straight), _states(other)))
         assert other.joint_metrics_history == straight.joint_metrics_history
+
+
+LOGGING = {s: {"enable": True} for s in ("energy", "trajectory", "neighbors",
+                                         "convergence")}
+LOGGING["convergence"]["num_steps"] = 6
+LOGGING["trajectory"]["num_samples"] = 1
+
+
+def _logged(device, arch_dir, run=None):
+    m = _small_imdbn(device, wandb_run=run, logging_cfg=LOGGING)
+    m.image_idbn.arch_dir = arch_dir
+    m.image_idbn.train(2, log_every_pca=1, log_every_probe=1)
+    m.train_joint(9, log_every_pca=8, log_every_probe=8, log_every=8)
+    return m
+
+
+def test_diagnostics_log_the_cpu_keys_on_the_card(dev, tmp_path):
+    """The same small run with every diagnostic on, on the card and on the
+    CPU: the same keys are logged, every number is finite and the probe
+    accuracies lie in [0, 1]; a chain kernel ran for the snapshots."""
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import (RecorderRun,
+                                                              all_finite)
+    runs = {d: RecorderRun() for d in ("card", "cpu")}
+    c0 = chain.KERNEL.launches
+    _logged(dev, str(tmp_path), runs["card"])
+    assert chain.KERNEL.launches > c0
+    _logged("cpu", str(tmp_path), runs["cpu"])
+    blank = {"warn/idbn_blank_recon"}   # a verdict on the weights
+    assert runs["card"].keys() - blank == runs["cpu"].keys() - blank
+    run = runs["card"]
+    for k in run.numeric_keys():
+        assert all(all_finite(v) for v in run.values(k)), k
+        if k.endswith("/acc"):
+            assert all(0.0 <= a <= 1.0 for a in run.values(k)), k
+    assert not [k for k in run.keys() if k.startswith("warn/")
+                and k not in blank and not k.endswith("_figure_skipped")]
+
+
+def test_logging_leaves_training_unchanged_on_the_card(dev, tmp_path):
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun
+    on = _logged(dev, str(tmp_path), RecorderRun())
+    off = _logged(dev, str(tmp_path))
+    assert all(torch.equal(a, b) for a, b in zip(_states(on), _states(off)))
+    assert on.joint_metrics_history == off.joint_metrics_history
+
+
+def test_probe_predicts_the_same_on_both_devices(dev):
+    """Given the same embeddings and initial weights, the probe's
+    predictions agree on the card and on the CPU."""
+    from multimodal_idbn_tpu_torch.utils import probe_utils
+    g = torch.Generator().manual_seed(7)
+    X = torch.randn((150, 40), generator=g)
+    y = (X @ torch.randn((40, 5), generator=g)).argmax(dim=1).numpy()
+    init = probe_utils.default_probe_init(40, 5)
+    out = {d: probe_utils.train_linear_classifier(
+        X[:110].to(d), y[:110], X[110:].to(d), y[110:], n_classes=5,
+        init=init) for d in (dev, torch.device("cpu"))}
+    assert out[dev] == out[torch.device("cpu")]
+    assert out[dev][0] > 0.5

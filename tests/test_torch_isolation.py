@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``multimodal_idbn_tpu_torch`` and
 nothing in ``chip_smoke.py`` imports JAX or the JAX package, the port
 imports and runs with both blocked, and ``chip_smoke.py`` fails without a
-GPU and without the package beside it."""
+GPU and without the package beside it. The card's installation has no
+matplotlib, pandas or wandb: no port module imports them when it is
+imported, and the port imports, trains and logs its diagnostics with the
+three blocked."""
 
 import ast
 import os
@@ -140,3 +143,75 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch,
             mod.run_cut("flagship-cut", tmp_path)
         else:
             mod.main()
+
+
+OPTIONAL = {"matplotlib", "pandas", "wandb", "mpl_toolkits"}
+
+
+def _top_level_imports(path: Path):
+    """Roots imported while the module is imported: everywhere but inside
+    functions, which run later."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0]
+            else:
+                yield from walk(child)
+    yield from walk(ast.parse(path.read_text(), filename=str(path)))
+
+
+def test_port_imports_no_optional_package_at_import_time():
+    for path in sorted(PORT.rglob("*.py")):
+        bad = OPTIONAL & set(_top_level_imports(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+_BLOCKED_OPTIONAL = _BLOCKED_IMPORT.replace(
+    'BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu"}',
+    'BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu", "matplotlib", '
+    '"pandas", "wandb", "mpl_toolkits"}').replace(
+    'print("ok", len(names))', r"""
+from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+from multimodal_idbn_tpu_torch.models import iMDBN
+from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun, wandb
+assert wandb.init() is None and wandb.run is None      # the stub
+train, val, _ = create_dataloaders_uniform(batch_size=16, n_samples=48,
+                                           num_classes=4, side=12, seed=0)
+params = {"LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4,
+          "INIT_MOMENTUM": 0.5, "FINAL_MOMENTUM": 0.9,
+          "LEARNING_RATE_DYNAMIC": True, "CD": 1, "CROSS_GIBBS_STEPS": 3,
+          "JOINT_AUX_COND_STEPS": 2}
+run = RecorderRun()
+cfg = {s: {"enable": True} for s in ("energy", "trajectory", "neighbors",
+                                      "convergence")}
+cfg["convergence"]["num_steps"] = 4
+cfg["trajectory"]["num_samples"] = 1
+m = iMDBN([144, 16, 8], 6, params, train, val, device="cpu", num_labels=4,
+          seed=0, wandb_run=run, logging_cfg=cfg)
+m.image_idbn.arch_dir = sys.argv[1]
+m.image_idbn.train(1, log_every_pca=1, log_every_probe=1)
+m.train_joint(1, log_every_pca=1, log_every_probe=1, log_every=1)
+keys = run.keys()
+warns = {k for k in keys if k.startswith("warn/")} - {"warn/idbn_blank_recon"}
+assert warns and all(k.endswith("_figure_skipped") for k in warns), warns
+for k in ("probe/layer2/labels/acc", "probe/joint/labels/acc",
+          "embeddings/val/Joint_top/pca_2d_correlations", "snap/image_mse",
+          "case/fixed/summary", "conv/panel/panel/summary",
+          "zcheck/z_check/cosine_mean", "auto_recon/text_top1",
+          "probe/joint/labels/confusion_table", "vecdb/knn_zT"):
+    assert k in keys, k
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+print("ok", len(names))""")
+
+
+def test_port_trains_and_logs_without_optional_packages(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_OPTIONAL,
+                          str(tmp_path)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1].startswith("ok")

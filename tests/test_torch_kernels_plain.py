@@ -134,6 +134,26 @@ def test_half_step_plain_vs_reference(Bx, K_, N, transpose, T):
     assert torch.equal(sample, (probs > u).float())
 
 
+@pytest.mark.parametrize("Bx,V,H,T", [(37, 77, 130, 1.0), (1, 1, 1, 0.5),
+                                      (129, 513, 65, 1.0)])
+def test_half_step_sample_big_plain_vs_reference(Bx, V, H, T):
+    """JAX's standalone wrapper (pallas_kernels.py:311) at ragged shapes,
+    unpadded: probabilities as the fp32 reference (the TPU kernel's were
+    bf16-operand products, a difference by design), the sample as Philox."""
+    rs = np.random.RandomState(V)
+    w = (rs.randn(V, H) / np.sqrt(V)).astype(np.float32)
+    b = (0.1 * rs.randn(H)).astype(np.float32)
+    v = (rs.rand(Bx, V) > 0.5).astype(np.float32)
+    probs, sample = half_step.half_step_sample_big(t(v), t(w), t(b), 9, T)
+    close(probs, jkernels.reference_half_step(
+        jnp.asarray(v), jnp.asarray(w), jnp.asarray(b), T), 1e-5)
+    assert probs.shape == sample.shape == (Bx, H)
+    for a, c in zip((probs, sample), half_step.half_step_sample_big_plain(
+            t(v), t(w), t(b), 9, T)):
+        assert torch.equal(a, c)
+    assert torch.equal(sample, (probs > rng.philox_uniform(9, Bx, H)).float())
+
+
 def test_half_step_rejects_bad_shapes():
     with pytest.raises(ValueError):
         half_step.half_step_sample(torch.zeros(4, 5), torch.zeros(6, 3),

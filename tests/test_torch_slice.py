@@ -254,7 +254,7 @@ def test_train_multimodal_cpu_smoke(tmp_path):
     ("training", "dtype", "bfloat16"), ("training", "compute_dtype", "bf16"),
     ("training", "stochastic_rounding", True),
     ("training", "matmul_precision", "default"),
-    ("wandb", "enable", True), ("dataset", "distribution", "zipfian")])
+    ("dataset", "distribution", "zipfian")])
 def test_unsupported_settings_raise(section, key, value):
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg.setdefault(section, {})[key] = value
