@@ -81,7 +81,22 @@ Phases, each fatal on failure:
    busy ms and device operations of one more, profiled call (the probes'
    at ``PROBE_PROFILE_STEPS`` steps); ``measure_gibbs_steps_per_sec`` at
    its defaults, and one ``utils.profiling.trace`` around one joint
-   epoch.
+   epoch;
+11. the variants drive (``cuts.VARIANTS``): flagship-cut through its
+   entry point under PCD (params), bf16 storage with stochastic rounding
+   left to auto and switched off, mixed precision, ``matmul_precision:
+   high`` and zipfian data (drawn by the native generator), and
+   bimodal-cut under bf16 storage. Each run's launches are held against
+   the counts derived for it (fp32 PCD: 3 + 2·CD half-steps per layer and
+   full batch; bf16 storage: no half-step launch, its joints through the
+   chain kernel on weights widened to fp32), every
+   state must be in its configured dtype and finite. The fp32 PCD update
+   at the first layer is held against its plain version half-step by
+   half-step and repeated bit-equal; the PCD run stopped after an image
+   checkpoint and run again must end bit-equal, fantasy chains included;
+   a bf16 model's checkpoint must load bit-equal; the native generator is
+   built from its source, checked deterministic per seed and timed
+   against the Python one at 2048 images of side 100.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -1275,6 +1290,326 @@ def run_diagnostics(dev, workdir: Path, ref_states):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the variants drive
+# ---------------------------------------------------------------------------
+
+def flagship_launches(variant: str, epochs_image: int = 1,
+                      epochs_joint: int = 9, nb: int = 2, rem: bool = True,
+                      layers: int = 2, cd: int = 10):
+    """(half-step, chain) launches a flagship-cut run of ``variant`` must
+    make. Image: every full batch and layer one CD update of 1 + 2·cd
+    half-steps, or under fp32 PCD 3 + 2·cd (the data's positive phase, the
+    particles lifted, 2·cd chain half-steps, the monitor's
+    reconstruction), the remainder batch by CD; bf16 storage and mixed
+    precision launch none. Joint: per warm-up batch two clamped CDs and
+    the two cross chains; per main batch the y-clamp, the z-clamp on batch
+    0 (every 50th) and the two cross chains, a bf16 joint's too (its
+    weights widened to fp32)."""
+    per_update = 3 + 2 * cd if variant == "pcd" else 1 + 2 * cd
+    half = epochs_image * layers * (nb * per_update + rem * (1 + 2 * cd))
+    batches = nb + int(rem)
+    warm = min(8, epochs_joint)
+    main = epochs_joint - warm
+    chain = warm * batches * 4 + main * (batches * 3 + 1)
+    if variant.startswith("bf16") or variant == "mixed-bf16":
+        return 0, chain
+    return half, chain
+
+
+def bimodal_bf16_launches(epochs_joint: int = 9, nb: int = 2,
+                          rem: bool = True):
+    """(half-step, chain) launches of bimodal-cut under bf16 storage: no
+    half-step; per warm-up batch four clamped CDs, per main batch two,
+    each with one noisy-init chain on the widened joint weights (the cross
+    metrics are sampled Gibbs in torch)."""
+    batches = nb + int(rem)
+    warm = min(8, epochs_joint)
+    return 0, batches * (4 * warm + 2 * (epochs_joint - warm))
+
+
+def state_dtypes(model):
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    return {name: str(rbm.state.w.dtype).replace("torch.", "")
+            for name, rbm in _collect_rbms(model).items()}
+
+
+def check_variant_run(variant: str, summary, launches, want_dtype: str):
+    """Every state in its configured dtype (all six fields) and finite;
+    the launches as derived."""
+    import torch
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    model = summary["model"]
+    for name, rbm in _collect_rbms(model).items():
+        for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m"):
+            t = getattr(rbm.state, f)
+            if str(t.dtype).replace("torch.", "") != want_dtype:
+                raise AssertionError(f"{variant}: {name}/{f} is {t.dtype}, "
+                                     f"configured {want_dtype}")
+            if not bool(torch.isfinite(t.float()).all()):
+                raise AssertionError(f"{variant}: non-finite {name}/{f}")
+    if variant == "bimodal-bf16":
+        want = bimodal_bf16_launches()
+        loss = {"mod1": summary["mod1_loss"][-1],
+                "mod2": summary["mod2_loss"][-1],
+                "mse_mod1": summary["mse_mod1"],
+                "mse_mod2": summary["mse_mod2"]}
+    else:
+        want = flagship_launches(variant)
+        loss = {"image": summary["image_loss"][-1],
+                **(summary["cross_metrics"] or {})}
+    got = (launches["half_step_sample"], launches["chain_run"])
+    if got != want or launches["half_step_probs"] or \
+            launches["half_step_sample_resident"]:
+        raise AssertionError(f"{variant}: launches {launches}, derived "
+                             f"half-step / chain {want}")
+    if not all(isinstance(v, float) and math.isfinite(v)
+               for v in loss.values()):
+        raise AssertionError(f"{variant}: a final loss is not finite: "
+                             f"{loss}")
+    log(f"[variants {variant}] phase seconds "
+        f"{json.dumps(summary['seconds'])}; launches {json.dumps(launches)} "
+        f"(derived half-step / chain {want[0]} / {want[1]}); dtypes "
+        f"{json.dumps(state_dtypes(model))}, all finite; final loss "
+        f"{json.dumps(loss)}")
+
+
+def check_pcd_update(dev, model):
+    """The fp32 PCD image update at the flagship's first layer (batch 128,
+    CD-10) through the half-step kernel, held against its plain version on
+    the same inputs: each of its 23 half-steps against ``half_step_plain``
+    on that call's inputs (probabilities within tolerance, no sample
+    flipped outside the band), then the whole update recomputed from the
+    plain probabilities along the kernel's samples (states within
+    tolerance); and the kernel update run twice, bit-equal. Returns the
+    kernels-line row of the update."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import fast_cd, half_step
+    dbn = model.image_idbn
+    state = dbn.layers[0].state
+    chain_v = dbn._pcd_chains[0]
+    data = torch.as_tensor(dbn.dataloader.materialize()[0][:128]).reshape(
+        128, -1).float().to(dev)
+    kw = dict(lr=0.1, mom=0.5, weight_decay=1e-4, cd=10)
+    seed = 0x5EED_9CD
+    real = fast_cd.half_step_sample
+    calls = []
+
+    def recording(x, w, b, sd, T=1.0, *, transpose_w=False):
+        p, smp = real(x, w, b, sd, T, transpose_w=transpose_w)
+        calls.append((x, b, sd, transpose_w, p, smp))
+        return p, smp
+
+    def replaying(x, w, b, sd, T=1.0, *, transpose_w=False):
+        _, _, _, _, _, smp = calls[len(replayed)]
+        replayed.append(sd)
+        return half_step.half_step_plain(x, w, b, sd, T,
+                                         transpose_w=transpose_w)[0], smp
+
+    def run(fn):
+        fast_cd.half_step_sample = fn
+        try:
+            out = fast_cd.fast_sampled_pcd_update(state, chain_v, seed, data,
+                                                  **kw)
+        finally:
+            fast_cd.half_step_sample = real
+        torch.cuda.synchronize()
+        return out
+
+    k_state, k_chain, k_loss = run(recording)
+    err, flips, bad = 0.0, 0, 0
+    for x, b, sd, tr, p, smp in calls:
+        pp, sp = half_step.half_step_plain(x, state.w, b, sd,
+                                           transpose_w=tr)
+        err = max(err, float((p - pp).abs().max()))
+        f, bd = sample_flips(pp, smp, sp, sd)
+        flips, bad = flips + f, bad + bd
+    replayed = []
+    p_state, p_chain, p_loss = run(replaying)
+    st_err = max(float((getattr(k_state, f) - getattr(p_state, f)).abs()
+                       .max()) for f in ("w", "hb", "vb", "w_m", "hb_m",
+                                         "vb_m"))
+    again = run(real)
+    repeat = all(torch.equal(getattr(again[0], f), getattr(k_state, f))
+                 for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m")) and \
+        torch.equal(again[1], k_chain) and torch.equal(again[2], k_loss)
+    shape = f"[128,{state.w.shape[0]}]x{list(state.w.shape)}"
+    log(f"[variants pcd] fp32 PCD update at {shape}, CD-10:"
+        f" {len(calls)} half-steps; max|dp| {err:.3e}, sample flips {flips}"
+        f" (outside tol: {bad}); states vs the plain update along the "
+        f"kernel's samples max|d| {st_err:.3e}, loss {float(k_loss):.6f} vs "
+        f"{float(p_loss):.6f}; repeat bit-equal: {repeat}")
+    if len(calls) != 23 or not err <= TOL_HALF_STEP or bad or \
+            not st_err <= TOL_HALF_STEP or not repeat or \
+            not torch.equal(p_chain, k_chain):
+        raise AssertionError("the fp32 PCD update disagrees with its plain "
+                             "version or does not repeat")
+
+    def plain(x, w, b, sd, T=1.0, *, transpose_w=False):
+        return half_step.half_step_plain(x, w, b, sd, T,
+                                         transpose_w=transpose_w)
+
+    # bound: 23 half-step products as three TF32 passes, the two fp32
+    # statistics products (cuBLAS) at the CUDA-core peak; bytes: W, W_m,
+    # the biases, their momenta, the data and the particles read once, the
+    # new state and particles written once
+    B, K, N = 128, state.w.shape[0], state.w.shape[1]
+    gemm = 2.0 * B * K * N
+    t_ops = (TF32_PASSES * 23 * gemm / PEAK_TF32_FLOPS
+             + 2 * gemm / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = 4.0 * (4 * K * N + 4 * (K + N) + 3 * B * K) / PEAK_HBM_BYTES \
+        * 1e3
+    row = dict(shape=f"fp32 PCD update {shape} CD-10",
+               max_abs_err=max(err, st_err), sample_flips=flips,
+               ms=time_ms(lambda: run(real), 5, warmup=1),
+               plain_ms=time_ms(lambda: run(plain), 2, warmup=1),
+               library_ms=None, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"[variants pcd] update: kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def run_pcd_resume(workdir: Path):
+    """The PCD flagship-cut with an image checkpoint after each of its 2
+    image epochs (``cuts.PCD_RESUME``): uninterrupted, then stopped after
+    the checkpoint of image epoch 1 and run again. The resumed run must
+    end bit-equal, fantasy chains included."""
+    import torch
+    from multimodal_idbn_tpu_torch import cuts
+
+    def run(tag):
+        d = workdir / f"pcd-{tag}"
+        d.mkdir(exist_ok=True)
+        return cuts.run_variant("pcd", d, extra=cuts.PCD_RESUME), d
+
+    straight, _ = run("straight")
+    try:
+        with interrupt_after("image", 1):
+            run("stopped")
+    except Interrupted:
+        pass
+    else:
+        raise AssertionError("pcd: no image checkpoint of epoch 1")
+    reset_launches()
+    resumed, _ = run("stopped")
+    launches = read_launches()
+    assert_bit_equal(straight["model"], resumed["model"],
+                     "pcd resumed after the image checkpoint of epoch 1")
+    a = straight["model"].image_idbn._pcd_chains
+    b = resumed["model"].image_idbn._pcd_chains
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("pcd: fantasy chains differ after the resume")
+    half, chain = flagship_launches("pcd", epochs_image=1, epochs_joint=1)
+    if (launches["half_step_sample"], launches["chain_run"]) != (half,
+                                                                 chain):
+        raise AssertionError(f"pcd resumed run: launches {launches}, "
+                             f"derived {half} / {chain}")
+    log(f"[variants pcd] stopped after the image checkpoint of epoch 1, "
+        f"run again: states and fantasy chains bit-equal to the "
+        f"uninterrupted run; launches {json.dumps(launches)}")
+    return launches
+
+
+def check_bf16_round_trip(model, workdir: Path):
+    """A bf16 model's checkpoint (uint16 bit-views) loads into a fresh
+    model bit-equal, every state still bf16."""
+    from multimodal_idbn_tpu_torch import checkpoint
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    path = workdir / "bf16.ckpt.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(model, str(path))
+    fresh = iMDBN([r.num_visible for r in model.image_idbn.layers]
+                  + [model.image_idbn.layers[-1].num_hidden],
+                  model.joint_rbm.num_hidden, model.params,
+                  model.dataloader, model.val_loader, device=model.device,
+                  num_labels=model.num_labels, seed=12345)
+    checkpoint.load_checkpoint(fresh, str(path))
+    assert_bit_equal(model, fresh, "bf16 checkpoint round trip")
+    if set(state_dtypes(fresh).values()) != {"bfloat16"}:
+        raise AssertionError(f"bf16 round trip: {state_dtypes(fresh)}")
+    log(f"[variants bf16-sr-auto] checkpoint {path.stat().st_size / 2**20:.1f}"
+        f" MiB (bf16 bit-views) saved and loaded in "
+        f"{time.perf_counter() - t0:.3f} s: bit-equal, every state bf16")
+
+
+def check_native_generator(workdir: Path):
+    """Build the native generator from the checkout's source, check it is
+    deterministic per seed, and time it and the Python generator at the
+    flagship's data size (2048 images, side 100)."""
+    import numpy as np
+    from multimodal_idbn_tpu_torch.data import native, numerosity
+    t0 = time.perf_counter()
+    if not native._compile_library(workdir / "dotgen-check.so"):
+        raise AssertionError("the native generator does not build")
+    build_s = time.perf_counter() - t0
+    if not native.native_available():
+        raise AssertionError("the native generator does not load")
+    kw = dict(n_samples=2048, num_classes=32, side=100, seed=0)
+    times = {}
+    out = {}
+    for backend in ("native", "native", "python"):
+        t0 = time.perf_counter()
+        d = numerosity.generate_numerosity_dataset(backend=backend, **kw)
+        times.setdefault(backend, []).append(time.perf_counter() - t0)
+        out.setdefault(backend, []).append(d)
+    a, b = out["native"]
+    if not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("the native generator is not deterministic")
+    other = numerosity.generate_numerosity_dataset(
+        backend="native", **dict(kw, seed=1, n_samples=64))
+    if np.array_equal(other["images"], a["images"][:64]):
+        raise AssertionError("the native generator ignores its seed")
+    log(f"[variants native] g++ build {build_s:.2f} s; 2048 images at side "
+        f"100: native {times['native'][0]:.3f} / {times['native'][1]:.3f} s,"
+        f" python {times['python'][0]:.3f} s; deterministic per seed; "
+        f"pixel means native {a['images'].mean():.4f}, python "
+        f"{out['python'][0]['images'].mean():.4f}")
+
+
+def run_variants(dev, workdir: Path):
+    """Phase 11. Returns ({path: launches}, the PCD update's row)."""
+    import torch
+    from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.data import native
+    from multimodal_idbn_tpu_torch.device import set_matmul_precision
+    t_phase = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native generator does not build; the "
+                             "zipfian run would not draw with it")
+    by_path = {}
+    row = None
+    order = ("pcd", "bf16-sr-auto", "bf16-sr-off", "mixed-bf16",
+             "zipfian-native", "bimodal-bf16", "matmul-high")
+    for variant in order:
+        d = workdir / f"variant-{variant}"
+        d.mkdir()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = cuts.run_variant(variant, d)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        by_path[f"variants-drive {variant}"] = launches
+        want = "bfloat16" if "bf16" in variant and variant != "mixed-bf16" \
+            else "float32"
+        log(f"[variants {variant}] run: {wall:.1f} s")
+        check_variant_run(variant, summary, launches, want)
+        if variant == "matmul-high" and \
+                torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("matmul_precision: high was not applied")
+        if variant == "pcd":
+            row = check_pcd_update(dev, summary["model"])
+        if variant == "bf16-sr-auto":
+            check_bf16_round_trip(summary["model"], d)
+        del summary
+    set_matmul_precision("highest")
+    by_path["variants-drive pcd resumed"] = run_pcd_resume(workdir)
+    check_native_generator(workdir)
+    log(f"[variants] phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return by_path, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1329,6 +1664,8 @@ def main() -> int:
             diag = run_diagnostics(dev, tmp, trained)
             for name, counts in diag.items():
                 by_path[f"diagnostics-drive {name}"] = counts
+            variants, pcd_row = run_variants(dev, tmp)
+            by_path.update(variants)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1342,7 +1679,7 @@ def main() -> int:
              source="multimodal_idbn_tpu_torch/csrc/half_step.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:255",
              **launches("half_step_sample", "bimodal-cut"), **hs_main,
-             other_shapes=hs_rows[1:]),
+             other_shapes=hs_rows[1:] + [pcd_row]),
         dict(name="clamped_chain", route="cuda",
              source="multimodal_idbn_tpu_torch/csrc/chain.cu",
              replaces="multimodal_idbn_tpu/ops/pallas_chain.py:165",

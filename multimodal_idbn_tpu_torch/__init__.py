@@ -18,3 +18,5 @@ with no GPU and no such request they raise (``device.resolve_device``).
 """
 
 from multimodal_idbn_tpu_torch.device import resolve_device  # noqa: F401
+from multimodal_idbn_tpu_torch.models.rbm import (  # noqa: F401
+    set_global_seed)

@@ -25,9 +25,11 @@ What differs from the JAX module:
   orbax package. Their counterparts here are ``save_checkpoint_torch`` /
   ``load_checkpoint_torch``: the same tree of arrays written with
   ``torch.save`` and read with ``torch.load(weights_only=True)``.
-- PCD fantasy chains and bfloat16 bit-views (:96-108, :276-279) belong to
-  the opt-in variants, which are not ported: a model or a file that
-  carries them raises ``NotImplementedError``.
+- bfloat16 arrays are stored as uint16 bit-views and their dtype recorded
+  under ``meta["dtypes"]``, as the JAX package stores them (:90-108,
+  :174-177); both packages read either's. A bf16 state loads as bf16, any
+  other as fp32. PCD fantasy particles travel as ``extra/pcd_chain{i}``
+  and are restored in numeric order (:276-279, :313-318).
 """
 
 from __future__ import annotations
@@ -50,12 +52,6 @@ from multimodal_idbn_tpu_torch.convert import FIELDS as _STATE_FIELDS
 from multimodal_idbn_tpu_torch.ops.rbm_ops import RBMState
 
 FORMAT = "multimodal_idbn_tpu.ckpt.v1"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} in checkpoints is not ported yet; it comes with the port's "
-        f"opt-in variants slice (ROADMAP.md Queue 1)")
 
 
 def _collect_rbms(model) -> Dict[str, "object"]:
@@ -91,7 +87,21 @@ def _npz_path(path) -> str:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor as a numpy array; bfloat16, which numpy lacks, as its
+    uint16 bit-view."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
+    """An array read from a checkpoint as a tensor on ``device``: a
+    bit-viewed bf16 array as bf16, anything else as fp32."""
+    if bf16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
 
 def save_checkpoint(model, path: str, extra: Optional[Dict] = None) -> None:
@@ -99,26 +109,39 @@ def save_checkpoint(model, path: str, extra: Optional[Dict] = None) -> None:
     position and optional extras (e.g. ``z_class_mean``) to one npz file,
     atomically."""
     arrays = {}
+    dtypes = {}
     meta = {"format": FORMAT, "rbms": {}}
+
+    def put(k, v):
+        if isinstance(v, torch.Tensor):
+            if v.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(
+                    f"checkpoint tensor {k!r} has unsupported dtype "
+                    f"{v.dtype}: only float32 and bfloat16 states "
+                    f"round-trip through the npz format")
+            if v.dtype == torch.bfloat16:
+                dtypes[k] = "bfloat16"
+            v = _to_numpy(v)
+        arrays[k] = np.asarray(v)
+
     for name, rbm in _collect_rbms(model).items():
         for field in _STATE_FIELDS:
-            t = getattr(rbm.state, field)
-            if t.dtype != torch.float32:
-                _not_ported(f"{t.dtype} parameter storage")
-            arrays[f"{name}/{field}"] = _to_numpy(t)
+            put(f"{name}/{field}", getattr(rbm.state, field))
         arrays[f"{name}/gen_state"] = rbm._gen.get_state().numpy()
         meta["rbms"][name] = {
             "softmax_groups": [list(g) for g in rbm.softmax_groups]}
     if getattr(model, "z_class_mean", None) is not None:
-        arrays["z_class_mean"] = _to_numpy(model.z_class_mean)
+        put("z_class_mean", model.z_class_mean)
     for k, v in (extra or {}).items():
-        arrays[f"extra/{k}"] = np.asarray(v)
+        put(f"extra/{k}", v)
     for k, arr in arrays.items():
         if arr.dtype.kind == "V" or arr.dtype.names is not None:
             raise TypeError(
                 f"checkpoint array {k!r} has unsupported dtype "
-                f"{arr.dtype!r}: only numeric numpy dtypes round-trip "
-                f"through the npz format")
+                f"{arr.dtype!r}: only numeric numpy dtypes and bfloat16 "
+                f"round-trip through the npz format")
+    if dtypes:
+        meta["dtypes"] = dtypes
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
     # Atomic: a crash mid-write must never clobber the previous checkpoint
@@ -165,10 +188,14 @@ def load_checkpoint(model, path: str) -> Dict[str, np.ndarray]:
     p = _npz_path(path)
     with np.load(p, allow_pickle=False) as f:
         files = dict(f)
+    bf16 = set()
     if "__meta__" in files:
         meta = json.loads(bytes(files["__meta__"]).decode())
-        if meta.get("dtypes"):
-            _not_ported(f"bit-viewed arrays ({sorted(meta['dtypes'].values())})")
+        for k, dt in (meta.get("dtypes") or {}).items():
+            if dt != "bfloat16":
+                raise TypeError(f"checkpoint array {k!r} is bit-viewed "
+                                f"{dt}; only bfloat16 is supported")
+            bf16.add(k)
     rbms = _collect_rbms(model)
     missing = [name for name in rbms if f"{name}/w" not in files]
     if missing:
@@ -180,17 +207,20 @@ def load_checkpoint(model, path: str) -> Dict[str, np.ndarray]:
             f"family/architecture?")
     for name, rbm in rbms.items():
         rbm.state = RBMState(*(
-            torch.from_numpy(np.ascontiguousarray(
-                files[f"{name}/{field}"], np.float32)).to(rbm.device)
+            _from_numpy(files[f"{name}/{field}"],
+                        f"{name}/{field}" in bf16, rbm.device)
             for field in _STATE_FIELDS))
         if f"{name}/gen_state" in files:  # absent in the JAX package's files
             rbm._gen.set_state(torch.from_numpy(
                 np.ascontiguousarray(files[f"{name}/gen_state"], np.uint8)))
     if "z_class_mean" in files and hasattr(model, "z_class_mean"):
-        model.z_class_mean = torch.from_numpy(np.ascontiguousarray(
-            files["z_class_mean"], np.float32)).to(model.device)
-    return {k[len("extra/"):]: v for k, v in files.items()
-            if k.startswith("extra/")}
+        model.z_class_mean = _from_numpy(files["z_class_mean"],
+                                         "z_class_mean" in bf16,
+                                         model.device)
+    # bit-viewed bf16 extras (PCD chains) come back as bf16 tensors
+    return {k[len("extra/"):]: (_from_numpy(v, True, "cpu") if k in bf16
+                                else v)
+            for k, v in files.items() if k.startswith("extra/")}
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +282,8 @@ def save_train_checkpoint(model, path: str, phase: str, next_epoch: int,
                                                        np.int64)
     if loss_history is not None:
         extra["loss_history"] = np.asarray(loss_history, np.float64)
-    if getattr(model, "_pcd_chains", None) is not None:
-        _not_ported("PCD fantasy chains")
+    for i, c in enumerate(getattr(model, "_pcd_chains", None) or ()):
+        extra[f"pcd_chain{i}"] = c
     metrics = getattr(model, "joint_metrics_history", None)
     if metrics is not None:
         extra["joint_metrics_history"] = _text(json.dumps(metrics))
@@ -263,8 +293,9 @@ def save_train_checkpoint(model, path: str, phase: str, next_epoch: int,
 def load_train_checkpoint(model, path: str):
     """Restore a ``save_train_checkpoint`` file into ``model``; returns
     ``(phase, next_epoch)`` (:287-337). Also restores ``loss_history`` onto
-    a model that keeps one, ``joint_metrics_history``, and the loaders'
-    shuffle counters."""
+    a model that keeps one, ``joint_metrics_history``, PCD fantasy
+    particles onto a model that keeps them, and the loaders' shuffle
+    counters."""
     extras = load_checkpoint(model, path)
     phase = bytes(extras["phase"]).decode()
     next_epoch = int(extras["next_epoch"])
@@ -280,8 +311,12 @@ def load_train_checkpoint(model, path: str):
     if "joint_metrics_history" in extras:
         model.joint_metrics_history = json.loads(
             bytes(extras["joint_metrics_history"]).decode())
-    if any(k.startswith("pcd_chain") for k in extras):
-        _not_ported("PCD fantasy chains")
+    # numeric order: "pcd_chain10" comes after "pcd_chain2"
+    chain_keys = sorted((k for k in extras if k.startswith("pcd_chain")),
+                        key=lambda k: int(k[len("pcd_chain"):]))
+    if chain_keys and hasattr(model, "_pcd_chains"):
+        model._pcd_chains = [
+            torch.as_tensor(extras[k]).to(model.device) for k in chain_keys]
     # The counter values are stashed on the model too, because a caller may
     # attach the training loader after loading the checkpoint
     # (train_bimodal attaches the modality loaders later).

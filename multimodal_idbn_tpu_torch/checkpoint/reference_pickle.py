@@ -33,9 +33,10 @@ import numpy as np
 
 
 def _np(x) -> np.ndarray:
-    """torch tensor / numpy → numpy float32."""
+    """torch tensor / numpy → numpy float32 (a bf16 state widened
+    exactly: the reference is fp32, as the JAX export writes it)."""
     if hasattr(x, "detach"):  # torch
-        x = x.detach().cpu().numpy()
+        x = x.detach().cpu().float().numpy()
     return np.asarray(x, np.float32)
 
 

@@ -47,7 +47,8 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], prefix: str,
 
 
 def state_to_numpy(state: RBMState, prefix: str) -> Dict[str, np.ndarray]:
-    return {f"{prefix}{f}": getattr(state, f).detach().cpu().numpy()
+    """fp32 numpy fields of a state (a bf16 state widened exactly)."""
+    return {f"{prefix}{f}": getattr(state, f).detach().cpu().float().numpy()
             for f in FIELDS}
 
 

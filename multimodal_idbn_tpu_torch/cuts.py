@@ -25,6 +25,15 @@ same cut (the training itself is unchanged). ``TINY`` shrinks a cut's
 hidden widths, nothing else, for a CPU run of the same diagnostics: every
 layer count, image size, step count, sample count and label count is
 kept, so the same keys are logged.
+
+``VARIANTS`` are the runs of the variants drive: a cut under the YAML
+overrides of one opt-in setting (bf16 storage with stochastic rounding
+left to auto or off, mixed precision, ``matmul_precision: high``, zipfian
+data, which the default ``auto`` backend draws with the native generator)
+or under a params override the YAML cannot express: ``PCD``, which the
+JAX package also reaches only through the params dict. ``PCD_RESUME``
+cuts the PCD run to 2 image epochs with a checkpoint after each and 1
+joint epoch, so a resume continues the fantasy chains.
 """
 
 from __future__ import annotations
@@ -86,6 +95,25 @@ TINY: Dict[str, dict] = {
 }
 
 
+VARIANTS: Dict[str, dict] = {
+    "pcd": {"cut": "flagship-cut", "params": {"PCD": True}},
+    "bf16-sr-auto": {"cut": "flagship-cut",
+                     "overrides": {"training": {"dtype": "bfloat16"}}},
+    "bf16-sr-off": {"cut": "flagship-cut", "overrides": {"training": {
+        "dtype": "bfloat16", "stochastic_rounding": False}}},
+    "mixed-bf16": {"cut": "flagship-cut", "overrides": {"training": {
+        "compute_dtype": "bfloat16"}}},
+    "matmul-high": {"cut": "flagship-cut", "overrides": {"training": {
+        "matmul_precision": "high"}}},
+    "zipfian-native": {"cut": "flagship-cut", "overrides": {"dataset": {
+        "distribution": "zipfian"}}},
+    "bimodal-bf16": {"cut": "bimodal-cut",
+                     "overrides": {"training": {"dtype": "bfloat16"}}},
+}
+PCD_RESUME = {"training": {"epochs_image": 2, "checkpoint_every": 1,
+                           "epochs_joint": 1}}
+
+
 def write_cut(name: str, workdir: Path,
               overrides: Optional[dict] = None) -> Path:
     """Write the cut YAML of ``name`` (saving its model under
@@ -107,15 +135,28 @@ def write_cut(name: str, workdir: Path,
 
 
 def run_cut(name: str, workdir: Path, device: str = "cuda",
-            overrides: Optional[dict] = None) -> dict:
+            overrides: Optional[dict] = None,
+            params: Optional[dict] = None) -> dict:
     """Train the cut ``name`` through its entry point; returns the entry
-    point's summary."""
+    point's summary. ``params`` are laid over the params the entry point
+    builds from the YAML (its ``main(params=)``)."""
     from multimodal_idbn_tpu_torch import train_bimodal, train_multimodal
     entry = {"train_multimodal": train_multimodal,
              "train_bimodal": train_bimodal}[CUTS[name]["entry"]]
     return entry.main(["--config",
                        str(write_cut(name, workdir, overrides)),
-                       "--device", device])
+                       "--device", device], params=params)
+
+
+def run_variant(variant: str, workdir: Path, device: str = "cuda",
+                extra: Optional[dict] = None) -> dict:
+    """Train the run ``variant`` of ``VARIANTS`` (with ``extra`` YAML
+    overrides laid over its own) through its cut's entry point."""
+    spec = VARIANTS[variant]
+    over = {k: dict(v) for k, v in spec.get("overrides", {}).items()}
+    for section, values in (extra or {}).items():
+        over.setdefault(section, {}).update(values)
+    return run_cut(spec["cut"], workdir, device, over, spec.get("params"))
 
 
 def run_logged(name: str, workdir: Path, device: str = "cuda",

@@ -1,16 +1,17 @@
 """Dataset layer of the port: npz-backed numerosity loaders with a
 synthetic fallback.
 
-Copy of multimodal_idbn_tpu/data/__init__.py:36-154 for uniform class
-frequencies: ``create_dataloaders_uniform`` returns (train, val, test)
-loaders over ``{data_path}/{data_name}`` when that npz exists, else over a
-deterministic synthetic numerosity dataset made by the Python generator
-(``numerosity.generate_numerosity_dataset``). With
-``second_modality="mnist100"`` the dataset is bimodal: batches are
-(numerosity images, MNIST-100 images), the second modality read from
-``mnist100_path`` or rendered from the labels
-(``numerosity.generate_mnist100_images``). The zipfian loaders and the
-native generator are not ported.
+Copy of multimodal_idbn_tpu/data/__init__.py:36-175:
+``create_dataloaders_uniform`` and ``create_dataloaders_zipfian`` return
+(train, val, test) loaders over ``{data_path}/{data_name}`` when that npz
+exists, else over a deterministic synthetic numerosity dataset
+(``numerosity.generate_numerosity_dataset``) with uniform or Zipf class
+frequencies, drawn by the generator's default backend "auto", as in the
+JAX package: the native C++ generator when it builds, else the Python
+one. With ``second_modality="mnist100"`` the dataset is bimodal:
+batches are (numerosity images, MNIST-100 images), the second modality
+read from ``mnist100_path`` or rendered from the labels
+(``numerosity.generate_mnist100_images``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from multimodal_idbn_tpu_torch.data.loaders import (  # noqa: F401
 from multimodal_idbn_tpu_torch.data.numerosity import (  # noqa: F401
     generate_mnist100_images,
     generate_numerosity_dataset,
+    zipf_probs,
 )
 
 _IMAGE_KEYS = ("images", "data", "x", "X", "stimuli")
@@ -60,7 +62,7 @@ def _load_npz(path: str) -> dict:
 
 def _from_npz_or_synthetic(data_path: Optional[str], data_name: Optional[str],
                            num_classes: int, n_samples: int, side: int,
-                           seed: int) -> dict:
+                           seed: int, class_probs=None) -> dict:
     path = None
     if data_path:
         cand = os.path.join(data_path, data_name) if data_name else data_path
@@ -71,7 +73,7 @@ def _from_npz_or_synthetic(data_path: Optional[str], data_name: Optional[str],
     if path is None:
         return generate_numerosity_dataset(
             n_samples=n_samples, num_classes=num_classes, side=side,
-            seed=seed)
+            seed=seed, class_probs=class_probs)
     raw = _load_npz(path)
     labels = raw["labels"]
     values = np.unique(labels)
@@ -86,6 +88,34 @@ def _from_npz_or_synthetic(data_path: Optional[str], data_name: Optional[str],
     return {"images": images, "labels": labels, "onehot": onehot,
             "cumArea": cum, "CH": ch, "density": raw.get("density"),
             "N_dots": raw.get("N_dots"), "class_idx": cls}
+
+
+def _build_loaders(data: dict, batch_size: int,
+                   second_modality: Optional[str],
+                   mnist100_path: Optional[str], val_size: float,
+                   test_size: float, seed: int):
+    """(train, val, test) loaders over ``data`` (data/__init__.py:95-128)."""
+    mod2 = None
+    mode = "multimodal"
+    if second_modality:  # bimodal
+        if second_modality != "mnist100":
+            raise ValueError(f"unknown second_modality {second_modality!r}")
+        if mnist100_path and os.path.isfile(mnist100_path):
+            mod2 = _load_npz(mnist100_path)["images"]
+        else:
+            mod2 = generate_mnist100_images(data["labels"], seed=seed)
+        mode = "bimodal"
+    ds = NumerosityDataset(
+        images=data["images"], labels=data["labels"], onehot=data["onehot"],
+        cumArea=data["cumArea"], CH=data["CH"],
+        density=data.get("density"), n_dots=data.get("N_dots"),
+        mod2_images=mod2, mode=mode)
+    tr, va, te = train_val_test_split(len(ds), val_size=val_size,
+                                      test_size=test_size, seed=42)
+    return (DataLoader(Subset(ds, tr), batch_size=batch_size, shuffle=True,
+                       seed=seed),
+            DataLoader(Subset(ds, va), batch_size=batch_size, shuffle=False),
+            DataLoader(Subset(ds, te), batch_size=batch_size, shuffle=False))
 
 
 def create_dataloaders_uniform(data_path: Optional[str] = None,
@@ -106,24 +136,27 @@ def create_dataloaders_uniform(data_path: Optional[str] = None,
     del num_workers, multimodal_flag
     data = _from_npz_or_synthetic(data_path, data_name, num_classes,
                                   n_samples, side, seed)
-    mod2 = None
-    mode = "multimodal"
-    if second_modality:  # bimodal (data/__init__.py:95-128)
-        if second_modality != "mnist100":
-            raise ValueError(f"unknown second_modality {second_modality!r}")
-        if mnist100_path and os.path.isfile(mnist100_path):
-            mod2 = _load_npz(mnist100_path)["images"]
-        else:
-            mod2 = generate_mnist100_images(data["labels"], seed=seed)
-        mode = "bimodal"
-    ds = NumerosityDataset(
-        images=data["images"], labels=data["labels"], onehot=data["onehot"],
-        cumArea=data["cumArea"], CH=data["CH"],
-        density=data.get("density"), n_dots=data.get("N_dots"),
-        mod2_images=mod2, mode=mode)
-    tr, va, te = train_val_test_split(len(ds), val_size=val_size,
-                                      test_size=test_size, seed=42)
-    return (DataLoader(Subset(ds, tr), batch_size=batch_size, shuffle=True,
-                       seed=seed),
-            DataLoader(Subset(ds, va), batch_size=batch_size, shuffle=False),
-            DataLoader(Subset(ds, te), batch_size=batch_size, shuffle=False))
+    return _build_loaders(data, batch_size, second_modality, mnist100_path,
+                          val_size, test_size, seed)
+
+
+def create_dataloaders_zipfian(data_path: Optional[str] = None,
+                               data_name: Optional[str] = None,
+                               batch_size: int = 128, num_workers: int = 1,
+                               multimodal_flag: bool = True,
+                               second_modality: Optional[str] = None,
+                               mnist100_path: Optional[str] = None,
+                               val_size: float = 0.15,
+                               test_size: float = 0.15,
+                               num_classes: int = 32, n_samples: int = 512,
+                               side: int = 100, seed: int = 0,
+                               zipf_exponent: float = 1.0):
+    """(train, val, test) loaders with Zipf-distributed class frequencies,
+    p_k ∝ 1/k^zipf_exponent (multimodal_idbn_tpu/data/__init__.py:157-175,
+    reference README.md:219)."""
+    del num_workers, multimodal_flag
+    data = _from_npz_or_synthetic(
+        data_path, data_name, num_classes, n_samples, side, seed,
+        class_probs=zipf_probs(num_classes, zipf_exponent))
+    return _build_loaders(data, batch_size, second_modality, mnist100_path,
+                          val_size, test_size, seed)

@@ -1,11 +1,13 @@
 """Synthetic numerosity dot-pattern stimuli with geometry features, and
 the synthetic MNIST-100 second modality.
 
-Copy of the Python generator backend of
-multimodal_idbn_tpu/data/numerosity.py:20-176 and of its MNIST-100
-renderer (:186-236): for the same seed it gives the same arrays as the
-JAX package's ``backend="python"``. The native C++ generator is not
-ported. Pure NumPy, deterministic per seed.
+Copy of multimodal_idbn_tpu/data/numerosity.py:20-184 with its backends
+(:95-139): ``backend="auto"`` (the native C++ generator of ``data.native``
+when it builds, else the Python one), ``"native"`` (raises when it does
+not build) or ``"python"``; for the same seed each gives the same arrays
+as the JAX package's same backend. The two backends draw different
+(statistically matching) images. Also ``zipf_probs`` (:179-184) and the
+MNIST-100 renderer (:186-236). Deterministic per seed.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def generate_dot_image(rng: np.random.RandomState, n_dots: int,
 def generate_numerosity_dataset(n_samples: int = 512, num_classes: int = 32,
                                 side: int = 100, seed: int = 0,
                                 class_probs: Optional[np.ndarray] = None,
-                                numerosities: Optional[np.ndarray] = None
+                                numerosities: Optional[np.ndarray] = None,
+                                backend: str = "auto"
                                 ) -> Dict[str, np.ndarray]:
     """Generate a full synthetic numerosity dataset.
 
@@ -100,6 +103,10 @@ def generate_numerosity_dataset(n_samples: int = 512, num_classes: int = 32,
         class_probs: per-class sampling probabilities (None = uniform;
             zipfian datasets pass 1/rank weights).
         numerosities: the numerosity value of each class (default 1..K).
+        backend: "auto" (native C++ generator when buildable, else
+            Python), "native", or "python". Both backends are
+            deterministic per seed; their RNG streams differ, so the
+            backends produce different (statistically matching) images.
 
     Returns dict with keys: images [N, side, side], labels (numeric
     numerosity per sample), class_idx [N], onehot [N, K], cumArea, CH,
@@ -116,19 +123,35 @@ def generate_numerosity_dataset(n_samples: int = 512, num_classes: int = 32,
 
     cls = rng.choice(num_classes, size=n_samples, p=class_probs)
 
-    images = np.zeros((n_samples, side, side), np.float32)
-    cum_area = np.zeros(n_samples, np.float32)
-    ch = np.zeros(n_samples, np.float32)
-    density = np.zeros(n_samples, np.float32)
-    n_dots = np.zeros(n_samples, np.int32)
-    for i in range(n_samples):
-        img, f = generate_dot_image(rng, int(numerosities[cls[i]]),
-                                    side=side)
-        images[i] = img
-        cum_area[i] = f["cumArea"]
-        ch[i] = f["CH"]
-        density[i] = f["density"]
-        n_dots[i] = f["N"]
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(auto | native | python)")
+    use_native = False
+    if backend in ("auto", "native"):
+        from multimodal_idbn_tpu_torch.data import native as _native
+        use_native = _native.native_available()
+        if backend == "native" and not use_native:
+            raise RuntimeError("native dotgen backend unavailable")
+
+    if use_native:
+        per_sample = numerosities[cls].astype(np.int32)
+        images, cum_area, ch, density, n_dots = (
+            _native.generate_dot_dataset_native(seed, per_sample,
+                                                side=side))
+    else:
+        images = np.zeros((n_samples, side, side), np.float32)
+        cum_area = np.zeros(n_samples, np.float32)
+        ch = np.zeros(n_samples, np.float32)
+        density = np.zeros(n_samples, np.float32)
+        n_dots = np.zeros(n_samples, np.int32)
+        for i in range(n_samples):
+            img, f = generate_dot_image(rng, int(numerosities[cls[i]]),
+                                        side=side)
+            images[i] = img
+            cum_area[i] = f["cumArea"]
+            ch[i] = f["CH"]
+            density[i] = f["density"]
+            n_dots[i] = f["N"]
 
     # Keep labels truthful: if any placement still failed (rare after the
     # r_min fallback), relabel from the actual dot count when numerosities
@@ -153,6 +176,13 @@ def generate_numerosity_dataset(n_samples: int = 512, num_classes: int = 32,
         "density": density,
         "N_dots": n_dots,
     }
+
+
+def zipf_probs(num_classes: int, exponent: float = 1.0) -> np.ndarray:
+    """Zipf-distributed class probabilities p_k ∝ 1/(k+1)^a."""
+    ranks = np.arange(1, num_classes + 1, dtype=np.float64)
+    p = 1.0 / ranks ** exponent
+    return p / p.sum()
 
 
 # ---------------------------------------------------------------------------

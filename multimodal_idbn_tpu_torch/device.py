@@ -15,21 +15,45 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
+# JAX's precision names (multimodal_idbn_tpu/config.py:47-62) -> torch's.
+MATMUL_PRECISIONS = {"highest": "highest", "high": "high",
+                     "default": "medium"}
+
+
+def set_matmul_precision(precision: str = "highest") -> None:
+    """Pin the precision of fp32 matrix products, the port's counterpart
+    of JAX's ``config.set_matmul_precision`` (config.py:47-62); the entry
+    points call it with ``training.matmul_precision`` (default
+    "highest", true fp32, the reference's numerics: CD training is
+    precision-sensitive).
+
+    ``highest`` -> ``torch.set_float32_matmul_precision("highest")``,
+    ``high`` -> ``"high"``, ``default`` -> ``"medium"``. The names match,
+    the arithmetic does not: XLA's ``high`` is three bf16 passes (about
+    fp32 accuracy), torch's ``high`` is one TF32 pass (10-bit mantissa);
+    XLA's ``default`` is one bf16 pass, torch's ``medium`` is bf16 where
+    the backend offers it. The setting governs the cuBLAS products of the
+    plain torch code only. The port's CUDA kernels keep their 3×TF32
+    tiles (fp32 accuracy) whatever it says, as JAX's Pallas half-step
+    fixes its operands at bf16 (pallas_kernels.py:215-225) whatever the
+    global setting is. The setting is global to the process, as JAX's."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r} "
+                         f"({' | '.join(MATMUL_PRECISIONS)})")
+    torch.set_float32_matmul_precision(MATMUL_PRECISIONS[precision])
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``. A CUDA request without a GPU raises.
 
-    On the card, TF32 is switched off for matrix products and cuDNN: the
-    flagship YAML pins ``matmul_precision: highest`` (true fp32), and CD
-    training is precision-sensitive (multimodal_idbn_tpu/config.py:47-58).
-    """
+    The precision of fp32 products is left to ``set_matmul_precision``
+    (torch's default is true fp32, "highest")."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' "
                 "(or --device cpu) to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
     return dev

@@ -11,7 +11,9 @@ launch on the card). Run it as
         [--mean] [--gibbs-steps N] [--png draws.png] [--device cpu]
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the JAX script's
-``--cpu``), and raises without a GPU. Output: an npz with ``images
+``--cpu``), and raises without a GPU. ``--matmul-precision`` sets the
+precision of the plain torch products as the JAX script's does
+(``device.set_matmul_precision``). Output: an npz with ``images
 [N, D]`` (pixel probabilities) and ``labels [N]``; optionally a PNG grid.
 """
 
@@ -22,9 +24,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from multimodal_idbn_tpu_torch.device import resolve_device
+from multimodal_idbn_tpu_torch.device import (resolve_device,
+                                              set_matmul_precision)
 from multimodal_idbn_tpu_torch.models import iMDBN
-from multimodal_idbn_tpu_torch.train_multimodal import not_ported
 
 
 def positive_int(v: str) -> int:
@@ -57,8 +59,9 @@ def parse_args(argv: Optional[List[str]] = None):
                          "square image size)")
     ap.add_argument("--matmul-precision", default="highest",
                     choices=["default", "high", "highest"],
-                    help="only 'highest' (true fp32, as in training) is "
-                         "ported")
+                    help="fp32 matmul precision of the plain torch products "
+                         "(device.set_matmul_precision: 'high' is TF32; "
+                         "'highest' matches training)")
     return ap.parse_args(argv)
 
 
@@ -94,9 +97,7 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
     """Generate, write ``--out`` and return the images [N, D]."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.matmul_precision != "highest":
-        not_ported(f"--matmul-precision {args.matmul_precision}",
-                   "opt-in variants slice (TF32 / bf16 matmuls)")
+    set_matmul_precision(args.matmul_precision)
     model = iMDBN.from_payload(iMDBN.load_model(args.model, device=device))
 
     ids = np.repeat(np.asarray(args.labels, np.int64), args.n_per_label)

@@ -14,8 +14,19 @@ Every layer is updated on every batch, layer i+1 fed the post-update
 mean-field activations of layer i (``ops.dbn_train``), each update through
 the fused half-step kernel on the card. The diagnostics draw nothing from
 the training keys, so a run with a run object ends in the same
-parameters as one without. PCD, data parallelism and the per-batch loop
-over loaders that cannot materialize are not ported.
+parameters as one without.
+
+The params keys of the JAX model's variants are read as there
+(:110-125): ``DTYPE`` (bf16 storage), ``COMPUTE_DTYPE`` (mixed
+precision), ``SR`` (stochastic rounding) and ``PCD`` (persistent CD, its
+fantasy particles kept across batches, epochs and ``train`` calls,
+``_ensure_pcd_chains``, :208-223). The route of every layer update is
+chosen from them before any launch (``_fast_sampler``, the counterpart of
+:164-180): fp32 CD and fp32 PCD run the half-step kernel (``fast_cd``),
+bf16 storage and mixed precision run ``rbm_ops.cd_update`` /
+``pcd_update`` in plain torch, and the bf16 route says so once.
+``DP_DEVICES`` raises ``NotImplementedError`` (the ``parallel/`` slice);
+the per-batch loop over loaders that cannot materialize is not ported.
 """
 
 from __future__ import annotations
@@ -32,8 +43,10 @@ from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
                                                   save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.models.rbm import RBM
-from multimodal_idbn_tpu_torch.ops import dbn_train, rng
+from multimodal_idbn_tpu_torch.models.rbm import (RBM, param_compute_dtype,
+                                                  param_dtype, param_sr,
+                                                  refuse_dp_devices)
+from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
@@ -117,6 +130,13 @@ class iDBN:
             self.val_batch = next(iter(val_loader), (None,))[0]
         self.features = val_features(val_loader)
         self._init_seed = seed
+        refuse_dp_devices(params, "iDBN")
+        self.dtype = param_dtype(params)
+        self.compute_dtype = param_compute_dtype(params)
+        self.sr = param_sr(params)
+        self.use_pcd = bool(params.get("PCD", False))
+        self._pcd_chains = None
+        self._route_said = False
         last_sparse = bool(params.get("SPARSITY", False))
         self.layers: List[RBM] = [
             RBM(num_visible=layer_sizes[i], num_hidden=layer_sizes[i + 1],
@@ -128,7 +148,7 @@ class iDBN:
                 sparsity=last_sparse and i == len(layer_sizes) - 2,
                 sparsity_factor=self.sparsity_factor,
                 seed=None if seed is None else seed + i,
-                device=self.device)
+                device=self.device, dtype=self.dtype, sr=self.sr)
             for i in range(len(layer_sizes) - 1)]
         self.loss_history: List[float] = []
 
@@ -144,14 +164,54 @@ class iDBN:
         self.device = resolve_device(device)
         for r in self.layers:
             r.to(self.device)
+        if self._pcd_chains is not None:
+            self._pcd_chains = [c.to(self.device) for c in self._pcd_chains]
         return self
 
-    # -- training (JAX models/idbn.py:244-455) --------------------------------
+    # -- training (JAX models/idbn.py:164-223, :244-455) ----------------------
+
+    def _fast_sampler(self) -> bool:
+        """The route of every layer update, chosen from the config before
+        any launch (JAX models/idbn.py:164-180): True, the half-step
+        kernel, for fp32 storage without mixed precision (CD and PCD
+        alike); False, plain torch, for bf16 storage or ``COMPUTE_DTYPE``,
+        since the kernel takes fp32 operands only and has no
+        stochastic-rounding epilogue. A plain route is printed once."""
+        if self.compute_dtype is not None:
+            why = ("COMPUTE_DTYPE=bfloat16 (mixed precision: bf16 chain "
+                   "operands)")
+        elif any(r.state.w.dtype == torch.bfloat16 for r in self.layers):
+            why = ("bfloat16 storage (fp32 operands only, no "
+                   "stochastic-rounding epilogue)")
+        else:
+            return True
+        if not self._route_said:
+            print(f"[iDBN] half-step kernel disabled for {why}; using the "
+                  f"plain torch CD path")
+            self._route_said = True
+        return False
+
+    def _ensure_pcd_chains(self, batch_size: int):
+        """Per-layer fantasy particles [batch_size, V_i] in the layer's
+        storage dtype, created once from ``SEED + 12345`` and kept across
+        ``train`` calls, PCD's defining property
+        (JAX models/idbn.py:208-223)."""
+        if (self._pcd_chains is None
+                or self._pcd_chains[0].shape[0] != batch_size):
+            ck = int(self.params.get("SEED", 0)) + 12345
+            self._pcd_chains = [
+                rbm_ops.init_pcd_chains(rng.fold_in(ck, i), batch_size,
+                                        r.num_visible,
+                                        dtype=r.state.w.dtype,
+                                        device=self.device)
+                for i, r in enumerate(self.layers)]
+        return self._pcd_chains
 
     def _train_epoch(self, epoch: int, data: torch.Tensor, bs: int) -> float:
         """One epoch: the split permuted by this epoch's key, its full
-        batches in order (``dbn_train.idbn_epoch``), then the remainder
-        batch, so every sample trains exactly once. Returns the mean loss
+        batches in order (``dbn_train.idbn_epoch``, or ``idbn_epoch_pcd``
+        with the fantasy particles under PCD), then the remainder batch by
+        CD, so every sample trains exactly once. Returns the mean loss
         over the (batch, layer) entries (reference idbn.py:204-208)."""
         n = data.shape[0]
         key = rng.fold_in(int(self.params.get("SEED", 0)), epoch)
@@ -162,9 +222,16 @@ class iDBN:
                                          epoch),
                   weight_decay=r0.weight_decay,
                   sparsity_factor=self.sparsity_factor, cd=self.cd_k,
-                  sparsity_flags=[r.sparsity for r in self.layers])
-        states, losses = dbn_train.idbn_epoch(
-            self.states(), key, data_p, batch_size=bs, **kw)
+                  sparsity_flags=[r.sparsity for r in self.layers],
+                  compute_dtype=self.compute_dtype, sr=self.sr,
+                  fast_sampler=self._fast_sampler())
+        if self.use_pcd:
+            states, self._pcd_chains, losses = dbn_train.idbn_epoch_pcd(
+                self.states(), self._ensure_pcd_chains(bs), key, data_p,
+                batch_size=bs, **kw)
+        else:
+            states, losses = dbn_train.idbn_epoch(
+                self.states(), key, data_p, batch_size=bs, **kw)
         loss_sum, count = losses.sum(), losses.numel()
         rem = n - (n // bs) * bs
         if rem:
@@ -238,7 +305,7 @@ class iDBN:
                 sparsity_factor=rbm.sparsity_factor,
                 softmax_groups=rbm.softmax_groups,
                 seed=None if base is None else base + i + seed_offset,
-                device=self.device)
+                device=self.device, dtype=self.dtype, sr=self.sr)
 
     def _recon_collapse_ratio(self) -> Optional[float]:
         """Auto-reconstruction MSE of the cached validation batch over the
@@ -417,14 +484,23 @@ class iDBN:
         d["device"] = "cpu"
         if d.get("val_batch") is not None:
             d["val_batch"] = np.asarray(d["val_batch"])
+        if d.get("_pcd_chains") is not None:  # fp32, as the layers unpickle
+            d["_pcd_chains"] = [c.detach().float().cpu().numpy()
+                                for c in d["_pcd_chains"]]
         return d
 
     def __setstate__(self, d):
         # pickles written before the diagnostics hooks lack their fields
         for k, v in (("wandb_run", None), ("features", None),
-                     ("text_flag", False)):
+                     ("text_flag", False), ("dtype", torch.float32),
+                     ("compute_dtype", None), ("sr", None),
+                     ("use_pcd", False), ("_pcd_chains", None),
+                     ("_route_said", False)):
             d.setdefault(k, v)
         d.setdefault("arch_dir", os.path.join(
             "logs-idbn", f"architecture_{d.get('arch_str', 'loaded')}"))
         self.__dict__.update(d)
         self.device = torch.device("cpu")
+        if self._pcd_chains is not None:
+            self._pcd_chains = [torch.from_numpy(np.asarray(c, np.float32))
+                                for c in self._pcd_chains]

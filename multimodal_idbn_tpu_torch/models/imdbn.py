@@ -34,7 +34,10 @@ from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
                                                    feature_map, val_features)
-from multimodal_idbn_tpu_torch.models.rbm import RBM
+from multimodal_idbn_tpu_torch.models.rbm import (RBM,
+                                                  _warn_compute_dtype_joint,
+                                                  param_dtype, param_sr,
+                                                  refuse_dp_devices)
 from multimodal_idbn_tpu_torch.ops import imdbn_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
@@ -140,6 +143,7 @@ class iMDBN:
                             else load_logging_cfg(logging_config_path))
         self.num_labels = int(num_labels)
         self._seed = seed
+        refuse_dp_devices(params, "iMDBN")
         # the first validation batch, for the snapshots (JAX :96-105)
         self.validation_images = self.validation_labels = None
         first = next(iter(val_loader), None) if val_loader is not None \
@@ -165,7 +169,9 @@ class iMDBN:
                          f"_JOINT{joint_layer_size}")
 
     def _build_joint(self, Dz_img: int, joint_hidden: int) -> None:
-        """Joint RBM over [z_img ⊕ y] (JAX models/imdbn.py:165-184)."""
+        """Joint RBM over [z_img ⊕ y] (JAX models/imdbn.py:165-184), stored
+        in the params' ``DTYPE`` with their ``SR``; ``COMPUTE_DTYPE`` does
+        not reach it (the printed ``warn/compute_dtype_joint``)."""
         self.Dz_img = int(Dz_img)
         K = self.num_labels
         p = self.params
@@ -179,7 +185,8 @@ class iMDBN:
             final_momentum=p.get("FINAL_MOMENTUM", 0.95),
             softmax_groups=[(self.Dz_img, self.Dz_img + K)],
             seed=None if self._seed is None else self._seed + 1000,
-            device=self.device)
+            device=self.device, dtype=param_dtype(p), sr=param_sr(p))
+        _warn_compute_dtype_joint(p, "iMDBN")
 
     def _joint_groups(self):
         return ((self.Dz_img, self.Dz_img + self.num_labels),)
@@ -356,7 +363,7 @@ class iMDBN:
                        aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
                        steps=self.cross_steps, groups=self._joint_groups(),
                        use_free_energy=not self.reference_best_of_k_bug,
-                       zclamp_every=ZCLAMP_EVERY)
+                       zclamp_every=ZCLAMP_EVERY, sr=jr.sr)
         joint, mean_cd, totals = imdbn_ops.joint_epoch(
             jr.state, idbn_states, key, Zp, Yp, Xp, lr, mom,
             jr.weight_decay, self.z_class_mean, batch_size=bs,

@@ -37,7 +37,10 @@ from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
                                                    feature_map, val_features)
 from multimodal_idbn_tpu_torch.models.imdbn import (finetune_last_layer,
                                                     load_pretrained_layers)
-from multimodal_idbn_tpu_torch.models.rbm import RBM
+from multimodal_idbn_tpu_torch.models.rbm import (RBM,
+                                                  _warn_compute_dtype_joint,
+                                                  param_dtype, param_sr,
+                                                  refuse_dp_devices)
 from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, rbm_ops,
                                            rng)
 from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
@@ -144,7 +147,8 @@ def _mod2_to_mod1_chain(model, z2: torch.Tensor, steps: int):
     for t in range(int(steps)):
         h_prob = rbm_ops.hidden_probs(joint, v)
         h = sample_bernoulli(rng.fold_in(key, t), h_prob)
-        v = clamp_mask(torch.sigmoid(h @ joint.w.T + joint.vb), v_known, km)
+        v = clamp_mask(torch.sigmoid(rbm_ops.visible_logits(joint, h)),
+                       v_known, km)
         hs.append(h_prob[0])
         zs.append(v[0, :Dz1])
     return to_numpy(torch.stack(hs)), to_numpy(torch.stack(zs))
@@ -298,6 +302,7 @@ class iMDBN_BiModal:
                  seed: Optional[int] = None, wandb_run=None,
                  logging_cfg: Optional[dict] = None):
         self.params = params or {}
+        refuse_dp_devices(self.params, "iMDBN_BiModal")
         self.device = resolve_device(device)
         self.dataloader = dataloader
         self.val_loader = val_loader
@@ -327,9 +332,11 @@ class iMDBN_BiModal:
                 dynamic_lr=self.params.get("LEARNING_RATE_DYNAMIC", True),
                 final_momentum=self.params.get("FINAL_MOMENTUM", 0.95),
                 seed=None if seed is None else seed + 2000 + i,
-                device=self.device))
+                device=self.device, dtype=param_dtype(self.params),
+                sr=param_sr(self.params)))
             visible = int(hidden)
         self.joint_rbm = self.joint_layers[0]
+        _warn_compute_dtype_joint(self.params, "iMDBN_BiModal")
         self.num_joint_layers = len(self.joint_layers)
         self.joint_cd = int(self.params.get("JOINT_CD",
                                             self.params.get("CD", 1)))
@@ -553,7 +560,7 @@ class iMDBN_BiModal:
                     jr.weight_decay, warmup=epoch < WARMUP_EPOCHS,
                     joint_cd=self.joint_cd, aux_cond_steps=aux_cond_steps,
                     Dz1=self.Dz_mod1, steps=self.cross_steps, batch_size=bs,
-                    metrics_every=metrics_every)
+                    metrics_every=metrics_every, sr=jr.sr)
                 self._set_joint_states(joint)
                 tot = {k: float(v) for k, v in totals._asdict().items()}
                 self.last_metrics = None

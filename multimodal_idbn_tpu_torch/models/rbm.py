@@ -7,12 +7,20 @@ names: the attribute surface (``W``, ``hid_bias``, ``vis_bias``, ``W_m``,
 inference (:392-466) and pickling (:470-481). The shell owns an
 ``RBMState``, an explicit ``torch.Generator`` (its key stream,
 ``ops.rng.next_key``) and its device. It pickles as numpy arrays plus the
-generator's state, never as device tensors, and unpickles onto the CPU;
-``to(device)`` moves it.
+generator's state, never as device tensors, and unpickles onto the CPU in
+fp32, as the JAX shell unpickles (:483-487); ``to(device)`` moves it.
+
+Also ported: the global seeding of shells built without a seed
+(``_GLOBAL_SEED``, the instance counter and ``set_global_seed``, :29-46)
+and the parsing of the precision keys of a params dict (``param_dtype``,
+``param_compute_dtype``, ``param_sr``, ``_warn_compute_dtype_joint``,
+:49-120), mapped to torch dtypes. A shell takes ``dtype=`` (its storage
+dtype) and ``sr=`` (the stochastic-rounding override).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -26,13 +34,115 @@ from multimodal_idbn_tpu_torch.ops.rbm_ops import RBMState
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 
+# ---------------------------------------------------------------------------
+# Global seeding (JAX models/rbm.py:29-46)
+# ---------------------------------------------------------------------------
+
+_GLOBAL_SEED = 0
+_instance_counter = itertools.count()
+
+
+def set_global_seed(seed: int) -> None:
+    """Set the base seed of shells constructed without an explicit seed."""
+    global _GLOBAL_SEED
+    _GLOBAL_SEED = int(seed)
+
+
+def _fresh_seed(seed: Optional[int]) -> int:
+    """``seed``, or ``_GLOBAL_SEED + next(counter)`` for an unseeded shell,
+    so that no two unseeded shells share weights or a key stream."""
+    if seed is None:
+        seed = _GLOBAL_SEED + next(_instance_counter)
+    return int(seed)
+
+
+# ---------------------------------------------------------------------------
+# Precision keys of a params dict (JAX models/rbm.py:49-120)
+# ---------------------------------------------------------------------------
+
+def param_dtype(params: dict) -> torch.dtype:
+    """Storage dtype from a params dict: ``DTYPE`` in {"float32",
+    "bfloat16"} (default float32, the reference's)."""
+    name = str((params or {}).get("DTYPE", "float32")).lower()
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float32", "f32", "fp32"):
+        return torch.float32
+    raise ValueError(f"unsupported DTYPE {name!r} (float32 | bfloat16)")
+
+
+def param_compute_dtype(params: dict) -> Optional[torch.dtype]:
+    """Mixed-precision compute dtype from a params dict: ``COMPUTE_DTYPE``
+    in {None/"float32", "bfloat16"}. bf16 runs the Gibbs chain of the
+    fp32 master weights on a bf16 copy (``rbm_ops.compute_cast``); None is
+    the reference's fp32 path."""
+    name = (params or {}).get("COMPUTE_DTYPE", None)
+    if name is None:
+        return None
+    name = str(name).lower()
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float32", "f32", "fp32", "none"):
+        return None
+    raise ValueError(
+        f"unsupported COMPUTE_DTYPE {name!r} (float32 | bfloat16)")
+
+
+def param_sr(params: dict) -> Optional[bool]:
+    """Stochastic-rounding override from a params dict: ``SR`` in
+    {None/"auto", True, False} (YAML ``training.stochastic_rounding``).
+    None keeps the auto rule (on exactly for bf16 storage), False forces
+    the nearest-rounded epilogue, True forces rounding on."""
+    val = (params or {}).get("SR", None)
+    if val is None or (isinstance(val, str)
+                       and val.lower() in ("auto", "none", "")):
+        return None
+    if isinstance(val, bool):
+        return val
+    if isinstance(val, str):
+        if val.lower() in ("true", "on", "1", "yes"):
+            return True
+        if val.lower() in ("false", "off", "0", "no"):
+            return False
+    raise ValueError(f"unsupported SR {val!r} (auto | true | false)")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The numpy-style name JAX prints for a dtype ("float32",
+    "bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+def _warn_compute_dtype_joint(params: dict, family: str) -> None:
+    """The line printed at multimodal construction when ``COMPUTE_DTYPE``
+    is set: mixed precision applies to the modality iDBN stacks only, the
+    joint layers train at the storage dtype."""
+    if param_compute_dtype(params) is not None:
+        print(f"[{family}] warn/compute_dtype_joint: COMPUTE_DTYPE "
+              f"applies to the modality iDBN stacks only; the joint "
+              f"layers train at the storage dtype "
+              f"({_dtype_name(param_dtype(params))}).")
+
+
+def refuse_dp_devices(params: dict, family: str) -> None:
+    """``DP_DEVICES`` (data parallelism over several devices) is not
+    ported: a model given it raises rather than train on one device."""
+    if (params or {}).get("DP_DEVICES"):
+        raise NotImplementedError(
+            f"{family}: DP_DEVICES={params['DP_DEVICES']!r} (data "
+            f"parallelism) is not ported yet; it comes with the port's "
+            f"parallel/ slice (ROADMAP.md Queue 1)")
+
 
 class RBM:
     """Restricted Boltzmann Machine with Bernoulli units and softmax groups
     (reference rbm.py:24; JAX models/rbm.py:163-211).
 
-    ``seed`` seeds this instance's generator (default 0); ``device`` is
-    ``cuda`` unless ``"cpu"`` is asked for.
+    ``seed`` seeds this instance's generator and initial weights (an
+    unseeded shell takes ``_GLOBAL_SEED`` plus its instance number);
+    ``device`` is ``cuda`` unless ``"cpu"`` is asked for; ``dtype`` is the
+    storage dtype of every state field (fp32 unless bf16 is asked for);
+    ``sr`` overrides the stochastic-rounding rule of its updates.
     """
 
     def __init__(self, num_visible: int, num_hidden: int,
@@ -40,7 +150,9 @@ class RBM:
                  dynamic_lr: bool = False, final_momentum: float = 0.97,
                  sparsity: bool = False, sparsity_factor: float = 0.05,
                  softmax_groups: Optional[List[Tuple[int, int]]] = None,
-                 seed: Optional[int] = None, device: DeviceLike = None):
+                 seed: Optional[int] = None, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None,
+                 sr: Optional[bool] = None):
         self.num_visible = int(num_visible)
         self.num_hidden = int(num_hidden)
         self.lr = float(learning_rate)
@@ -51,11 +163,12 @@ class RBM:
         self.sparsity = bool(sparsity)
         self.sparsity_factor = float(sparsity_factor)
         self.softmax_groups = [tuple(g) for g in (softmax_groups or [])]
+        self.sr = sr
         self.device = resolve_device(device)
-        self._gen = torch.Generator().manual_seed(int(seed or 0))
+        self._gen = torch.Generator().manual_seed(_fresh_seed(seed))
         self.state = rbm_ops.init_rbm_state(
             self._next_key(), self.num_visible, self.num_hidden,
-            device=self.device)
+            device=self.device, dtype=dtype or torch.float32)
         # μ-pull side channel of the reference API (rbm.py:359).
         self._mu_pull = None
 
@@ -68,14 +181,18 @@ class RBM:
     def _as(self, x) -> torch.Tensor:
         return as_tensor(x, self.device)
 
-    # Reference attribute surface (JAX models/rbm.py:233-287).
+    def _as_stored(self, x) -> torch.Tensor:
+        return self._as(x).to(self.state.w.dtype)
+
+    # Reference attribute surface (JAX models/rbm.py:233-287); values set
+    # take the storage dtype.
     @property
     def W(self) -> torch.Tensor:
         return self.state.w
 
     @W.setter
     def W(self, value) -> None:
-        self.state = self.state.replace(w=self._as(value))
+        self.state = self.state.replace(w=self._as_stored(value))
 
     @property
     def hid_bias(self) -> torch.Tensor:
@@ -83,7 +200,8 @@ class RBM:
 
     @hid_bias.setter
     def hid_bias(self, value) -> None:
-        self.state = self.state.replace(hb=self._as(value).reshape(-1))
+        self.state = self.state.replace(
+            hb=self._as_stored(value).reshape(-1))
 
     @property
     def vis_bias(self) -> torch.Tensor:
@@ -91,7 +209,8 @@ class RBM:
 
     @vis_bias.setter
     def vis_bias(self, value) -> None:
-        self.state = self.state.replace(vb=self._as(value).reshape(-1))
+        self.state = self.state.replace(
+            vb=self._as_stored(value).reshape(-1))
 
     @property
     def W_m(self) -> torch.Tensor:
@@ -173,18 +292,19 @@ class RBM:
     def train_epoch(self, data, epoch: int, max_epochs: int,
                     CD: int = 1) -> torch.Tensor:
         """One CD-k update on a batch; returns the reconstruction MSE
-        (JAX models/rbm.py:355-365). Groupless RBMs train through the
-        fused half-step kernel (``ops.fast_cd``)."""
+        (JAX models/rbm.py:355-365). Groupless fp32 RBMs train through the
+        fused half-step kernel (``ops.fast_cd``); a softmax group or bf16
+        storage takes ``rbm_ops.cd_update``, chosen before the call."""
         del max_epochs
         lr = effective_lr(self.lr, epoch, self.dynamic_lr)
         mom = effective_momentum(self.momentum, self.final_momentum, epoch)
         kw = dict(lr=lr, mom=mom, weight_decay=self.weight_decay,
                   cd=int(CD), sparsity=self.sparsity,
                   sparsity_factor=self.sparsity_factor)
-        if self.softmax_groups:
+        if self.softmax_groups or self.state.w.dtype != torch.float32:
             self.state, loss = rbm_ops.cd_update(
                 self.state, self._next_key(), self._as(data),
-                groups=self._groups(), **kw)
+                groups=self._groups(), sr=self.sr, **kw)
         else:
             self.state, loss = fast_cd.fast_sampled_cd_update(
                 self.state, self._next_key(), self._as(data), **kw)
@@ -211,7 +331,7 @@ class RBM:
             cond_init_steps=int(cond_init_steps), sample_h=sample_h,
             sample_v=sample_v, reclamp_negative=reclamp_negative,
             aux_lr_mult=aux_lr_mult, use_noisy_init=use_noisy_init,
-            mu_k=mu_k, eta0=eta0, groups=self._groups())
+            mu_k=mu_k, eta0=eta0, groups=self._groups(), sr=self.sr)
         return loss
 
     # -- conditional inference ---------------------------------------------
@@ -267,17 +387,19 @@ class RBM:
     # -- pickling (JAX models/rbm.py:470-481) --------------------------------
 
     def __getstate__(self):
-        """numpy arrays and the generator's state: a payload written on the
-        card loads on a machine without one."""
+        """fp32 numpy arrays (a bf16 state widened exactly) and the
+        generator's state: a payload written on the card loads on a
+        machine without one."""
         d = dict(self.__dict__)
-        d["state"] = tuple(getattr(self.state, f).detach().cpu().numpy()
-                           for f in convert.FIELDS)
+        d["state"] = tuple(getattr(self.state, f).detach().float().cpu()
+                           .numpy() for f in convert.FIELDS)
         d["_gen"] = self._gen.get_state().numpy()
         d["device"] = "cpu"
         d["_mu_pull"] = None
         return d
 
     def __setstate__(self, d):
+        d.setdefault("sr", None)  # pickles written before the variants
         self.__dict__.update(d)
         self.state = RBMState(*(
             torch.from_numpy(np.array(a, np.float32)) for a in d["state"]))

@@ -20,7 +20,7 @@ plain torch, as they are jnp in the JAX package.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,17 +94,19 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
                        z1: torch.Tensor, z2: torch.Tensor, v1: torch.Tensor,
                        v2: torch.Tensor, lr, mom, weight_decay, *,
                        warmup: bool, joint_cd: int, aux_cond_steps: int,
-                       Dz1: int, steps: int, compute_metrics: bool = True
+                       Dz1: int, steps: int, compute_metrics: bool = True,
+                       sr: Optional[bool] = None
                        ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
     """One bimodal joint batch (``_bimodal_train_batch`` and its jitted
     twin ``bimodal_batch_step``, bimodal_ops.py:80-146, :307-316).
-    Returns (joint states, layer-0 CD loss (0 in warm-up), metric sums)."""
+    Returns (joint states, layer-0 CD loss (0 in warm-up), metric sums).
+    ``sr`` reaches every joint update, free and clamped (:105-134)."""
     km1, vk1, vk2 = _clamps(z1, z2)
     keys = [rng.fold_in(key, i) for i in range(8)]
     layers = list(joint)
     aux = dict(lr=lr, mom=mom, weight_decay=weight_decay, cd=3,
                cond_init_steps=aux_cond_steps, sample_h=True, sample_v=False,
-               aux_lr_mult=0.3, use_noisy_init=True)
+               aux_lr_mult=0.3, use_noisy_init=True, sr=sr)
 
     cd_loss = torch.zeros((), device=z1.device)
     if warmup:
@@ -120,7 +122,7 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
         for li in range(len(layers)):
             layers[li], loss = rbm_ops.cd_update(
                 layers[li], rng.fold_in(keys[4], li), current, lr=lr,
-                mom=mom, weight_decay=weight_decay, cd=joint_cd)
+                mom=mom, weight_decay=weight_decay, cd=joint_cd, sr=sr)
             if li == 0:
                 cd_loss = loss
             current = rbm_ops.hidden_probs(layers[li], current)
@@ -147,7 +149,8 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
                   Z1: torch.Tensor, Z2: torch.Tensor, V1: torch.Tensor,
                   V2: torch.Tensor, lr, mom, weight_decay, *, warmup: bool,
                   joint_cd: int, aux_cond_steps: int, Dz1: int, steps: int,
-                  batch_size: int, metrics_every: int = 1):
+                  batch_size: int, metrics_every: int = 1,
+                  sr: Optional[bool] = None):
     """One joint epoch over already-permuted latents Z and images V: the
     ``n // batch_size`` full batches in order, batch b keyed
     ``fold_in(fold_in(key, 0), b)``, then the remainder keyed
@@ -162,7 +165,8 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
     nb = n // batch_size
     every = max(1, int(metrics_every))
     statics = dict(warmup=warmup, joint_cd=joint_cd,
-                   aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps)
+                   aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
+                   sr=sr)
     joint = list(joint)
     totals = zeros_metrics(Z1.device)
     cd_sum = torch.zeros((), device=Z1.device)

@@ -1,19 +1,30 @@
 """iDBN training epochs and the DBN encode/decode passes.
 
-Port of multimodal_idbn_tpu/ops/dbn_train.py:31-139 (``idbn_epoch``) and
-:388-434 (``dbn_represent``, ``dbn_decode``, ``dbn_decode_sampled``,
-``dbn_reconstruct``). The
-JAX epoch is one ``lax.scan``; here it is a Python loop over static batch slices of
-already-permuted data (``shuffle=False``), with the same iterative
-schedule: every layer updates on every batch, and layer i+1 is fed the
-post-update ``hidden_probs`` of layer i (dbn_train.py:117-136). Every
-layer update is ``fast_cd.fast_sampled_cd_update``, the fused half-step
-kernel's trainer. Keys: batch b, layer i gets ``fold_in(fold_in(key, b), i)``.
+Port of multimodal_idbn_tpu/ops/dbn_train.py:31-139 (``idbn_epoch``),
+:235-330 (``idbn_epoch_pcd``; the per-epoch body of
+``idbn_epoch_block_pcd`` is the model's epoch loop, as for
+``idbn_epoch_block``), :366-385 (``idbn_batch_step``) and :388-434
+(``dbn_represent``, ``dbn_decode``, ``dbn_decode_sampled``,
+``dbn_reconstruct``). The JAX epoch is one ``lax.scan``; here it is a
+Python loop over static batch slices of already-permuted data
+(``shuffle=False``), with the same iterative schedule: every layer updates
+on every batch, and layer i+1 is fed the post-update ``hidden_probs`` of
+layer i (dbn_train.py:117-136), taken on ``compute_cast(state,
+compute_dtype)``. Keys: batch b, layer i gets
+``fold_in(fold_in(key, b), i)``.
+
+The route of a layer update is the caller's ``fast_sampler`` flag, which
+the model sets from its config before any launch (JAX
+models/idbn.py:164-180): ``True`` (fp32 storage, no mixed precision) runs
+``fast_cd`` (the fused half-step kernel on the card), ``False`` runs
+``rbm_ops.cd_update`` / ``pcd_update`` in plain torch, the route of bf16
+storage and of ``compute_dtype``. ``sr`` is the stochastic-rounding
+override of ``rbm_ops.cd_update``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,23 +32,47 @@ from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.sampling import sample_bernoulli
 
 States = List[rbm_ops.RBMState]
+Chains = List[torch.Tensor]
+
+
+def _layer_update(st, key, v, *, fast_sampler: bool, compute_dtype, sr,
+                  **kw):
+    """One groupless CD update through the route ``fast_sampler`` names
+    (dbn_train.py:31-52)."""
+    if fast_sampler:
+        return fast_cd.fast_sampled_cd_update(st, key, v, **kw)
+    return rbm_ops.cd_update(st, key, v, compute_dtype=compute_dtype,
+                             sr=sr, **kw)
+
+
+def _layer_pcd(st, chain, key, v, *, fast_sampler: bool, compute_dtype,
+               sr, **kw):
+    """One groupless persistent-CD update through the route
+    ``fast_sampler`` names."""
+    if fast_sampler:
+        return fast_cd.fast_sampled_pcd_update(st, chain, key, v, **kw)
+    return rbm_ops.pcd_update(st, chain, key, v, compute_dtype=compute_dtype,
+                              sr=sr, **kw)
 
 
 def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
                     batch: torch.Tensor, *, lr, mom, weight_decay,
                     sparsity_factor, cd: int,
-                    sparsity_flags: Sequence[bool]
+                    sparsity_flags: Sequence[bool],
+                    compute_dtype: Optional[torch.dtype] = None,
+                    sr: Optional[bool] = None, fast_sampler: bool = True
                     ) -> Tuple[States, torch.Tensor]:
-    """All-layers update on one batch (dbn_train.py:366-385); returns
+    """All-layers CD update on one batch (dbn_train.py:366-385); returns
     (states, losses[L])."""
-    v = batch
+    v = batch.to(compute_dtype or states[0].w.dtype)
     new_states, losses = [], []
     for i, st in enumerate(states):
-        st, loss = fast_cd.fast_sampled_cd_update(
-            st, rng.fold_in(key, i), v, lr=lr, mom=mom,
+        st, loss = _layer_update(
+            st, rng.fold_in(key, i), v, fast_sampler=fast_sampler,
+            compute_dtype=compute_dtype, sr=sr, lr=lr, mom=mom,
             weight_decay=weight_decay, cd=cd, sparsity=sparsity_flags[i],
             sparsity_factor=sparsity_factor)
-        v = rbm_ops.hidden_probs(st, v)
+        v = rbm_ops.hidden_probs(rbm_ops.compute_cast(st, compute_dtype), v)
         new_states.append(st)
         losses.append(loss)
     return new_states, torch.stack(losses)
@@ -45,7 +80,9 @@ def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
 
 def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
                data: torch.Tensor, *, lr, mom, weight_decay, sparsity_factor,
-               cd: int, sparsity_flags: Sequence[bool], batch_size: int
+               cd: int, sparsity_flags: Sequence[bool], batch_size: int,
+               compute_dtype: Optional[torch.dtype] = None,
+               sr: Optional[bool] = None, fast_sampler: bool = True
                ) -> Tuple[States, torch.Tensor]:
     """One iDBN epoch over the ``n // batch_size`` full batches of ``data``
     in order; returns (states, losses[nb, L]). Rows beyond
@@ -58,11 +95,51 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
             states, rng.fold_in(key, b),
             data[b * batch_size:(b + 1) * batch_size], lr=lr, mom=mom,
             weight_decay=weight_decay, sparsity_factor=sparsity_factor,
-            cd=cd, sparsity_flags=sparsity_flags)
+            cd=cd, sparsity_flags=sparsity_flags,
+            compute_dtype=compute_dtype, sr=sr, fast_sampler=fast_sampler)
         losses.append(lb)
     if not losses:
         return states, torch.zeros((0, len(states)), device=data.device)
     return states, torch.stack(losses)
+
+
+def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
+                   chains: Sequence[torch.Tensor], key: int,
+                   data: torch.Tensor, *, lr, mom, weight_decay,
+                   sparsity_factor, cd: int, sparsity_flags: Sequence[bool],
+                   batch_size: int,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   sr: Optional[bool] = None, fast_sampler: bool = True
+                   ) -> Tuple[States, Chains, torch.Tensor]:
+    """Persistent-CD epoch over the full batches of ``data``
+    (dbn_train.py:235-282): like ``idbn_epoch``, but each layer carries
+    its fantasy particles [batch_size, V_i] from batch to batch. Returns
+    (states, chains, losses[nb, L]). The caller keeps the chains across
+    epochs and trains the remainder rows with plain CD
+    (``idbn_batch_step``), as ``idbn_epoch_block_pcd`` does (:317-327):
+    the particles are pinned to ``batch_size`` rows."""
+    nb = data.shape[0] // batch_size
+    states, chains = list(states), list(chains)
+    losses = []
+    for b in range(nb):
+        bkey = rng.fold_in(key, b)
+        v = data[b * batch_size:(b + 1) * batch_size].to(
+            compute_dtype or states[0].w.dtype)
+        lb = []
+        for i in range(len(states)):
+            states[i], chains[i], loss = _layer_pcd(
+                states[i], chains[i], rng.fold_in(bkey, i), v,
+                fast_sampler=fast_sampler, compute_dtype=compute_dtype,
+                sr=sr, lr=lr, mom=mom, weight_decay=weight_decay, cd=cd,
+                sparsity=sparsity_flags[i], sparsity_factor=sparsity_factor)
+            v = rbm_ops.hidden_probs(
+                rbm_ops.compute_cast(states[i], compute_dtype), v)
+            lb.append(loss)
+        losses.append(torch.stack(lb))
+    if not losses:
+        return states, chains, torch.zeros((0, len(states)),
+                                           device=data.device)
+    return states, chains, torch.stack(losses)
 
 
 def dbn_represent(states: Sequence[rbm_ops.RBMState], v: torch.Tensor,

@@ -159,12 +159,14 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
                        joint_cd: int, aux_cond_steps: int, Dz: int,
                        steps: int, groups: SoftmaxGroups,
                        zclamp_every: int, compute_metrics: bool,
-                       use_free_energy: bool = False):
+                       use_free_energy: bool = False,
+                       sr: Optional[bool] = None):
     """One joint-training batch (imdbn_ops.py:195-262).
 
     Warm-up: 2× y-clamped aux CD. Main: free CD + y-clamp aux every batch
     + z-clamp aux when ``b_idx % zclamp_every == 0``. Then the cross-modal
-    round trip and its metrics. Returns (joint, cd_loss, CrossMetrics).
+    round trip and its metrics. ``sr`` reaches every joint update
+    (:201-259). Returns (joint, cd_loss, CrossMetrics).
     """
     B, K = yb.shape
     dev = zb.device
@@ -176,7 +178,7 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
     aux = dict(lr=lr, mom=mom, weight_decay=weight_decay, cd=1,
                cond_init_steps=aux_cond_steps, sample_h=False,
                sample_v=False, aux_lr_mult=0.3, use_noisy_init=True,
-               groups=groups)
+               groups=groups, sr=sr)
 
     cd_loss = torch.zeros((), device=dev)
     if warmup:
@@ -187,7 +189,7 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
     else:
         joint, cd_loss = rbm_ops.cd_update(
             joint, keys[0], v_plus, lr=lr, mom=mom,
-            weight_decay=weight_decay, cd=joint_cd, groups=groups)
+            weight_decay=weight_decay, cd=joint_cd, groups=groups, sr=sr)
         joint, _ = rbm_ops.clamped_cd_update(
             joint, keys[1], v_known_y, km_y, reclamp_negative=False, **aux)
         if b_idx % zclamp_every == 0:
@@ -214,7 +216,7 @@ def joint_epoch(joint: rbm_ops.RBMState,
                 joint_cd: int, aux_cond_steps: int, Dz: int, steps: int,
                 groups: SoftmaxGroups, use_free_energy: bool = False,
                 zclamp_every: int = 50, batch_size: int = 128,
-                metrics_every: int = 1):
+                metrics_every: int = 1, sr: Optional[bool] = None):
     """One joint epoch over the full batches of already-permuted data
     (imdbn_ops.py:265-337). Returns (joint, mean_cd_loss, CrossMetrics
     sums). With ``metrics_every > 1`` the round trip runs on every Nth
@@ -230,7 +232,7 @@ def joint_epoch(joint: rbm_ops.RBMState,
             joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz=Dz,
             steps=steps, groups=groups, zclamp_every=zclamp_every,
             compute_metrics=(b % max(1, metrics_every) == 0),
-            use_free_energy=use_free_energy)
+            use_free_energy=use_free_energy, sr=sr)
         totals = add_metrics(totals, m)
         loss_sum = loss_sum + cd_loss
     return joint, loss_sum / max(1, nb), totals

@@ -14,7 +14,8 @@ ops/pallas_chain.py:72-82). The port replaces them so:
   ``fold_in(epoch_key, epoch)`` (models/idbn.py:348, :433), so a run
   resumed at epoch e draws what the uninterrupted run draws.
 - Draws made by plain torch code (chain inits, the Bernoulli and Gumbel
-  draws of the generic CD) come from a ``torch.Generator`` seeded by a key.
+  draws of the generic CD, the bits of stochastic rounding) come from a
+  ``torch.Generator`` seeded by a key.
 - Draws made inside the CUDA kernels come from Philox4x32-10 keyed by a
   64-bit seed, with the counter (row, column, step, stream). It is written
   twice: in ``csrc/philox.cuh`` and here in torch integer arithmetic, so the

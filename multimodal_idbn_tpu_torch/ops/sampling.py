@@ -33,6 +33,26 @@ def sample_categorical_onehot(key: int, probs: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.one_hot(idx, probs.shape[-1]).to(probs.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``torch.sigmoid`` in fp32; in bf16 the
+    expansion XLA computes, ``1 / (1 + exp(-x))`` with every operation
+    rounded to bf16, which torch's fused bf16 sigmoid does not reproduce
+    (it rounds once)."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: ``torch.softmax`` in fp32;
+    in bf16 as XLA computes it, ``exp(x - max)`` rounded to bf16 over its
+    fp32 sum rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+        return e / e.float().sum(dim=-1, keepdim=True).to(x.dtype)
+    return torch.softmax(x, dim=-1)
+
+
 def apply_softmax_groups(v_prob: torch.Tensor, logits: torch.Tensor,
                          groups: SoftmaxGroups) -> torch.Tensor:
     """Overwrite each group's block with the softmax of the *logits*
@@ -41,7 +61,7 @@ def apply_softmax_groups(v_prob: torch.Tensor, logits: torch.Tensor,
         return v_prob
     v_prob = v_prob.clone()
     for s, e in groups:
-        v_prob[:, s:e] = torch.softmax(logits[:, s:e], dim=-1)
+        v_prob[:, s:e] = softmax(logits[:, s:e])
     return v_prob
 
 

@@ -16,8 +16,12 @@ GPU. ``training.checkpoint_every`` makes every phase resumable as in
 phase-complete marker keeps a crash in a later phase from retraining an
 earlier one). ``wandb.enable: true`` logs the diagnostics as in
 ``train_multimodal`` (scripts/train_bimodal.py:86-114, :180-221,
-:342-345). Settings the port does not cover (data parallelism and the
-other opt-in variants) raise ``NotImplementedError``; none is ignored.
+:342-345). The opt-in variants run as in ``train_multimodal``:
+``training.dtype``, ``compute_dtype``, ``stochastic_rounding`` (:76-81),
+``matmul_precision`` (:170-175) and ``dataset.distribution: zipfian``
+(which the JAX script leaves unread; the port does not ignore a
+setting). Data parallelism (``training.dp_devices``) raises
+``NotImplementedError``; none is ignored.
 The model is saved as ``{save_dir}/{save_name}.pkl``
 (``iMDBN_BiModal.save_model``).
 """
@@ -35,13 +39,15 @@ from multimodal_idbn_tpu_torch.checkpoint import (
     cli_checkpoint_paths, config_fingerprint,
     load_train_checkpoint_expecting, remove_checkpoints,
     save_train_checkpoint)
-from multimodal_idbn_tpu_torch.data import (DataLoader, NumerosityDataset,
-                                            create_dataloaders_uniform)
-from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
+from multimodal_idbn_tpu_torch.data import DataLoader, NumerosityDataset
+from multimodal_idbn_tpu_torch.device import (resolve_device,
+                                              set_matmul_precision,
+                                              synchronize)
 from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
 from multimodal_idbn_tpu_torch.train_multimodal import (build_logging_params,
                                                         check_common,
                                                         load_config,
+                                                        make_loaders,
                                                         matmul_precision,
                                                         maybe_wandb,
                                                         train_dbn)
@@ -117,21 +123,26 @@ def modality_loader(train_loader, modality_idx: int) -> DataLoader:
     return DataLoader(ds, batch_size=train_loader.batch_size, shuffle=True)
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def main(argv: Optional[List[str]] = None,
+         params: Optional[dict] = None) -> dict:
     """Run the flow; returns a summary: per-phase wall seconds, both
     modality CD loss histories, the last cross-reconstruction MSEs and the
-    save path."""
+    save path.
+    ``params`` is laid over the params built from the YAML: keys the YAML
+    does not express, such as ``PCD``, which the JAX package too reaches
+    only through the params dict. No command-line option sets it."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     check_supported(cfg)
+    set_matmul_precision(matmul_precision(cfg))
     dataset = cfg.get("dataset", {}) or {}
     model = cfg.get("model", {}) or {}
-    params = build_params(cfg)
+    params = dict(build_params(cfg), **(params or {}))
     log_params = build_logging_params(cfg)
 
     t0 = time.perf_counter()
-    train_loader, val_loader, _ = create_dataloaders_uniform(
+    train_loader, val_loader, _ = make_loaders(dataset, "train_bimodal")(
         data_path=dataset.get("path"), data_name=dataset.get("name"),
         batch_size=dataset.get("batch_size", 128),
         second_modality=dataset.get("second_modality"),

@@ -21,11 +21,18 @@ it is installed; else replace ``wandb_compat.wandb.init`` to hand in a run
 object of one's own) receives the diagnostics at the ``logging:``
 cadences (:87-119, :165-178, :246-279, :294-295): losses, timings, PCA
 correlations, linear probes, snapshots and the extras the ``logging:``
-sections enable. Settings the port does not cover raise
-``NotImplementedError`` naming the part of the port that will bring them;
-none is ignored. The model is saved as ``{save_dir}/{save_name}.pkl``
-(``iMDBN.save_model``; ``python -m multimodal_idbn_tpu_torch.generate``
-serves it).
+sections enable.
+
+The opt-in variants of the JAX script run too (:78-82, :133-153):
+``training.dtype`` (bf16 storage), ``compute_dtype`` (mixed precision),
+``stochastic_rounding``, ``matmul_precision``
+(``device.set_matmul_precision``) and ``dataset.distribution: zipfian``
+(``create_dataloaders_zipfian``); PCD is reached through ``params["PCD"]``,
+as in the JAX package. The one setting the port does not cover,
+``training.dp_devices``, raises ``NotImplementedError`` naming the part of
+the port that will bring it; none is ignored. The model is saved as
+``{save_dir}/{save_name}.pkl`` (``iMDBN.save_model``; ``python -m
+multimodal_idbn_tpu_torch.generate`` serves it).
 """
 
 from __future__ import annotations
@@ -40,8 +47,11 @@ import yaml
 from multimodal_idbn_tpu_torch.checkpoint import (
     cli_checkpoint_paths, config_fingerprint,
     load_train_checkpoint_expecting, remove_checkpoints)
-from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
-from multimodal_idbn_tpu_torch.device import resolve_device, synchronize
+from multimodal_idbn_tpu_torch.data import (create_dataloaders_uniform,
+                                            create_dataloaders_zipfian)
+from multimodal_idbn_tpu_torch.device import (resolve_device,
+                                              set_matmul_precision,
+                                              synchronize)
 from multimodal_idbn_tpu_torch.models import iMDBN
 from multimodal_idbn_tpu_torch.utils.wandb_compat import wandb
 
@@ -70,30 +80,21 @@ def not_ported(what: str, where: str):
 
 
 def check_common(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for every training or dataset setting
-    the port does not cover; shared by the training entry points."""
+    """Raise ``NotImplementedError`` for the one training setting the port
+    does not cover, ``dp_devices``; shared by the training entry points."""
     t = cfg.get("training", {}) or {}
     if t.get("dp_devices"):
         not_ported("training.dp_devices (data parallelism)",
                    "parallel/ slice")
-    if str(t.get("dtype", "float32")).lower() not in ("float32", "f32",
-                                                      "fp32"):
-        not_ported(f"training.dtype={t.get('dtype')}",
-                   "opt-in variants slice (bf16 storage)")
-    if str(t.get("compute_dtype") or "float32").lower() not in (
-            "float32", "f32", "fp32", "none"):
-        not_ported(f"training.compute_dtype={t.get('compute_dtype')}",
-                   "opt-in variants slice (mixed precision)")
-    if t.get("stochastic_rounding") is True or str(
-            t.get("stochastic_rounding")).lower() in ("true", "on", "yes"):
-        not_ported("training.stochastic_rounding",
-                   "opt-in variants slice (stochastic rounding)")
-    if str(t.get("matmul_precision", "highest")) != "highest":
-        not_ported(f"training.matmul_precision={t.get('matmul_precision')}",
-                   "opt-in variants slice (TF32 / bf16 matmuls)")
-    if (cfg.get("dataset", {}) or {}).get("distribution",
-                                          "uniform") != "uniform":
-        not_ported("dataset.distribution=zipfian", "data slice")
+
+
+def make_loaders(dataset: dict, tag: str = "train_multimodal"):
+    """The loader factory of ``dataset.distribution``: zipfian or uniform
+    (scripts/train_multimodal.py:149-153)."""
+    if dataset.get("distribution") == "zipfian":
+        print(f"[{tag}] zipfian class distribution")
+        return create_dataloaders_zipfian
+    return create_dataloaders_uniform
 
 
 def check_supported(cfg: dict) -> None:
@@ -123,8 +124,7 @@ def build_params(cfg: dict) -> dict:
                                       t.get("aux_cond_steps", 50)),
         "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
         "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
-        # read for the fingerprint's sake; check_common refuses a value of
-        # the next one and of the last three that the port does not cover
+        # check_common refuses a value of the next one
         "DP_DEVICES": t.get("dp_devices"),
         "INIT_RETRY": t.get("init_retry", 0),
         "CHECKPOINT_EVERY": t.get("checkpoint_every", 0),
@@ -192,20 +192,27 @@ def matmul_precision(cfg: dict) -> str:
                                                    "highest"))
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def main(argv: Optional[List[str]] = None,
+         params: Optional[dict] = None) -> dict:
     """Run the flow; returns a summary: per-phase wall seconds, the image
-    CD loss history, the last cross-modal metrics and the save path."""
+    CD loss history, the last cross-modal metrics and the save path.
+    ``params`` is laid over the params built from the YAML: keys the YAML
+    does not express, such as ``PCD``, which the JAX package too reaches
+    only through the params dict. No command-line option sets it."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     check_supported(cfg)
+    # true fp32 products unless training.matmul_precision says otherwise
+    # (scripts/train_multimodal.py:127-131)
+    set_matmul_precision(matmul_precision(cfg))
     dataset = cfg.get("dataset", {}) or {}
     model = cfg.get("model", {}) or {}
-    params = build_params(cfg)
+    params = dict(build_params(cfg), **(params or {}))
     log_params = build_logging_params(cfg)
 
     t0 = time.perf_counter()
-    train_loader, val_loader, _ = create_dataloaders_uniform(
+    train_loader, val_loader, _ = make_loaders(dataset)(
         data_path=dataset.get("path"), data_name=dataset.get("name"),
         batch_size=dataset.get("batch_size", 128),
         num_classes=model.get("num_labels", 32),

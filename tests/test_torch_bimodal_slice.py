@@ -32,11 +32,16 @@ PARAMS = train_bimodal.build_params(yaml.safe_load(open(SMOKE_YAML)))
 
 @pytest.fixture
 def python_backend(monkeypatch):
-    """The JAX data layer on its Python generator, the one the port
-    copies (its default is the native generator when it builds)."""
+    """Both data layers on their Python generator (the default of both is
+    the native generator when it builds; tests/test_torch_data_native.py
+    holds the two native generators together)."""
+    from multimodal_idbn_tpu_torch import data as tdata
     monkeypatch.setattr(jdata, "generate_numerosity_dataset",
                         functools.partial(jnum.generate_numerosity_dataset,
                                           backend="python"))
+    monkeypatch.setattr(tdata, "generate_numerosity_dataset",
+                        lambda **kw: tnum.generate_numerosity_dataset(
+                            **dict(kw, backend="python")))
 
 
 def test_mnist100_copy_matches():
@@ -199,10 +204,21 @@ def test_train_bimodal_cpu_smoke(tmp_path):
     ("training", "matmul_precision", "default"),
     ("dataset", "distribution", "zipfian")])
 def test_unsupported_bimodal_settings_raise(section, key, value):
+    """Data parallelism is the one setting still unsupported: it raises.
+    The others, which raised until the opt-in variants and the data
+    backends were ported, are accepted and reach the params."""
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg.setdefault(section, {})[key] = value
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_bimodal.check_supported(cfg)
+    if key == "dp_devices":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            train_bimodal.check_supported(cfg)
+        return
+    train_bimodal.check_supported(cfg)
+    params = train_bimodal.build_params(cfg)
+    name = {"dtype": "DTYPE", "compute_dtype": "COMPUTE_DTYPE",
+            "stochastic_rounding": "SR"}.get(key)
+    if name is not None:
+        assert params[name] == value
 
 
 @pytest.mark.parametrize("setting", [

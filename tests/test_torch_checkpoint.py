@@ -353,19 +353,31 @@ def test_torch_save_pair_round_trip(tmp_path):
 
 
 def test_pcd_and_bf16_are_refused(tmp_path):
+    """PCD chains and bf16 states, which these files refused until the
+    opt-in variants were ported, now travel: chains in numeric order, a
+    JAX bf16 checkpoint loads as bf16 bit for bit, and a port bf16 state
+    writes JAX's bit-view. What is still refused is a dtype neither
+    package can carry."""
     m = _port_model("idbn", 0)
-    m._pcd_chains = (torch.zeros(2, 2),)
-    with pytest.raises(NotImplementedError, match="PCD fantasy chains"):
-        tck.save_train_checkpoint(m, str(tmp_path / "a"), "image", 1)
+    m._pcd_chains = [torch.full((2, 2), float(i)) for i in range(11)]
+    tck.save_train_checkpoint(m, str(tmp_path / "a"), "image", 1)
+    m2 = _port_model("idbn", 0)
+    tck.load_train_checkpoint(m2, str(tmp_path / "a.npz"))
+    assert [float(c[0, 0]) for c in m2._pcd_chains] == list(range(11))
     jm = _jax_model("rbm", 0)
     jm.state = type(jm.state)(*(x.astype(jnp.bfloat16) for x in jm.state))
     jck.save_checkpoint(jm, str(tmp_path / "bf16"))
-    with pytest.raises(NotImplementedError, match="bit-viewed arrays"):
-        tck.load_checkpoint(_port_model("rbm", 0), str(tmp_path / "bf16"))
     r = _port_model("rbm", 0)
-    r.state = r.state.replace(w=r.state.w.to(torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tck.save_checkpoint(r, str(tmp_path / "b"))
+    tck.load_checkpoint(r, str(tmp_path / "bf16"))
+    assert r.state.w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(r.state.w.float().numpy(),
+                                  np.asarray(jm.state.w, np.float32))
+    r.state = r.state.replace(w=r.state.w * 2)
+    tck.save_checkpoint(r, str(tmp_path / "b"))
+    jck.load_checkpoint(jm, str(tmp_path / "b"))
+    assert jm.state.w.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(jm.state.w, np.float32),
+                                  r.state.w.float().numpy())
     with pytest.raises(TypeError, match="unsupported dtype"):
         tck.save_checkpoint(_port_model("rbm", 0), str(tmp_path / "c"),
                             extra={"v": np.zeros(2, dtype="V2")})

@@ -470,3 +470,123 @@ def test_probe_predicts_the_same_on_both_devices(dev):
         init=init) for d in (dev, torch.device("cpu"))}
     assert out[dev] == out[torch.device("cpu")]
     assert out[dev][0] > 0.5
+
+
+# ---------------------------------------------------------------------------
+# The opt-in variants and the native generator on the card
+# ---------------------------------------------------------------------------
+
+def _pcd_inputs(g, dev, B=37, V=301, H=67):
+    st = rbm_ops.init_rbm_state(3, V, H, device=dev)
+    st = st.replace(hb=_rand(g, H, dev=dev, scale=0.1),
+                    vb=_rand(g, V, dev=dev, scale=0.1))
+    data = (torch.rand((B, V), generator=g) < 0.3).float().to(dev)
+    chain_v = (torch.rand((B, V), generator=g) < 0.5).float().to(dev)
+    return st, data, chain_v
+
+
+def test_fp32_pcd_update_kernel_vs_plain(dev):
+    """The fp32 PCD update through the half-step kernel (3 + 2·cd launches)
+    against the same trainer on CPU copies (the plain half-steps, the
+    same Philox draws): no sample flipped, states within 1e-5, and a
+    second launch bit-equal."""
+    g = torch.Generator().manual_seed(11)
+    st, data, chain_v = _pcd_inputs(g, dev)
+    kw = dict(lr=0.1, mom=0.5, weight_decay=1e-4, cd=3)
+    half_step.KERNEL.reset_launches()
+    s_k, c_k, l_k = fast_cd.fast_sampled_pcd_update(st, chain_v, 99, data,
+                                                    **kw)
+    assert half_step.KERNEL.launches_by_entry["half_step_sample"] == 3 + 2 * 3
+    cpu = rbm_ops.RBMState(*(getattr(st, f).cpu() for f in (
+        "w", "hb", "vb", "w_m", "hb_m", "vb_m")))
+    s_p, c_p, l_p = fast_cd.fast_sampled_pcd_update(cpu, chain_v.cpu(), 99,
+                                                    data.cpu(), **kw)
+    assert torch.equal(c_k.cpu(), c_p)  # no sample flipped
+    for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m"):
+        assert float((getattr(s_k, f).cpu() - getattr(s_p, f))
+                     .abs().max()) <= TOL
+    assert abs(float(l_k) - float(l_p)) <= TOL
+    again = fast_cd.fast_sampled_pcd_update(st, chain_v, 99, data, **kw)
+    assert torch.equal(again[1], c_k) and torch.equal(again[0].w, s_k.w)
+
+
+def test_bf16_route_launches_no_kernel(dev):
+    """A bf16 image stack trains in plain torch on the card: no half-step
+    launch; its states stay bf16 and finite."""
+    from multimodal_idbn_tpu_torch.models import iDBN
+    params = {"LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4,
+              "INIT_MOMENTUM": 0.5, "FINAL_MOMENTUM": 0.9,
+              "LEARNING_RATE_DYNAMIC": True, "CD": 2, "DTYPE": "bfloat16"}
+
+    class Loader:
+        batch_size = 16
+
+        def materialize(self):
+            g = torch.Generator().manual_seed(0)
+            return (torch.rand((40, 64), generator=g) < 0.3).float().numpy(),
+
+    dbn = iDBN([64, 32, 16], params, Loader(), device=dev, seed=0)
+    half_step.KERNEL.reset_launches()
+    chain.KERNEL.reset_launches()
+    dbn.train(2)
+    torch.cuda.synchronize()
+    assert half_step.KERNEL.launches == 0 and chain.KERNEL.launches == 0
+    for r in dbn.layers:
+        assert r.state.w.dtype == torch.bfloat16
+        assert bool(torch.isfinite(r.state.w.float()).all())
+    fp32 = iDBN([64, 32, 16], dict(params, DTYPE="float32", PCD=True),
+                Loader(), device=dev, seed=0)
+    fp32.train(1)
+    # 2 full batches x 2 layers x (3 + 2 x CD-2), remainder by CD
+    assert half_step.KERNEL.launches == 2 * 2 * 7 + 2 * 5
+
+
+def test_bf16_joint_chains_run_the_kernel(dev):
+    """A bf16-stored state's mean-field chains launch the chain kernel on
+    its weights widened to fp32: bit-equal to the chains of an fp32 state
+    that holds those widened weights (the kernel against its plain version
+    is held by the tests above)."""
+    st = rbm_ops.init_rbm_state(1, 20, 8, device=dev, dtype=torch.bfloat16)
+    wide = rbm_ops.RBMState(**{f: getattr(st, f).float() for f in (
+        "w", "hb", "vb", "w_m", "hb_m", "vb_m")})
+    x = (torch.rand(6, 20, device=dev) < 0.5).float()
+    km = torch.zeros(6, 20, device=dev)
+    km[:, :15] = 1.0
+    c0 = chain.KERNEL.launches
+    outs = [(rbm_ops.conditional_gibbs(s, 1, x, km, n_steps=3,
+                                       groups=((15, 20),)),
+             rbm_ops.noisy_meanfield_annealed(s, 2, x, km, n_steps=4,
+                                              groups=((15, 20),)))
+            for s in (st, wide)]
+    torch.cuda.synchronize()
+    assert chain.KERNEL.launches == c0 + 4
+    for a, b in zip(*outs):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_wrappers_still_raise_on_bf16(dev):
+    x = torch.ones((4, 8), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((8, 5), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((5,), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="expected float32"):
+        half_step.half_step_sample(x, w, b, 1)
+    sched = rbm_ops.annealed_schedule(3, 3.0, 1.0, 0.9, 3, 0.9, 0.15)
+    v = torch.zeros((4, 8), device=dev)
+    with pytest.raises(TypeError, match="expected float32"):
+        chain.clamped_chain(w, b, torch.zeros(8, device=dev,
+                                              dtype=torch.bfloat16),
+                            v, v, v, sched)
+
+
+def test_native_generator_builds_and_is_deterministic():
+    import numpy as np
+    from multimodal_idbn_tpu_torch.data import native
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    assert native.native_available()
+    nums = np.arange(1, 33, dtype=np.int32)
+    a = native.generate_dot_dataset_native(0, nums, side=100)
+    b = native.generate_dot_dataset_native(0, nums, side=100)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a[4], nums)

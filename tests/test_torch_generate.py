@@ -114,8 +114,16 @@ def test_refusals(saved, tmp_path):
     for bad in (["--labels", "4"], ["--labels", "0", "-1"]):
         with pytest.raises(ValueError, match=r"label ids must be in \[0, 4\)"):
             _run(path, tmp_path, *bad)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # --matmul-precision, refused until the variants were ported, now sets
+    # the precision of the plain products; only JAX's three names pass
+    before = torch.get_float32_matmul_precision()
+    try:
         _run(path, tmp_path, "--labels", "0", "--matmul-precision", "default")
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(before)
+    with pytest.raises(SystemExit):
+        _run(path, tmp_path, "--labels", "0", "--matmul-precision", "bf16")
     with pytest.raises(SystemExit):
         _run(path, tmp_path, "--labels", "0", "--n-per-label", "0")
     assert generate.parse_args(["--model", "m", "--labels", "1"]).device == \

@@ -215,3 +215,34 @@ def test_port_trains_and_logs_without_optional_packages(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1].startswith("ok")
+
+
+def test_variants_and_data_slice_modules_are_covered():
+    """The modules of the variants and data-backends slice are among the
+    sources checked above and walked by the blocked import; the native
+    generator builds from the port's own source into the port's _build/
+    and the JAX package's library is never loaded."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"data/native/__init__.py", "data/numerosity.py",
+            "data/__init__.py", "ops/fast_cd.py", "ops/dbn_train.py",
+            "device.py"} <= names
+    assert (PORT / "data" / "native" / "dotgen.cpp").is_file()
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.replace(
+            'print("ok", len(names))',
+            'assert "multimodal_idbn_tpu_torch.data.native" in names\n'
+            'from multimodal_idbn_tpu_torch import set_global_seed\n'
+            'from multimodal_idbn_tpu_torch.data import native, '
+            'create_dataloaders_zipfian\n'
+            'assert native.native_available()\n'
+            'tr, _, _ = create_dataloaders_zipfian(batch_size=4, '
+            'n_samples=12, num_classes=3, side=16)\n'
+            'lib = native._lib._name\n'
+            'assert "/multimodal_idbn_tpu_torch/_build/dotgen-" in lib, lib\n'
+            'maps = open("/proc/self/maps").read()\n'
+            'assert "_dotgen.so" not in maps\n'
+            'assert not [m for m in sys.modules '
+            'if m.split(".")[0] in BLOCK]\n'
+            'print("ok", len(names))')],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -38,10 +38,12 @@ def torch_state(fields):
 
 
 def state_np(state) -> dict:
-    """numpy fields of a JAX or a port state."""
+    """numpy fields of a JAX or a port state (bf16 widened exactly to
+    fp32)."""
     if isinstance(state, jrbm.RBMState):
-        return {f: np.asarray(getattr(state, f)) for f in FIELDS}
-    return {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
+        return {f: np.asarray(getattr(state, f), np.float32) for f in FIELDS}
+    return {f: getattr(state, f).detach().cpu().float().numpy()
+            for f in FIELDS}
 
 
 def assert_states_close(a, b, atol):
