@@ -11,7 +11,10 @@ clamped mean-field chains run in a hand-written chain kernel
 tensors and runs the kernel's plain PyTorch version on CPU tensors. The
 diagnostics of ``utils/`` (linear probes, PCA correlations, free energy,
 convergence, neighbours, trajectories, snapshots, timers) log to any run
-object with ``.log(dict)`` during training.
+object with ``.log(dict)`` during training. Loaders without
+``materialize()`` train batch by batch; ``parallel`` trains data-parallel
+(and splits a layer's hidden units) over a ``torch.distributed`` group,
+one process per device.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no such request they raise (``device.resolve_device``).

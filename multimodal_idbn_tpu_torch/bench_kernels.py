@@ -114,7 +114,7 @@ def bench_half_step(dev, quick: bool) -> None:
 
         def run(tiling=None):
             return half_step._launch("half_step_sample", x, w, b, 2, B, K, N,
-                                     (int(transpose),), (1.0, 7),
+                                     (int(transpose),), (1.0, 7, 0, 0),
                                      tiling=tiling)
 
         wm = w.T if transpose else w

@@ -267,7 +267,11 @@ def save_train_checkpoint(model, path: str, phase: str, next_epoch: int,
     """Checkpoint ``model`` mid-training, resumable at ``next_epoch``
     (:248-284). ``phase`` is the tag ("image", "joint", "mod1", ...) the
     caller routes the resume by; ``loss_history`` and the model's
-    ``joint_metrics_history`` travel with it."""
+    ``joint_metrics_history`` travel with it. In a process group only
+    rank 0 writes: the replicas of a data-parallel run are equal."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
     extra = {"phase": _text(phase),
              "next_epoch": np.asarray(int(next_epoch), np.int64)}
     fp = getattr(model, "_ckpt_fingerprint", None)
@@ -337,10 +341,10 @@ def align_loader_for_resume(model, start_epoch: int) -> None:
     """Align the DataLoader shuffle counter of a resumed loop that iterates
     its loader (:340-363): the counters ``load_train_checkpoint`` stashed
     win, applied to whichever loaders are attached now; without a stash,
-    one iteration per epoch trained is assumed. The port's train loops
-    materialize their loaders and draw their order from (seed, epoch), so
-    none of them needs it; it serves callers that iterate a loader
-    themselves after a resume."""
+    one iteration per epoch trained is assumed. The per-batch loops of
+    ``iDBN.train``, ``iMDBN.train_joint`` and ``iMDBN_BiModal.train_joint``
+    call it before a run; the fused epochs draw their order from
+    (seed, epoch) and need none."""
     restored = model.__dict__.pop("_restored_loader_epochs", None)
     if restored is not None:
         for attr, val in restored.items():

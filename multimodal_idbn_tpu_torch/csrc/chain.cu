@@ -11,8 +11,12 @@
 //
 // Replaces the TPU kernel _chain_call / _make_chain_kernel
 // (multimodal_idbn_tpu/ops/pallas_chain.py:85-198). The port's wrapper is
-// ops/chain.py; the noise draws are Philox of (row, col, step, half) as in
-// ops/rng.py, so the plain version reproduces them whatever the tiling.
+// ops/chain.py; the noise draws are Philox of (row0 + row, col, step, half)
+// as in ops/rng.py, so the plain version reproduces them whatever the
+// tiling. row0 and plan_B place the batch in a larger one: a data-parallel
+// rank that holds rows row0.. of a batch of plan_B draws the noise of
+// those global rows and sums every product in the order of the whole
+// batch's plan, so its rows are the single-device chain's rows.
 //
 // What bounds it on an H100: a chain is 60-101 products in strict
 // sequence ([128,2500].[2500,1500] at the bimodal joint, 0.96 GFLOP each:
@@ -87,6 +91,7 @@ struct ChainArgs {
   int B, V, H, Vs, Hs, n_steps, n_groups, Dz, noisy, final_unclamped;
   int slices_h, k_per_slice_h, slices_v, k_per_slice_v;
   uint64_t seed;
+  uint32_t row0;         // global index of the batch's first row
 };
 
 struct Plan {
@@ -241,7 +246,7 @@ chain_kernel(ChainArgs a) {
         if (j >= H) break;
         float logit = (s[e] + __ldg(a.hb + j)) * inv_T;
         if (noisy)
-          logit += philox_normal(a.seed, (uint32_t)r, (uint32_t)j,
+          logit += philox_normal(a.seed, a.row0 + (uint32_t)r, (uint32_t)j,
                                  (uint32_t)t, 0u) * sig;
         a.h[(size_t)r * a.Hs + j] = sigmoidf_exact(logit);
       }
@@ -254,8 +259,8 @@ chain_kernel(ChainArgs a) {
     auto logit_of = [&](float sum, int r, int i) {
       float logit = (sum + __ldg(a.vb + i)) * inv_T;
       if (noisy)
-        logit += philox_normal(a.seed, (uint32_t)r, (uint32_t)i, (uint32_t)t,
-                               1u) * sig;
+        logit += philox_normal(a.seed, a.row0 + (uint32_t)r, (uint32_t)i,
+                               (uint32_t)t, 1u) * sig;
       return logit;
     };
     // v = sigmoid of l outside the groups ...
@@ -352,8 +357,10 @@ cudaError_t resident_grid(int* grid) {
 }
 
 // The tiling of one chain: a pure function of the shape and the card.
-// tile_rows (32, 64, 128) and max_grid > 0 override the choice of the
-// tile and cap the number of blocks (for measurements).
+// plan_B is the batch the tile and the k-slices are chosen for (the whole
+// batch of which B rows are launched; B when 0). tile_rows (32, 64, 128)
+// and max_grid > 0 override the choice of the tile and cap the number of
+// blocks (for measurements).
 cudaError_t make_plan(int B, int V, int H, int tile_rows, int max_grid,
                       Plan* p) {
   // A large W (the bimodal joint) is bound by the products: 128-row tiles
@@ -381,8 +388,10 @@ cudaError_t make_plan(int B, int V, int H, int tile_rows, int max_grid,
   }
   if (p->grid > max_grid) p->grid = max_grid;
   p->tile_rows = tile_rows;
-  phase_slices(B, H, V, tile_rows, p->grid, &p->slices_h, &p->k_per_slice_h);
-  phase_slices(B, V, H, tile_rows, p->grid, &p->slices_v, &p->k_per_slice_v);
+  phase_slices(B, H, V, tile_rows, p->grid, &p->slices_h,
+               &p->k_per_slice_h);
+  phase_slices(B, V, H, tile_rows, p->grid, &p->slices_v,
+               &p->k_per_slice_v);
   return cudaSuccess;
 }
 
@@ -399,11 +408,15 @@ cudaError_t launch(ChainArgs& a, int grid, void* stream) {
 
 // out6 = (tile_rows, grid, slices_h, slices_v, floats of `partial`,
 // grid barriers of a chain of n_steps [+ the final pass]).
+// plan_B: the batch the plan is made for (B when 0); the scratch sizes are
+// those of the B rows launched.
 extern "C" int chain_plan(int B, int V, int H, int n_steps,
                           int final_unclamped, int tile_rows,
-                          int max_grid, long long* out6) {
+                          int max_grid, int plan_B, long long* out6) {
   Plan p;
-  const cudaError_t err = make_plan(B, V, H, tile_rows, max_grid, &p);
+  if (plan_B < B && plan_B != 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      make_plan(plan_B > 0 ? plan_B : B, V, H, tile_rows, max_grid, &p);
   if (err != cudaSuccess) return (int)err;
   const long long ph = (long long)p.slices_h * B * ((H + 3) / 4 * 4);
   const long long pv = (long long)p.slices_v * B * ((V + 3) / 4 * 4);
@@ -427,18 +440,20 @@ extern "C" int chain_run(const float* w, const float* hb, const float* vb,
                          int B, int V, int H, int n_steps, int n_groups,
                          int Dz, int noisy, unsigned long long seed,
                          int final_unclamped, int tile_rows,
-                         int max_grid, void* stream) {
+                         int max_grid, int row0, int plan_B, void* stream) {
   if (B <= 0 || V <= 0) return 0;
-  if (n_groups < 0 || n_groups > MAX_GROUPS || H <= 0)
+  if (n_groups < 0 || n_groups > MAX_GROUPS || H <= 0 || row0 < 0 ||
+      (plan_B < B && plan_B != 0))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t err = make_plan(B, V, H, tile_rows, max_grid, &p);
+  cudaError_t err =
+      make_plan(plan_B > 0 ? plan_B : B, V, H, tile_rows, max_grid, &p);
   if (err != cudaSuccess) return (int)err;
   ChainArgs a{w, hb, vb, v_init, v_known, km, mu, sched, groups, out, v, h,
               logits, partial, barrier, B, V, H, (V + 3) / 4 * 4,
               (H + 3) / 4 * 4, n_steps > 0 ? n_steps : 0, n_groups, Dz, noisy,
               final_unclamped, p.slices_h, p.k_per_slice_h, p.slices_v,
-              p.k_per_slice_v, seed};
+              p.k_per_slice_v, seed, (uint32_t)row0};
   err = p.tile_rows == 128  ? launch<8>(a, p.grid, stream)
         : p.tile_rows == 64 ? launch<4>(a, p.grid, stream)
                             : launch<2>(a, p.grid, stream);

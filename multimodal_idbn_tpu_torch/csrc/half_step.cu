@@ -1,8 +1,13 @@
 // Fused RBM half-step for Hopper (sm_90a), fp32.
 //
 //   probs  = sigmoid((x . W[^T] + b) * inv_T)
-//   sample = probs > u(seed, row, col)        (Philox4x32-10, philox.cuh)
+//   sample = probs > u(seed, row0 + row, col0 + col)   (Philox4x32-10,
+//                                                      philox.cuh)
 //
+// row0 and col0 place the operand in a larger one: a data-parallel rank
+// that holds rows row0.. of the batch, or a model-parallel rank that holds
+// columns col0.. of W, draws the uniforms of those global elements, the
+// bits a single device draws for them.
 // One kernel body, three entry points, each replacing one TPU kernel:
 //
 // - half_step_sample: half_step_sample_aligned /
@@ -76,6 +81,7 @@ struct HalfStepArgs {
   int B, K, N, slices, k_per_slice;
   float inv_T;
   uint64_t seed;
+  uint32_t row0, col0;  // global index of this operand's first row, column
 };
 
 template <bool TRANSPOSE, int TM>
@@ -134,7 +140,8 @@ half_step_kernel(HalfStepArgs a) {
       a.probs[o] = p;
       if (a.sample != nullptr) {
         const float u =
-            philox_uniform(a.seed, (uint32_t)r, (uint32_t)c, 0u, 0u);
+            philox_uniform(a.seed, a.row0 + (uint32_t)r,
+                           a.col0 + (uint32_t)c, 0u, 0u);
         a.sample[o] = p > u ? 1.0f : 0.0f;
       }
     }
@@ -163,16 +170,18 @@ int launch_tile(const HalfStepArgs& a, void* stream) {
 int launch(const float* x, const float* w, const float* b, float* probs,
            float* sample, float* scratch, int* tickets, int B, int K, int N,
            bool transpose_w, int tile_rows, int slices, int k_per_slice,
-           float inv_T, uint64_t seed, void* stream) {
+           float inv_T, uint64_t seed, int row0, int col0, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if ((tile_rows != 32 && tile_rows != 64) || slices < 1 ||
       slices > 65535 || k_per_slice < gemm::BK ||
       k_per_slice % gemm::BK != 0 ||
-      (long long)slices * k_per_slice < (long long)K ||
+      (long long)slices * k_per_slice < (long long)K || row0 < 0 ||
+      col0 < 0 ||
       (slices > 1 && (scratch == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const HalfStepArgs a{x, w, b, probs, sample, scratch, tickets, B, K, N,
-                       slices, k_per_slice, inv_T, seed};
+                       slices, k_per_slice, inv_T, seed, (uint32_t)row0,
+                       (uint32_t)col0};
   if (tile_rows == 64)
     return transpose_w ? launch_tile<true, 4>(a, stream)
                        : launch_tile<false, 4>(a, stream);
@@ -187,10 +196,11 @@ extern "C" int half_step_sample(const float* x, const float* w,
                                 float* scratch, int* tickets, int B, int K,
                                 int N, int transpose_w, int tile_rows,
                                 int slices, int k_per_slice, float inv_T,
-                                unsigned long long seed, void* stream) {
+                                unsigned long long seed, int row0, int col0,
+                                void* stream) {
   return launch(x, w, b, probs, sample, scratch, tickets, B, K, N,
                 transpose_w != 0, tile_rows, slices, k_per_slice, inv_T,
-                seed, stream);
+                seed, row0, col0, stream);
 }
 
 extern "C" int half_step_probs(const float* x, const float* w,
@@ -199,7 +209,7 @@ extern "C" int half_step_probs(const float* x, const float* w,
                                int tile_rows, int slices, int k_per_slice,
                                float inv_T, void* stream) {
   return launch(x, w, b, probs, nullptr, scratch, tickets, B, K, N, false,
-                tile_rows, slices, k_per_slice, inv_T, 0, stream);
+                tile_rows, slices, k_per_slice, inv_T, 0, 0, 0, stream);
 }
 
 // seed is the TPU kernel's int32 seed; its 32 bits key Philox.
@@ -211,7 +221,7 @@ extern "C" int half_step_sample_resident(const float* x, const float* w,
                                          int k_per_slice, float inv_T,
                                          unsigned int seed, void* stream) {
   return launch(x, w, b, probs, sample, scratch, tickets, B, K, N, false,
-                tile_rows, slices, k_per_slice, inv_T, (uint64_t)seed,
+                tile_rows, slices, k_per_slice, inv_T, (uint64_t)seed, 0, 0,
                 stream);
 }
 

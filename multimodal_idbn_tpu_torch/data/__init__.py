@@ -127,15 +127,17 @@ def create_dataloaders_uniform(data_path: Optional[str] = None,
                                val_size: float = 0.15,
                                test_size: float = 0.15,
                                num_classes: int = 32, n_samples: int = 512,
-                               side: int = 100, seed: int = 0):
+                               side: int = 100, seed: int = 0,
+                               path2data: Optional[str] = None):
     """(train, val, test) loaders with uniform class frequencies
     (multimodal_idbn_tpu/data/__init__.py:131-154). ``num_workers`` and
     ``multimodal_flag`` are accepted for the reference's signature and
     unused, as there: batches are gathered with NumPy, and unimodal and
-    multimodal loaders share the (images, onehot) batch contract."""
+    multimodal loaders share the (images, onehot) batch contract.
+    ``path2data`` is the reference's older name of ``data_path``."""
     del num_workers, multimodal_flag
-    data = _from_npz_or_synthetic(data_path, data_name, num_classes,
-                                  n_samples, side, seed)
+    data = _from_npz_or_synthetic(data_path or path2data, data_name,
+                                  num_classes, n_samples, side, seed)
     return _build_loaders(data, batch_size, second_modality, mnist100_path,
                           val_size, test_size, seed)
 
@@ -150,13 +152,15 @@ def create_dataloaders_zipfian(data_path: Optional[str] = None,
                                test_size: float = 0.15,
                                num_classes: int = 32, n_samples: int = 512,
                                side: int = 100, seed: int = 0,
-                               zipf_exponent: float = 1.0):
+                               zipf_exponent: float = 1.0,
+                               path2data: Optional[str] = None):
     """(train, val, test) loaders with Zipf-distributed class frequencies,
     p_k ∝ 1/k^zipf_exponent (multimodal_idbn_tpu/data/__init__.py:157-175,
-    reference README.md:219)."""
+    reference README.md:219); ``path2data`` as in
+    ``create_dataloaders_uniform``."""
     del num_workers, multimodal_flag
     data = _from_npz_or_synthetic(
-        data_path, data_name, num_classes, n_samples, side, seed,
+        data_path or path2data, data_name, num_classes, n_samples, side, seed,
         class_probs=zipf_probs(num_classes, zipf_exponent))
     return _build_loaders(data, batch_size, second_modality, mnist100_path,
                           val_size, test_size, seed)

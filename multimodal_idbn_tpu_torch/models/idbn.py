@@ -25,8 +25,17 @@ chosen from them before any launch (``_fast_sampler``, the counterpart of
 :164-180): fp32 CD and fp32 PCD run the half-step kernel (``fast_cd``),
 bf16 storage and mixed precision run ``rbm_ops.cd_update`` /
 ``pcd_update`` in plain torch, and the bf16 route says so once.
-``DP_DEVICES`` raises ``NotImplementedError`` (the ``parallel/`` slice);
-the per-batch loop over loaders that cannot materialize is not ported.
+
+``train(fused=None)`` picks the epoch path by the loader (:307-345,
+:425-445): one that offers ``materialize()`` trains epochs permuted by
+(seed, epoch) on the device; any other is iterated batch by batch, every
+layer through ``RBM.train_epoch`` (the half-step kernel for fp32), its
+shuffle counter re-aligned on a resumed run (``align_loader_for_resume``).
+Data parallelism (``DP_DEVICES`` or ``set_mesh``, :126-130, :183-206):
+the fused epochs run over ``parallel.make_mesh``'s process group, each
+process on its rows of every batch (``dbn_train.idbn_epoch_block`` with
+the mesh); it takes the default fp32 CD path and bf16 storage, not PCD,
+``COMPUTE_DTYPE`` or the per-batch loop, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,14 +47,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+from multimodal_idbn_tpu_torch.checkpoint import (align_loader_for_resume,
+                                                  checkpoint_epochs,
                                                   maybe_save_train_checkpoint,
                                                   save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM, param_compute_dtype,
-                                                  param_dtype, param_sr,
-                                                  refuse_dp_devices)
+                                                  param_dtype, param_sr)
 from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
@@ -102,8 +111,9 @@ def check_train_args(start_epoch: int, epochs: int, checkpoint_every: int,
 class iDBN:
     """Stack of RBMs with iterative layer-wise training.
 
-    ``dataloader`` must offer ``materialize()`` (the whole split as
-    arrays) and ``batch_size``. ``params`` is the UPPERCASE dict of
+    ``dataloader`` yields (images, labels) batches and offers
+    ``batch_size``; with ``materialize()`` (the whole split as arrays)
+    ``train`` runs the fused epochs. ``params`` is the UPPERCASE dict of
     ``train_multimodal.build_params``. One validation batch is cached for
     the collapse check and the reconstruction snapshots
     (JAX models/idbn.py:79-83). ``wandb_run``: any object with
@@ -130,7 +140,10 @@ class iDBN:
             self.val_batch = next(iter(val_loader), (None,))[0]
         self.features = val_features(val_loader)
         self._init_seed = seed
-        refuse_dp_devices(params, "iDBN")
+        # params["DP_DEVICES"] = N | "all": data parallelism, the mesh made
+        # at train time (set_mesh)
+        self.mesh = None
+        self._dp_devices = params.get("DP_DEVICES")
         self.dtype = param_dtype(params)
         self.compute_dtype = param_compute_dtype(params)
         self.sr = param_sr(params)
@@ -191,6 +204,27 @@ class iDBN:
             self._route_said = True
         return False
 
+    def set_mesh(self, mesh) -> None:
+        """Train data-parallel over ``mesh``: a ``parallel.Mesh``, a
+        device count, ``"all"``, or None to train on this device alone
+        (JAX models/idbn.py:183-194). An explicit call, None included,
+        overrides ``DP_DEVICES``."""
+        from multimodal_idbn_tpu_torch.parallel import resolve_mesh
+        self.mesh = resolve_mesh(mesh)
+        self._dp_devices = None
+
+    def _resolve_mesh(self):
+        """The mesh, made from ``DP_DEVICES`` at first use; refuses PCD
+        and ``COMPUTE_DTYPE`` under a mesh (JAX models/idbn.py:196-206)."""
+        if self.mesh is None and self._dp_devices:
+            self.set_mesh(self._dp_devices)
+        if self.mesh is not None and (self.use_pcd
+                                      or self.compute_dtype is not None):
+            raise ValueError(
+                "data-parallel training (DP_DEVICES/set_mesh) supports "
+                "the default f32 CD path only — not PCD or COMPUTE_DTYPE")
+        return self.mesh
+
     def _ensure_pcd_chains(self, batch_size: int):
         """Per-layer fantasy particles [batch_size, V_i] in the layer's
         storage dtype, created once from ``SEED + 12345`` and kept across
@@ -209,29 +243,33 @@ class iDBN:
 
     def _train_epoch(self, epoch: int, data: torch.Tensor, bs: int) -> float:
         """One epoch: the split permuted by this epoch's key, its full
-        batches in order (``dbn_train.idbn_epoch``, or ``idbn_epoch_pcd``
-        with the fantasy particles under PCD), then the remainder batch by
-        CD, so every sample trains exactly once. Returns the mean loss
-        over the (batch, layer) entries (reference idbn.py:204-208)."""
-        n = data.shape[0]
-        key = rng.fold_in(int(self.params.get("SEED", 0)), epoch)
-        data_p = data[rng.permutation(key, n).to(self.device)]
+        batches in order, then the remainder batch by CD, so every sample
+        trains exactly once (``dbn_train.idbn_epoch_block``, over the mesh
+        when there is one; under PCD ``idbn_epoch_pcd`` with the fantasy
+        particles). Returns the mean loss over the (batch, layer) entries
+        (reference idbn.py:204-208)."""
+        seed = int(self.params.get("SEED", 0))
         r0 = self.layers[0]
-        kw = dict(lr=effective_lr(r0.lr, epoch, r0.dynamic_lr),
-                  mom=effective_momentum(r0.momentum, r0.final_momentum,
-                                         epoch),
-                  weight_decay=r0.weight_decay,
+        lr = effective_lr(r0.lr, epoch, r0.dynamic_lr)
+        mom = effective_momentum(r0.momentum, r0.final_momentum, epoch)
+        kw = dict(weight_decay=r0.weight_decay,
                   sparsity_factor=self.sparsity_factor, cd=self.cd_k,
                   sparsity_flags=[r.sparsity for r in self.layers],
                   compute_dtype=self.compute_dtype, sr=self.sr,
                   fast_sampler=self._fast_sampler())
-        if self.use_pcd:
-            states, self._pcd_chains, losses = dbn_train.idbn_epoch_pcd(
-                self.states(), self._ensure_pcd_chains(bs), key, data_p,
-                batch_size=bs, **kw)
-        else:
-            states, losses = dbn_train.idbn_epoch(
-                self.states(), key, data_p, batch_size=bs, **kw)
+        if not self.use_pcd:
+            states, sums, counts = dbn_train.idbn_epoch_block(
+                self.states(), seed, data, [epoch], [lr], [mom],
+                batch_size=bs, mesh=self.mesh, **kw)
+            self._set_states(states)
+            return float(sums[0]) / max(1, counts[0])
+        n = data.shape[0]
+        key = rng.fold_in(seed, epoch)
+        data_p = data[rng.permutation(key, n).to(self.device)]
+        kw.update(lr=lr, mom=mom)
+        states, self._pcd_chains, losses = dbn_train.idbn_epoch_pcd(
+            self.states(), self._ensure_pcd_chains(bs), key, data_p,
+            batch_size=bs, **kw)
         loss_sum, count = losses.sum(), losses.numel()
         rem = n - (n // bs) * bs
         if rem:
@@ -241,6 +279,21 @@ class iDBN:
         self._set_states(states)
         return float(loss_sum) / max(1, count)
 
+    def _train_epoch_batched(self, epoch: int, epochs: int) -> float:
+        """One epoch over the loader's batches, every layer updated on
+        every batch by ``RBM.train_epoch`` and fed the post-update
+        activations of the layer below; returns the mean of all (batch,
+        layer) losses (JAX models/idbn.py:433-442)."""
+        losses = []
+        for img, _ in self.dataloader:
+            v = as_tensor(img, self.device)
+            v = v.reshape(v.shape[0], -1)
+            for rbm in self.layers:
+                losses.append(float(rbm.train_epoch(v, epoch, epochs,
+                                                    CD=self.cd_k)))
+                v = rbm.forward(v)
+        return float(np.mean(losses)) if losses else 0.0
+
     def _save_train_checkpoint(self, path, next_epoch: int,
                                phase: str = "image") -> None:
         save_train_checkpoint(self, path, phase=phase,
@@ -248,8 +301,8 @@ class iDBN:
                               loss_history=self.loss_history)
 
     def train(self, epochs: int, log_every_pca: int = 25,
-              log_every_probe: int = 10, start_epoch: int = 0,
-              checkpoint_every: int = 0,
+              log_every_probe: int = 10, fused: Optional[bool] = None,
+              start_epoch: int = 0, checkpoint_every: int = 0,
               checkpoint_path: Optional[str] = None,
               checkpoint_phase: str = "image") -> None:
         """Train epochs ``start_epoch .. epochs - 1``
@@ -258,26 +311,44 @@ class iDBN:
         (``_log_epoch``: PCA every ``log_every_pca`` epochs, probes every
         ``log_every_probe``).
 
+        ``fused=None`` runs the fused epochs when the loader offers
+        ``materialize()`` and the per-batch loop otherwise; ``False``
+        forces the loop. Data parallelism needs the fused epochs.
+
         Crash-safe resume: with ``checkpoint_every=N`` and
         ``checkpoint_path`` a resumable checkpoint (weights, momentum, loss
         history) is written every N epochs; ``start_epoch=k`` continues a
         run restored by ``checkpoint.load_train_checkpoint``. Epoch e draws
         from ``fold_in(SEED, e)`` alone, so the resumed run is bit-identical
-        to an uninterrupted one (tests/test_torch_resume.py).
+        to an uninterrupted one (tests/test_torch_resume.py); the per-batch
+        loop draws from the shells' streams and the loader's shuffle
+        counter, both restored with the checkpoint.
         ``checkpoint_phase`` tags the files ("image", "mod1", "mod2").
         """
+        if fused is None:
+            fused = hasattr(self.dataloader, "materialize")
+        if self._resolve_mesh() is not None and not fused:
+            raise ValueError("data-parallel training needs the fused "
+                             "epoch path (a dataloader with "
+                             ".materialize(), or fused=True)")
         epochs, start_epoch = int(epochs), int(start_epoch)
         check_train_args(start_epoch, epochs, checkpoint_every,
                          checkpoint_path)
-        data = as_tensor(self.dataloader.materialize()[0], self.device)
         bs = int(getattr(self.dataloader, "batch_size", 128))
+        if fused:
+            data = as_tensor(self.dataloader.materialize()[0], self.device)
+            data = data.reshape(data.shape[0], -1)
+        else:
+            align_loader_for_resume(self, start_epoch)
         timer = StepTimer(self.device)
         for b_start, b_end in checkpoint_epochs(
                 start_epoch, epochs,
                 checkpoint_every if checkpoint_path else 0):
             for epoch in range(b_start, b_end):
                 with timer.step():
-                    mean_loss = self._train_epoch(epoch, data, bs)
+                    mean_loss = (self._train_epoch(epoch, data, bs) if fused
+                                 else self._train_epoch_batched(epoch,
+                                                                epochs))
                 self.loss_history.append(mean_loss)
                 if self.wandb_run is not None:
                     timer.log_to(self.wandb_run, prefix="perf/idbn_epoch",
@@ -482,6 +553,7 @@ class iDBN:
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
+        d["mesh"] = None  # a process group lives with its job, not a file
         if d.get("val_batch") is not None:
             d["val_batch"] = np.asarray(d["val_batch"])
         if d.get("_pcd_chains") is not None:  # fp32, as the layers unpickle
@@ -495,7 +567,8 @@ class iDBN:
                      ("text_flag", False), ("dtype", torch.float32),
                      ("compute_dtype", None), ("sr", None),
                      ("use_pcd", False), ("_pcd_chains", None),
-                     ("_route_said", False)):
+                     ("_route_said", False), ("mesh", None),
+                     ("_dp_devices", None)):
             d.setdefault(k, v)
         d.setdefault("arch_dir", os.path.join(
             "logs-idbn", f"architecture_{d.get('arch_str', 'loaded')}"))

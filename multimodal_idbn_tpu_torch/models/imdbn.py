@@ -15,7 +15,15 @@ logging to a run object (``_log_joint_epoch``, ``_get_log_cfg``,
 Image latents are computed once per joint run, as the image iDBN is frozen
 there. The diagnostics draw from the joint RBM's own stream, never from
 the training keys, so logging leaves the trained parameters unchanged.
-The per-batch loop over loaders that cannot materialize is not ported.
+
+``train_joint(fused=None)`` picks the epoch path by the loader, as the JAX
+model does (:464-484, :600-604): the fused epochs over a loader with
+``materialize()``, else the per-batch loop (``_train_joint_epoch_batched``,
+:700-760) through the joint RBM's own updates, its bias init iterating
+the loader (``_materialized_train(limit)``, :207-236). Data parallelism
+(``DP_DEVICES`` or ``set_mesh``, :129-134, :189-203) reaches both phases:
+the image iDBN's epochs and the joint epochs run over the mesh
+(``imdbn_ops.joint_epoch_block``); it needs the fused epochs.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch import convert
-from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+from multimodal_idbn_tpu_torch.checkpoint import (align_loader_for_resume,
+                                                  checkpoint_epochs,
                                                   maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
@@ -36,8 +45,7 @@ from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
                                                    feature_map, val_features)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM,
                                                   _warn_compute_dtype_joint,
-                                                  param_dtype, param_sr,
-                                                  refuse_dp_devices)
+                                                  param_dtype, param_sr)
 from multimodal_idbn_tpu_torch.ops import imdbn_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
@@ -143,7 +151,9 @@ class iMDBN:
                             else load_logging_cfg(logging_config_path))
         self.num_labels = int(num_labels)
         self._seed = seed
-        refuse_dp_devices(params, "iMDBN")
+        # params["DP_DEVICES"]: data parallelism of both phases (set_mesh)
+        self.mesh = None
+        self._dp_devices = params.get("DP_DEVICES")
         # the first validation batch, for the snapshots (JAX :96-105)
         self.validation_images = self.validation_labels = None
         first = next(iter(val_loader), None) if val_loader is not None \
@@ -191,6 +201,21 @@ class iMDBN:
     def _joint_groups(self):
         return ((self.Dz_img, self.Dz_img + self.num_labels),)
 
+    def set_mesh(self, mesh) -> None:
+        """Train both phases data-parallel over ``mesh`` (a
+        ``parallel.Mesh``, a device count, ``"all"``, or None), the image
+        iDBN included (JAX models/imdbn.py:189-196). An explicit call,
+        None included, overrides ``DP_DEVICES``."""
+        from multimodal_idbn_tpu_torch.parallel import resolve_mesh
+        self.mesh = resolve_mesh(mesh)
+        self._dp_devices = None
+        self.image_idbn.set_mesh(self.mesh)
+
+    def _resolve_mesh(self):
+        if self.mesh is None and self._dp_devices:
+            self.set_mesh(self._dp_devices)
+        return self.mesh
+
     def to(self, device: DeviceLike = None) -> "iMDBN":
         """Move the whole model to ``device`` (``cuda`` unless ``"cpu"``)."""
         self.device = resolve_device(device)
@@ -200,21 +225,40 @@ class iMDBN:
             self.z_class_mean = self.z_class_mean.to(self.device)
         return self
 
-    def _materialized_train(self):
-        """(images [N, D], one-hot [N, K], z_img [N, Dz]) on the device."""
-        imgs, y = self.dataloader.materialize()
-        X = as_tensor(np.asarray(imgs).reshape(len(imgs), -1), self.device)
+    def _materialized_train(self, limit: Optional[int] = None):
+        """(images [N, D], one-hot [N, K], z_img [N, Dz]) on the device:
+        ``materialize()`` where the loader has it, else its batches
+        (JAX models/imdbn.py:207-236). ``limit`` caps the rows before
+        they are encoded."""
+        if hasattr(self.dataloader, "materialize"):
+            imgs, y = self.dataloader.materialize()
+            imgs, y = np.asarray(imgs), np.asarray(y, np.float32)
+        else:
+            im_list, y_list, n = [], [], 0
+            for bi, bl in self.dataloader:
+                im_list.append(np.asarray(bi))
+                y_list.append(np.asarray(bl, np.float32))
+                n += len(im_list[-1])
+                if limit is not None and n >= limit:
+                    break
+            if not im_list:
+                raise RuntimeError("empty dataloader")
+            imgs, y = np.concatenate(im_list), np.concatenate(y_list)
+        if limit is not None:
+            imgs, y = imgs[:limit], y[:limit]
+        X = as_tensor(imgs.reshape(len(imgs), -1), self.device)
         Y = as_tensor(y, self.device)
         return X, Y, self.image_idbn.represent(X)
 
     def init_joint_bias_from_data(self, n_batches: int = 10,
                                   _cached=None) -> None:
         """Joint visible biases and per-class latent means from the first
-        ``n_batches`` batches' worth of samples (JAX models/imdbn.py:239-268)."""
+        ``n_batches`` batches' worth of samples (JAX models/imdbn.py:239-268).
+        """
         limit = int(n_batches) * int(getattr(self.dataloader, "batch_size",
                                              128))
         _, Y, Z = _cached if _cached is not None \
-            else self._materialized_train()
+            else self._materialized_train(limit)
         Z, Y = Z[:limit], Y[:limit]
         if Z.shape[0] == 0:
             return
@@ -345,43 +389,33 @@ class iMDBN:
 
     def _train_joint_epoch(self, epoch, X, Y, Z, bs, idbn_states,
                            aux_cond_steps, metrics_every) -> List[float]:
-        """One joint epoch: the split permuted by this epoch's key, its full
-        batches (``imdbn_ops.joint_epoch``), then the remainder; sets
-        ``last_metrics`` and appends them to ``joint_metrics_history``.
-        Returns the free-CD losses, one per batch (none in the warm-up),
-        as JAX models/imdbn.py:576-597 collects them."""
-        n = Z.shape[0]
-        nb = n // bs
+        """One fused joint epoch: the split permuted by this epoch's key,
+        its full batches, then the remainder
+        (``imdbn_ops.joint_epoch_block``, over the mesh when there is one);
+        sets ``last_metrics``. Returns the free-CD losses, one per batch
+        (none in the warm-up), as JAX models/imdbn.py:576-597 collects
+        them."""
         jr = self.joint_rbm
-        key = rng.fold_in(int(self.params.get("SEED", 0)) + 7, epoch)
-        perm = rng.permutation(key, n).to(self.device)
-        Zp, Yp, Xp = Z[perm], Y[perm], X[perm]
-        lr = effective_lr(jr.lr, epoch, jr.dynamic_lr)
-        mom = effective_momentum(jr.momentum, jr.final_momentum, epoch)
-        statics = dict(warmup=epoch < WARMUP_Y_EPOCHS,
-                       joint_cd=self.joint_cd,
-                       aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
-                       steps=self.cross_steps, groups=self._joint_groups(),
-                       use_free_energy=not self.reference_best_of_k_bug,
-                       zclamp_every=ZCLAMP_EVERY, sr=jr.sr)
-        joint, mean_cd, totals = imdbn_ops.joint_epoch(
-            jr.state, idbn_states, key, Zp, Yp, Xp, lr, mom,
-            jr.weight_decay, self.z_class_mean, batch_size=bs,
-            metrics_every=metrics_every, **statics)
-        cd_losses = [] if statics["warmup"] else [mean_cd] * nb
-        if n - nb * bs:
-            joint, cd_rem, m_rem = imdbn_ops._joint_train_batch(
-                joint, idbn_states, rng.fold_in(key, 991),
-                Zp[nb * bs:], Yp[nb * bs:], Xp[nb * bs:], nb, lr, mom,
-                jr.weight_decay, self.z_class_mean,
-                # the remainder has metrics only at the every-batch cadence
-                # (JAX ops/imdbn_ops.py:430, models/imdbn.py:592)
-                compute_metrics=(max(1, metrics_every) == 1), **statics)
-            totals = imdbn_ops.add_metrics(totals, m_rem)
-            if not statics["warmup"]:
-                cd_losses.append(cd_rem)
+        joint, cd_losses, totals = imdbn_ops.joint_epoch_block(
+            jr.state, idbn_states, int(self.params.get("SEED", 0)) + 7, Z,
+            Y, X, [epoch], [effective_lr(jr.lr, epoch, jr.dynamic_lr)],
+            [effective_momentum(jr.momentum, jr.final_momentum, epoch)],
+            jr.weight_decay, self.z_class_mean,
+            warmup=epoch < WARMUP_Y_EPOCHS, joint_cd=self.joint_cd,
+            aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
+            steps=self.cross_steps, groups=self._joint_groups(),
+            use_free_energy=not self.reference_best_of_k_bug,
+            zclamp_every=ZCLAMP_EVERY, batch_size=bs,
+            metrics_every=metrics_every, sr=jr.sr, mesh=self.mesh)
         jr.state = joint
-        tot = {k: float(v) for k, v in totals._asdict().items()}
+        self._set_last_metrics(
+            epoch, {k: float(v) for k, v in totals[0]._asdict().items()},
+            X.shape[1])
+        return [float(c) for c in cd_losses[0]]
+
+    def _set_last_metrics(self, epoch: int, tot: dict, npix: int) -> None:
+        """``last_metrics`` from an epoch's metric sums, appended to
+        ``joint_metrics_history``; None for an epoch without metrics."""
         self.last_metrics = None
         if tot["n"] > 0:
             self.last_metrics = {
@@ -389,15 +423,65 @@ class iMDBN:
                 "cross_modality/text_top3": tot["top3"] / tot["n"],
                 "cross_modality/text_ce": tot["ce_sum"] / tot["n"],
                 "cross_modality/image_mse":
-                    tot["mse_sum"] / max(1.0, tot["n"] * X.shape[1]),
+                    tot["mse_sum"] / max(1.0, tot["n"] * npix),
             }
             self.joint_metrics_history.append(
                 dict(self.last_metrics, epoch=epoch))
-        return [float(c) for c in cd_losses]
+
+    def _train_joint_epoch_batched(self, epoch, epochs, warmup,
+                                   aux_cond_steps, metrics_every: int = 1):
+        """The reference's per-batch loop for loaders that cannot
+        materialize (JAX models/imdbn.py:700-760): each batch's latents,
+        then the joint RBM's own updates (``train_epoch``, and
+        ``train_epoch_clamped`` with its noisy init on the chain kernel)
+        and the cross-modal round trip, keyed from its stream. Returns
+        (free-CD losses, metric sums, pixels per image)."""
+        Dz, K = self.Dz_img, self.num_labels
+        jr = self.joint_rbm
+        clamp = dict(CD=1, cond_init_steps=aux_cond_steps, sample_h=False,
+                     sample_v=False, aux_lr_mult=0.3, use_noisy_init=True)
+        cd_losses = []
+        tot = {"n": 0.0, "top1": 0.0, "top3": 0.0, "ce_sum": 0.0,
+               "mse_sum": 0.0}
+        npix = None
+        for b_idx, (img, y) in enumerate(self.dataloader):
+            img = as_tensor(img, self.device)
+            img = img.reshape(img.shape[0], -1)
+            y = as_tensor(y, self.device)
+            z_img = self.image_idbn.represent(img)
+            B = z_img.shape[0]
+            zeros_z = torch.zeros((B, Dz), device=self.device)
+            zeros_k = torch.zeros((B, K), device=self.device)
+            v_known = torch.cat([zeros_z, y], dim=1)
+            km = torch.cat([zeros_z, torch.ones((B, K),
+                                                device=self.device)], dim=1)
+            if warmup:
+                for _ in range(2):
+                    jr.train_epoch_clamped(v_known, km, epoch, epochs,
+                                           **clamp)
+            else:
+                cd_losses.append(float(jr.train_epoch(
+                    torch.cat([z_img, y], dim=1), epoch, epochs,
+                    CD=self.joint_cd)))
+                jr.train_epoch_clamped(v_known, km, epoch, epochs,
+                                       reclamp_negative=False, **clamp)
+                if b_idx % ZCLAMP_EVERY == 0:
+                    jr.train_epoch_clamped(
+                        torch.cat([z_img, zeros_k], dim=1), 1.0 - km, epoch,
+                        epochs, reclamp_negative=False, **clamp)
+            if metrics_every <= 1 or b_idx % metrics_every == 0:
+                img_from_txt, p_y = self._cross_reconstruct(z_img, y)
+                m = imdbn_ops.cross_metrics_batch(img_from_txt, p_y, img, y)
+                for k, v in m._asdict().items():
+                    tot[k] += float(v)
+            npix = img.shape[1]
+        return cd_losses, tot, npix
 
     def train_joint(self, epochs: int, log_every_pca: int = 25,
                     log_every_probe: int = 10, log_every: int = 5,
-                    start_epoch: int = 0, checkpoint_every: int = 0,
+                    w_rec: float = 1.0, w_sup: float = 0.0,
+                    fused: Optional[bool] = None, start_epoch: int = 0,
+                    checkpoint_every: int = 0,
                     checkpoint_path: Optional[str] = None) -> None:
         """Joint training (JAX models/imdbn.py:453-700): the first 8 epochs
         are y-clamped warm-up, then free CD-k + auxiliary clamped CD, with
@@ -415,16 +499,34 @@ class iMDBN:
         the data-derived bias init skipped, since the restored state holds
         the trained biases. Epoch e draws from ``fold_in(SEED + 7, e)``
         alone, so the resumed run is bit-identical
-        (tests/test_torch_resume.py).
+        (tests/test_torch_resume.py); the per-batch loop draws from the
+        joint RBM's stream and the loader's shuffle counter, both restored
+        with the checkpoint.
+
+        ``fused=None`` runs the fused epochs when the loader offers
+        ``materialize()`` and the per-batch loop otherwise; ``False``
+        forces the loop. ``w_rec`` / ``w_sup`` are accepted and unused, as
+        in the reference (imdbn.py:534-535).
         """
+        del w_rec, w_sup
         print("[iMDBN] joint training (with warmup y-clamp)")
+        if fused is None:
+            fused = hasattr(self.dataloader, "materialize")
+        if self._resolve_mesh() is not None and not fused:
+            raise ValueError("data-parallel joint training needs the "
+                             "fused epoch path (a dataloader with "
+                             ".materialize(), or fused=True)")
         epochs, start_epoch = int(epochs), int(start_epoch)
         check_train_args(start_epoch, epochs, checkpoint_every,
                          checkpoint_path)
-        X, Y, Z = self._materialized_train()
+        if fused:
+            X, Y, Z = self._materialized_train()
         if start_epoch == 0:
-            self.init_joint_bias_from_data(n_batches=10, _cached=(X, Y, Z))
+            self.init_joint_bias_from_data(
+                n_batches=10, _cached=(X, Y, Z) if fused else None)
             self.joint_metrics_history = []
+        if not fused:
+            align_loader_for_resume(self, start_epoch)
         bs = int(getattr(self.dataloader, "batch_size", 128))
         aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 10))
         metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
@@ -436,9 +538,16 @@ class iMDBN:
                 min(WARMUP_Y_EPOCHS, epochs)):
             for epoch in range(b_start, b_end):
                 with timer.step():
-                    cd_losses = self._train_joint_epoch(
-                        epoch, X, Y, Z, bs, idbn_states, aux_cond_steps,
-                        metrics_every)
+                    if fused:
+                        cd_losses = self._train_joint_epoch(
+                            epoch, X, Y, Z, bs, idbn_states,
+                            aux_cond_steps, metrics_every)
+                    else:
+                        cd_losses, tot, npix = \
+                            self._train_joint_epoch_batched(
+                                epoch, epochs, epoch < WARMUP_Y_EPOCHS,
+                                aux_cond_steps, metrics_every)
+                        self._set_last_metrics(epoch, tot, npix or 1)
                 if self.wandb_run is not None:
                     timer.log_to(self.wandb_run, prefix="perf/joint_epoch",
                                  epoch=epoch)
@@ -679,6 +788,8 @@ class iMDBN:
         m.logging_cfg = {}
         m.validation_images = m.validation_labels = None
         m._seed = m.params.get("SEED")
+        m.mesh = None
+        m._dp_devices = m.params.get("DP_DEVICES")
         m.num_labels = int(payload["num_labels"])
         m.Dz_img = int(payload["Dz_img"])
         m.image_idbn = payload["image_idbn"]
@@ -713,6 +824,7 @@ class iMDBN:
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
+        d["mesh"] = None  # a process group lives with its job, not a file
         d["z_class_mean"] = (None if self.z_class_mean is None else
                              self.z_class_mean.detach().cpu().numpy())
         return d
@@ -720,7 +832,7 @@ class iMDBN:
     def __setstate__(self, d):
         # pickles written before the diagnostics hooks lack their fields
         for k in ("wandb_run", "validation_images", "validation_labels",
-                  "features"):
+                  "features", "mesh", "_dp_devices"):
             d.setdefault(k, None)
         d.setdefault("logging_cfg", {})
         self.__dict__.update(d)

@@ -6,17 +6,20 @@ layer i), pretrained modality DBNs and the last-layer fine-tunes
 (:447-516), ``init_joint_bias_from_data``, the cross-modal inference
 (``_cross_reconstruct``, ``mod1_to_mod2``, ``mod2_to_mod1``, the sampled
 ``sample_mod1_to_mod2`` / ``sample_mod2_to_mod1``, ``represent``),
-``train_joint`` over materialized loaders with crash-safe resume (8
-warm-up epochs, then free CD down the joint stack plus the aux clamps;
-``ops.bimodal_ops``), and the pickle ``save_model`` / ``load_model``.
+``train_joint`` with crash-safe resume (8 warm-up epochs, then free CD
+down the joint stack plus the aux clamps; ``ops.bimodal_ops``), and the
+pickle ``save_model`` / ``load_model``. ``train_joint(fused=None)`` runs
+the fused epochs over a loader with ``materialize()`` and the per-batch
+loop (``_train_joint_epoch_batched``, JAX :828-861) over any other; data
+parallelism (``DP_DEVICES`` or ``set_mesh``, :364, :629-644) runs the
+fused epochs over the mesh (``bimodal_ops.bimodal_epoch_block``) and
+reaches both modality iDBNs.
 Modality latents are computed once per joint run, as the modality iDBNs
 are frozen there. The diagnostics are ported too: the module functions
 (:37-320: joint embeddings and features, the joint probe, the MOD2→MOD1
 chain and the latent trajectories 2-D / 3-D) and the per-epoch logging to
 a run object (``_log_joint_epoch``, ``_log_snapshots``, :863-1011); they
-draw from joint layer 0's own stream, never from the training keys. The
-per-batch loop over loaders that cannot materialize and data parallelism
-are not ported.
+draw from joint layer 0's own stream, never from the training keys.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch import convert
-from multimodal_idbn_tpu_torch.checkpoint import (checkpoint_epochs,
+from multimodal_idbn_tpu_torch.checkpoint import (align_loader_for_resume,
+                                                  checkpoint_epochs,
                                                   maybe_save_train_checkpoint)
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device, to_numpy)
@@ -39,8 +43,7 @@ from multimodal_idbn_tpu_torch.models.imdbn import (finetune_last_layer,
                                                     load_pretrained_layers)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM,
                                                   _warn_compute_dtype_joint,
-                                                  param_dtype, param_sr,
-                                                  refuse_dp_devices)
+                                                  param_dtype, param_sr)
 from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, rbm_ops,
                                            rng)
 from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
@@ -288,8 +291,8 @@ class iMDBN_BiModal:
     [z_mod1 ⊕ z_mod2] with no softmax groups; ``joint_rbm`` is joint
     layer 0 (JAX models/imdbn_bimodal.py:324-443).
 
-    ``dataloader`` yields (mod1, mod2) batches and offers
-    ``materialize()``; the modality iDBNs are trained on their own loaders
+    ``dataloader`` yields (mod1, mod2) batches, and may offer
+    ``materialize()`` for the fused epochs; the modality iDBNs are trained on their own loaders
     (``train_bimodal``). ``wandb_run``: any object with ``.log(dict)``;
     ``logging_cfg``: the YAML's ``logging:`` tree (the trajectory gate).
     """
@@ -302,7 +305,9 @@ class iMDBN_BiModal:
                  seed: Optional[int] = None, wandb_run=None,
                  logging_cfg: Optional[dict] = None):
         self.params = params or {}
-        refuse_dp_devices(self.params, "iMDBN_BiModal")
+        # params["DP_DEVICES"]: data parallelism of all three phases
+        self.mesh = None
+        self._dp_devices = self.params.get("DP_DEVICES")
         self.device = resolve_device(device)
         self.dataloader = dataloader
         self.val_loader = val_loader
@@ -364,6 +369,22 @@ class iMDBN_BiModal:
             f"MOD1{'-'.join(map(str, layer_sizes_mod1))}"
             f"_MOD2{'-'.join(map(str, layer_sizes_mod2))}"
             f"_JOINT{'-'.join(map(str, joint_layer_sizes))}")
+
+    def set_mesh(self, mesh) -> None:
+        """Train data-parallel over ``mesh`` (a ``parallel.Mesh``, a
+        device count, ``"all"``, or None): the joint DBN and both modality
+        iDBNs (JAX models/imdbn_bimodal.py:629-638). An explicit call, None
+        included, overrides ``DP_DEVICES``."""
+        from multimodal_idbn_tpu_torch.parallel import resolve_mesh
+        self.mesh = resolve_mesh(mesh)
+        self._dp_devices = None
+        self.mod1_dbn.set_mesh(self.mesh)
+        self.mod2_dbn.set_mesh(self.mesh)
+
+    def _resolve_mesh(self):
+        if self.mesh is None and self._dp_devices:
+            self.set_mesh(self._dp_devices)
+        return self.mesh
 
     def _joint_states(self):
         return [r.state for r in self.joint_layers]
@@ -507,7 +528,8 @@ class iMDBN_BiModal:
 
     def train_joint(self, epochs: int, log_every: int = 5,
                     log_every_pca: int = 25, log_every_probe: int = 10,
-                    log_every_trajectory: int = 50, start_epoch: int = 0,
+                    log_every_trajectory: int = 50,
+                    fused: Optional[bool] = None, start_epoch: int = 0,
                     checkpoint_every: int = 0,
                     checkpoint_path: Optional[str] = None) -> None:
         """Alternating-modality warm-up for the first ``WARMUP_EPOCHS``
@@ -523,6 +545,10 @@ class iMDBN_BiModal:
         crash-safe resume under the contract of ``iMDBN.train_joint``
         (phase tag "bimodal_joint"; bit-identical,
         tests/test_torch_resume.py).
+
+        ``fused=None`` runs the fused epochs when the loader offers
+        ``materialize()`` and the per-batch loop otherwise; ``False``
+        forces the loop. Data parallelism needs the fused epochs.
         """
         epochs, start_epoch = int(epochs), int(start_epoch)
         check_train_args(start_epoch, epochs, checkpoint_every,
@@ -532,16 +558,26 @@ class iMDBN_BiModal:
         if start_epoch == 0:
             self.init_joint_bias_from_data(n_batches=10)
             self.joint_metrics_history = []
-        m1, m2 = self.dataloader.materialize()
-        V1, V2 = as_tensor(m1, self.device), as_tensor(m2, self.device)
-        Z1, Z2 = self._latents(V1, V2)
-        bs = int(getattr(self.dataloader, "batch_size", 128))
-        n = Z1.shape[0]
+        if fused is None:
+            fused = hasattr(self.dataloader, "materialize")
+        mesh = self._resolve_mesh()
+        if mesh is not None and not fused:
+            raise ValueError("data-parallel joint training needs the "
+                             "fused epoch path (a dataloader with "
+                             ".materialize(), or fused=True)")
         aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 30))
         metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
-        mod1_states = self.mod1_dbn.states()
-        mod2_states = self.mod2_dbn.states()
-        npix1, npix2 = V1.shape[1], V2.shape[1]
+        npix1 = self.mod1_dbn.layers[0].num_visible
+        npix2 = self.mod2_dbn.layers[0].num_visible
+        if fused:
+            m1, m2 = self.dataloader.materialize()
+            V1, V2 = as_tensor(m1, self.device), as_tensor(m2, self.device)
+            Z1, Z2 = self._latents(V1, V2)
+            mod1_states = self.mod1_dbn.states()
+            mod2_states = self.mod2_dbn.states()
+        else:
+            align_loader_for_resume(self, start_epoch)
+        bs = int(getattr(self.dataloader, "batch_size", 128))
         jr = self.joint_rbm
         seed = int(self.params.get("SEED", 0)) + 11
         for b_start, b_end in checkpoint_epochs(
@@ -549,20 +585,29 @@ class iMDBN_BiModal:
                 checkpoint_every if checkpoint_path else 0,
                 min(WARMUP_EPOCHS, epochs)):
             for epoch in range(b_start, b_end):
-                key = rng.fold_in(seed, epoch)
-                perm = rng.permutation(key, n).to(self.device)
-                joint, cd_sum, cd_count, totals = bimodal_ops.bimodal_epoch(
-                    self._joint_states(), mod1_states, mod2_states, key,
-                    Z1[perm], Z2[perm], V1[perm], V2[perm],
-                    effective_lr(jr.lr, epoch, jr.dynamic_lr),
-                    effective_momentum(jr.momentum, jr.final_momentum,
-                                       epoch),
-                    jr.weight_decay, warmup=epoch < WARMUP_EPOCHS,
-                    joint_cd=self.joint_cd, aux_cond_steps=aux_cond_steps,
-                    Dz1=self.Dz_mod1, steps=self.cross_steps, batch_size=bs,
-                    metrics_every=metrics_every, sr=jr.sr)
-                self._set_joint_states(joint)
-                tot = {k: float(v) for k, v in totals._asdict().items()}
+                warmup = epoch < WARMUP_EPOCHS
+                lr = effective_lr(jr.lr, epoch, jr.dynamic_lr)
+                mom = effective_momentum(jr.momentum, jr.final_momentum,
+                                         epoch)
+                statics = dict(warmup=warmup, joint_cd=self.joint_cd,
+                               aux_cond_steps=aux_cond_steps,
+                               Dz1=self.Dz_mod1, steps=self.cross_steps,
+                               sr=jr.sr)
+                if fused:
+                    joint, sums, counts, totals = \
+                        bimodal_ops.bimodal_epoch_block(
+                            self._joint_states(), mod1_states, mod2_states,
+                            seed, Z1, Z2, V1, V2, [epoch], [lr], [mom],
+                            jr.weight_decay, batch_size=bs,
+                            metrics_every=metrics_every, mesh=mesh,
+                            **statics)
+                    self._set_joint_states(joint)
+                    cd_sum, cd_count = sums[0], counts[0]
+                    tot = {k: float(v)
+                           for k, v in totals[0]._asdict().items()}
+                else:
+                    cd_sum, cd_count, tot = self._train_joint_epoch_batched(
+                        lr, mom, metrics_every, statics)
                 self.last_metrics = None
                 if tot["n"] > 0:
                     self.last_metrics = {
@@ -583,6 +628,33 @@ class iMDBN_BiModal:
                                         checkpoint_every, "bimodal_joint",
                                         b_end, epochs)
         print("[iMDBN_BiModal] joint training finished.")
+
+    def _train_joint_epoch_batched(self, lr, mom, metrics_every: int,
+                                   statics: dict):
+        """The per-batch loop for loaders that cannot materialize (JAX
+        models/imdbn_bimodal.py:828-861): each (mod1, mod2) batch's
+        latents, then ``bimodal_ops.bimodal_batch_step`` keyed from joint
+        layer 0's stream. Returns (CD-loss sum, CD batches, metric sums)."""
+        jr = self.joint_rbm
+        cd_sum, count = 0.0, 0
+        tot = {"n": 0.0, "mse_mod1": 0.0, "mse_mod2": 0.0}
+        for b_idx, (mod1, mod2) in enumerate(self.dataloader):
+            v1, v2 = (as_tensor(m, self.device) for m in (mod1, mod2))
+            v1, v2 = v1.reshape(v1.shape[0], -1), v2.reshape(v2.shape[0], -1)
+            z1, z2 = self._latents(v1, v2)
+            joint, cd_loss, m = bimodal_ops.bimodal_batch_step(
+                self._joint_states(), self.mod1_dbn.states(),
+                self.mod2_dbn.states(), jr._next_key(), z1, z2, v1, v2, lr,
+                mom, jr.weight_decay,
+                compute_metrics=(metrics_every <= 1
+                                 or b_idx % metrics_every == 0), **statics)
+            self._set_joint_states(joint)
+            if not statics["warmup"]:
+                cd_sum += float(cd_loss)
+                count += 1
+            for k, v in m._asdict().items():
+                tot[k] += float(v)
+        return cd_sum, count, tot
 
     def _log_joint_epoch(self, epoch, cd_mean, log_every, log_every_pca,
                          log_every_probe, log_every_trajectory) -> None:
@@ -744,11 +816,13 @@ class iMDBN_BiModal:
         d["dataloader"] = None
         d["val_loader"] = None
         d["device"] = "cpu"
+        d["mesh"] = None  # a process group lives with its job, not a file
         return d
 
     def __setstate__(self, d):
         # pickles written before the diagnostics hooks lack their fields
-        for k in ("wandb_run", "validation_mod1", "validation_mod2"):
+        for k in ("wandb_run", "validation_mod1", "validation_mod2", "mesh",
+                  "_dp_devices"):
             d.setdefault(k, None)
         d.setdefault("logging_cfg", {})
         self.__dict__.update(d)

@@ -124,16 +124,6 @@ def _warn_compute_dtype_joint(params: dict, family: str) -> None:
               f"({_dtype_name(param_dtype(params))}).")
 
 
-def refuse_dp_devices(params: dict, family: str) -> None:
-    """``DP_DEVICES`` (data parallelism over several devices) is not
-    ported: a model given it raises rather than train on one device."""
-    if (params or {}).get("DP_DEVICES"):
-        raise NotImplementedError(
-            f"{family}: DP_DEVICES={params['DP_DEVICES']!r} (data "
-            f"parallelism) is not ported yet; it comes with the port's "
-            f"parallel/ slice (ROADMAP.md Queue 1)")
-
-
 class RBM:
     """Restricted Boltzmann Machine with Bernoulli units and softmax groups
     (reference rbm.py:24; JAX models/rbm.py:163-211).
@@ -216,13 +206,27 @@ class RBM:
     def W_m(self) -> torch.Tensor:
         return self.state.w_m
 
+    @W_m.setter
+    def W_m(self, value) -> None:
+        self.state = self.state.replace(w_m=self._as_stored(value))
+
     @property
     def hb_m(self) -> torch.Tensor:
         return self.state.hb_m
 
+    @hb_m.setter
+    def hb_m(self, value) -> None:
+        self.state = self.state.replace(
+            hb_m=self._as_stored(value).reshape(-1))
+
     @property
     def vb_m(self) -> torch.Tensor:
         return self.state.vb_m
+
+    @vb_m.setter
+    def vb_m(self, value) -> None:
+        self.state = self.state.replace(
+            vb_m=self._as_stored(value).reshape(-1))
 
     def reset_momentum(self) -> None:
         """Zero the momentum buffers, as the reference does on load
@@ -298,16 +302,11 @@ class RBM:
         del max_epochs
         lr = effective_lr(self.lr, epoch, self.dynamic_lr)
         mom = effective_momentum(self.momentum, self.final_momentum, epoch)
-        kw = dict(lr=lr, mom=mom, weight_decay=self.weight_decay,
-                  cd=int(CD), sparsity=self.sparsity,
-                  sparsity_factor=self.sparsity_factor)
-        if self.softmax_groups or self.state.w.dtype != torch.float32:
-            self.state, loss = rbm_ops.cd_update(
-                self.state, self._next_key(), self._as(data),
-                groups=self._groups(), sr=self.sr, **kw)
-        else:
-            self.state, loss = fast_cd.fast_sampled_cd_update(
-                self.state, self._next_key(), self._as(data), **kw)
+        self.state, loss = fast_cd.cd_update(
+            self.state, self._next_key(), self._as(data),
+            groups=self._groups(), sr=self.sr, lr=lr, mom=mom,
+            weight_decay=self.weight_decay, cd=int(CD),
+            sparsity=self.sparsity, sparsity_factor=self.sparsity_factor)
         return loss
 
     def train_epoch_clamped(self, v_known, known_mask, epoch: int,

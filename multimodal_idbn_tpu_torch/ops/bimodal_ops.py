@@ -11,8 +11,16 @@ DBN.
 
 The JAX epoch is a ``lax.scan`` (``bimodal_joint_epoch``) and, to cut TPU
 dispatches, a nested scan over epochs (``bimodal_epoch_block``); here one
-Python loop, ``bimodal_epoch``, covers both: the full batches of
-already-permuted data, then the remainder batch. Every clamped CD's
+Python loop, ``bimodal_epoch``, trains the full batches of
+already-permuted data, then the remainder batch; ``bimodal_joint_epoch``
+is its full batches alone and ``bimodal_epoch_block`` runs epochs one
+after another, each permuted by its own key.
+
+With a ``mesh`` (``parallel.make_mesh``) each process trains its rows of
+every full batch inside ``shard.rows_of``: every joint update sums over
+the mesh and the metric sums of the full batches are summed once an
+epoch; the remainder batch runs whole on every process (JAX
+models/imdbn_bimodal.py:760-775). Every clamped CD's
 30-step noisy init runs on the chain kernel on the card (``ops.chain``);
 the sampled conditional Gibbs of the cross metrics and the joint CD stay
 plain torch, as they are jnp in the JAX package.
@@ -24,7 +32,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng, shard
 
 States = List[rbm_ops.RBMState]
 
@@ -150,7 +158,7 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
                   V2: torch.Tensor, lr, mom, weight_decay, *, warmup: bool,
                   joint_cd: int, aux_cond_steps: int, Dz1: int, steps: int,
                   batch_size: int, metrics_every: int = 1,
-                  sr: Optional[bool] = None):
+                  sr: Optional[bool] = None, mesh=None):
     """One joint epoch over already-permuted latents Z and images V: the
     ``n // batch_size`` full batches in order, batch b keyed
     ``fold_in(fold_in(key, 0), b)``, then the remainder keyed
@@ -159,7 +167,8 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
 
     Metrics run on every ``metrics_every``-th full batch, and on the
     remainder only when ``metrics_every == 1``, as there. Returns
-    (joint, CD-loss sum, number of CD batches, metric sums).
+    (joint, CD-loss sum, number of CD batches, metric sums). With a
+    ``mesh``, this process's rows of each full batch (module docstring).
     """
     n = Z1.shape[0]
     nb = n // batch_size
@@ -170,21 +179,94 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
     joint = list(joint)
     totals = zeros_metrics(Z1.device)
     cd_sum = torch.zeros((), device=Z1.device)
-    batches: List[Tuple[slice, int, bool]] = [
-        (slice(b * batch_size, (b + 1) * batch_size),
-         rng.fold_in(rng.fold_in(key, 0), b), b % every == 0)
-        for b in range(nb)]
-    if n > nb * batch_size:
-        batches.append((slice(nb * batch_size, n), rng.fold_in(key, 1),
-                        every == 1))
-    for sl, bkey, metrics in batches:
-        joint, cd_loss, m = bimodal_batch_step(
-            joint, mod1_states, mod2_states, bkey, Z1[sl], Z2[sl], V1[sl],
-            V2[sl], lr, mom, weight_decay, compute_metrics=metrics,
-            **statics)
+    for b in range(nb):
+        sl = slice(b * batch_size, (b + 1) * batch_size)
+        with shard.rows_of(mesh, batch_size) as rows:
+            joint, cd_loss, m = bimodal_batch_step(
+                joint, mod1_states, mod2_states,
+                rng.fold_in(rng.fold_in(key, 0), b), Z1[sl][rows],
+                Z2[sl][rows], V1[sl][rows], V2[sl][rows], lr, mom,
+                weight_decay, compute_metrics=b % every == 0, **statics)
         totals = add_metrics(totals, m)
         cd_sum = cd_sum + cd_loss
-    return joint, cd_sum, (0 if warmup else len(batches)), totals
+    if mesh is not None:
+        totals = BimodalMetrics(*shard.all_reduce_sum(totals,
+                                                      mesh.data_group))
+    n_batches = nb
+    if n > nb * batch_size:
+        sl = slice(nb * batch_size, n)
+        joint, cd_loss, m = bimodal_batch_step(
+            joint, mod1_states, mod2_states, rng.fold_in(key, 1), Z1[sl],
+            Z2[sl], V1[sl], V2[sl], lr, mom, weight_decay,
+            compute_metrics=every == 1, **statics)
+        totals = add_metrics(totals, m)
+        cd_sum = cd_sum + cd_loss
+        n_batches += 1
+    return joint, cd_sum, (0 if warmup else n_batches), totals
+
+
+def bimodal_joint_epoch(joint: Sequence[rbm_ops.RBMState],
+                        mod1_states: Sequence[rbm_ops.RBMState],
+                        mod2_states: Sequence[rbm_ops.RBMState], key: int,
+                        Z1: torch.Tensor, Z2: torch.Tensor,
+                        V1: torch.Tensor, V2: torch.Tensor, lr, mom,
+                        weight_decay, *, warmup: bool, joint_cd: int,
+                        aux_cond_steps: int, Dz1: int, steps: int,
+                        batch_size: int, metrics_every: int = 1,
+                        shuffle: bool = False, sr: Optional[bool] = None,
+                        mesh=None):
+    """The full batches of one joint epoch (bimodal_ops.py:154-249): the
+    rows beyond ``n // batch_size`` batches are left to the caller.
+    ``shuffle`` permutes the data by ``rng.permutation(key, n)`` first.
+    Returns (joint, mean free-CD loss, metric sums)."""
+    if shuffle:
+        perm = rng.permutation(key, Z1.shape[0]).to(Z1.device)
+        Z1, Z2, V1, V2 = (a[perm] for a in (Z1, Z2, V1, V2))
+    m = (Z1.shape[0] // batch_size) * batch_size
+    joint, cd_sum, count, totals = bimodal_epoch(
+        joint, mod1_states, mod2_states, key, Z1[:m], Z2[:m], V1[:m],
+        V2[:m], lr, mom, weight_decay, warmup=warmup, joint_cd=joint_cd,
+        aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
+        batch_size=batch_size, metrics_every=metrics_every, sr=sr,
+        mesh=mesh)
+    return joint, cd_sum / max(1, count), totals
+
+
+def bimodal_epoch_block(joint: Sequence[rbm_ops.RBMState],
+                        mod1_states: Sequence[rbm_ops.RBMState],
+                        mod2_states: Sequence[rbm_ops.RBMState],
+                        epoch_key: int, Z1: torch.Tensor, Z2: torch.Tensor,
+                        V1: torch.Tensor, V2: torch.Tensor,
+                        epoch_idx: Sequence[int], lr_arr, mom_arr,
+                        weight_decay, *, warmup: bool, joint_cd: int,
+                        aux_cond_steps: int, Dz1: int, steps: int,
+                        batch_size: int, metrics_every: int = 1,
+                        n_epochs: Optional[int] = None,
+                        sr: Optional[bool] = None, mesh=None):
+    """The joint epochs ``epoch_idx`` (all warm-up or all main, as
+    ``warmup`` says): epoch e permutes the data by its key
+    ``fold_in(epoch_key, e)`` and runs ``bimodal_epoch`` (over ``mesh``).
+    Returns (joint, CD-loss sums[E], CD batch counts[E], metric sums[E])
+    (bimodal_ops.py:252-301)."""
+    if n_epochs is not None and int(n_epochs) != len(epoch_idx):
+        raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
+                         f"epoch indices")
+    n = Z1.shape[0]
+    joint = list(joint)
+    sums, counts, totals = [], [], []
+    for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
+        key = rng.fold_in(epoch_key, int(e))
+        perm = rng.permutation(key, n).to(Z1.device)
+        joint, cd_sum, count, tot = bimodal_epoch(
+            joint, mod1_states, mod2_states, key, Z1[perm], Z2[perm],
+            V1[perm], V2[perm], lr, mom, weight_decay, warmup=warmup,
+            joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz1=Dz1,
+            steps=steps, batch_size=batch_size,
+            metrics_every=metrics_every, sr=sr, mesh=mesh)
+        sums.append(cd_sum)
+        counts.append(count)
+        totals.append(tot)
+    return joint, sums, counts, totals
 
 
 def sample_cross(joint0: rbm_ops.RBMState,

@@ -13,9 +13,15 @@ Port of the TPU kernel ``_chain_call`` / ``_make_chain_kernel``
 and, with ``final_unclamped``, one more pass at T=1 with no noise, μ-pull
 or re-clamp (rbm_ops.py:434). ``sched`` holds the rows
 (1/max(1e-6,T_t), σ_t, η_t). Noise is drawn iff ``seed`` is given: Philox
-of (row, col, step, half) (``ops.rng.philox_normal``), so the plain version
-reproduces the kernel's draws. The chain init is drawn by the caller, as
-in pallas_chain.py:207-209.
+of (row0 + row, col, step, half) (``ops.rng.philox_normal``), so the plain
+version reproduces the kernel's draws. The chain init is drawn by the
+caller, as in pallas_chain.py:207-209.
+
+``row0`` and ``plan_rows`` place the batch in a larger one (a
+data-parallel rank's rows ``row0 ..`` of a batch of ``plan_rows``): the
+noise is that of the global rows, and the kernel sums every product in the
+order it would for the whole batch, so each row equals the single-device
+chain's row.
 
 ``rbm_ops.conditional_gibbs`` (mean-field) and
 ``rbm_ops.noisy_meanfield_annealed`` call ``clamped_chain``: the kernel on
@@ -50,10 +56,9 @@ from multimodal_idbn_tpu_torch.ops.sampling import (SoftmaxGroups,
 
 KERNEL = _cuda.CudaLibrary("chain.cu", {
     "chain_run": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p],
+    + [ctypes.c_uint64] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }, helpers={
-    "chain_plan": [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
+    "chain_plan": [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
 })
 _MAX_GROUPS = 8        # MAX_GROUPS in csrc/chain.cu
 _PLAN_FIELDS = ("tile_rows", "grid", "slices_h", "slices_v",
@@ -61,16 +66,20 @@ _PLAN_FIELDS = ("tile_rows", "grid", "slices_h", "slices_v",
 
 
 def plan(B: int, V: int, H: int, n_steps: int, final_unclamped: bool, *,
-         tile_rows: int = 0, max_grid: int = 0) -> Dict[str, int]:
+         tile_rows: int = 0, max_grid: int = 0,
+         plan_rows: Optional[int] = None) -> Dict[str, int]:
     """The launch the library would make for this chain on the current
     CUDA device: block tile rows, grid size (all blocks resident), k-slices
     of the hidden and the visible half, floats of partial-product scratch
     and the number of grid barriers. ``tile_rows`` and ``max_grid``
     > 0 override the tile and cap the blocks (for measurements; the port
-    launches with 0, the library's own choice)."""
+    launches with 0, the library's own choice). ``plan_rows``: the batch
+    the tiling is chosen for, when the ``B`` rows are part of a larger
+    one."""
     out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
     KERNEL.call("chain_plan", B, V, H, max(0, int(n_steps)),
-                int(final_unclamped), tile_rows, max_grid, out)
+                int(final_unclamped), tile_rows, max_grid,
+                int(plan_rows or 0), out)
     return dict(zip(_PLAN_FIELDS, (int(x) for x in out)))
 
 
@@ -107,7 +116,8 @@ def _check(w, hb, vb, v_init, v_known, km, sched, groups, mu) -> None:
 def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
                 groups: SoftmaxGroups = (), mu=None,
                 seed: Optional[int] = None,
-                final_unclamped: bool = False) -> torch.Tensor:
+                final_unclamped: bool = False,
+                row0: int = 0) -> torch.Tensor:
     """The kernel's function in plain torch, one step at a time."""
     _check(w, hb, vb, v_init, v_known, km, sched, groups, mu)
     B, V = v_init.shape
@@ -119,12 +129,14 @@ def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
         h_logits = (v @ w + hb) * inv_T
         if seed is not None:
             h_logits = h_logits + rng.philox_normal(
-                seed, B, H, step=t, stream=0, device=v.device) * sig
+                seed, B, H, step=t, stream=0, device=v.device,
+                row0=row0) * sig
         h = torch.sigmoid(h_logits)
         v_logits = (h @ w.T + vb) * inv_T
         if seed is not None:
             v_logits = v_logits + rng.philox_normal(
-                seed, B, V, step=t, stream=1, device=v.device) * sig
+                seed, B, V, step=t, stream=1, device=v.device,
+                row0=row0) * sig
         v_prob = apply_softmax_groups(torch.sigmoid(v_logits), v_logits,
                                       groups)
         if mu is not None:
@@ -142,24 +154,27 @@ def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
 def clamped_chain(w, hb, vb, v_init, v_known, km, sched, *,
                   groups: SoftmaxGroups = (), mu=None,
                   seed: Optional[int] = None,
-                  final_unclamped: bool = False) -> torch.Tensor:
+                  final_unclamped: bool = False, row0: int = 0,
+                  plan_rows: Optional[int] = None) -> torch.Tensor:
     """[B, V] chain output: the kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors. ``row0`` / ``plan_rows``: the batch's first global row
+    and the rows of the whole batch (module docstring)."""
     if not v_init.is_cuda:
         return chain_plain(w, hb, vb, v_init, v_known, km, sched,
                            groups=groups, mu=mu, seed=seed,
-                           final_unclamped=final_unclamped)
+                           final_unclamped=final_unclamped, row0=row0)
     if rng.is_deterministic():
         raise RuntimeError("the deterministic sampler mode is a CPU test "
                            "hook; the CUDA kernel draws real noise")
     _check(w, hb, vb, v_init, v_known, km, sched, groups, mu)
     return _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
-                   final_unclamped)
+                   final_unclamped, row0=row0, plan_rows=plan_rows)
 
 
 def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
             final_unclamped, *, tile_rows: int = 0,
-            max_grid: int = 0) -> torch.Tensor:
+            max_grid: int = 0, row0: int = 0,
+            plan_rows: Optional[int] = None) -> torch.Tensor:
     B, V = v_init.shape
     H = w.shape[1]
     dev = v_init.device
@@ -173,7 +188,7 @@ def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
     if B == 0:
         return out
     p = plan(B, V, H, sched.shape[0], final_unclamped, tile_rows=tile_rows,
-             max_grid=max_grid)
+             max_grid=max_grid, plan_rows=plan_rows)
     v = torch.empty((B, -(-V // 4) * 4), device=dev)
     h = torch.empty((B, -(-H // 4) * 4), device=dev)
     logits = torch.empty((B, V), device=dev)
@@ -187,6 +202,6 @@ def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
         _cuda.ptr(barrier), B, V, H, sched.shape[0], len(groups),
         0 if mu is None else mu.shape[1], int(seed is not None),
         0 if seed is None else int(seed) & ((1 << 64) - 1),
-        int(final_unclamped), tile_rows, max_grid,
-        _cuda.stream_handle(v_init))
+        int(final_unclamped), tile_rows, max_grid, int(row0),
+        int(plan_rows or 0), _cuda.stream_handle(v_init))
     return out

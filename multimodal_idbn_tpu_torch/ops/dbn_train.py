@@ -11,7 +11,14 @@ Python loop over static batch slices of already-permuted data
 on every batch, and layer i+1 is fed the post-update ``hidden_probs`` of
 layer i (dbn_train.py:117-136), taken on ``compute_cast(state,
 compute_dtype)``. Keys: batch b, layer i gets
-``fold_in(fold_in(key, b), i)``.
+``fold_in(fold_in(key, b), i)``. ``idbn_epoch_block`` runs epochs one
+after another with the permutation and remainder batch of the model's
+epoch (the body of JAX's nested scan, :139-232).
+
+With a ``mesh`` (``parallel.make_mesh``) each process trains its rows of
+every full batch inside ``shard.rows_of`` and every update sums over the
+mesh (``ops.shard``), so the replicas stay equal; the remainder batch runs
+whole on every process, as JAX's models run it (models/idbn.py:265-269).
 
 The route of a layer update is the caller's ``fast_sampler`` flag, which
 the model sets from its config before any launch (JAX
@@ -28,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng, shard
 from multimodal_idbn_tpu_torch.ops.sampling import sample_bernoulli
 
 States = List[rbm_ops.RBMState]
@@ -82,25 +89,73 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
                data: torch.Tensor, *, lr, mom, weight_decay, sparsity_factor,
                cd: int, sparsity_flags: Sequence[bool], batch_size: int,
                compute_dtype: Optional[torch.dtype] = None,
-               sr: Optional[bool] = None, fast_sampler: bool = True
+               sr: Optional[bool] = None, fast_sampler: bool = True,
+               shuffle: bool = False, mesh=None
                ) -> Tuple[States, torch.Tensor]:
     """One iDBN epoch over the ``n // batch_size`` full batches of ``data``
-    in order; returns (states, losses[nb, L]). Rows beyond
-    ``nb * batch_size`` are left to the caller (dbn_train.py:82-90)."""
+    in order (first permuted by ``rng.permutation(key, n)`` with
+    ``shuffle``); returns (states, losses[nb, L]). Rows beyond
+    ``nb * batch_size`` are left to the caller (dbn_train.py:82-90). With
+    a ``mesh``, this process's rows of each batch (module docstring)."""
+    if shuffle:
+        data = data[rng.permutation(key, data.shape[0]).to(data.device)]
     nb = data.shape[0] // batch_size
     states = list(states)
     losses = []
     for b in range(nb):
-        states, lb = idbn_batch_step(
-            states, rng.fold_in(key, b),
-            data[b * batch_size:(b + 1) * batch_size], lr=lr, mom=mom,
-            weight_decay=weight_decay, sparsity_factor=sparsity_factor,
-            cd=cd, sparsity_flags=sparsity_flags,
-            compute_dtype=compute_dtype, sr=sr, fast_sampler=fast_sampler)
+        batch = data[b * batch_size:(b + 1) * batch_size]
+        with shard.rows_of(mesh, batch_size) as rows:
+            states, lb = idbn_batch_step(
+                states, rng.fold_in(key, b), batch[rows], lr=lr, mom=mom,
+                weight_decay=weight_decay, sparsity_factor=sparsity_factor,
+                cd=cd, sparsity_flags=sparsity_flags,
+                compute_dtype=compute_dtype, sr=sr,
+                fast_sampler=fast_sampler)
         losses.append(lb)
     if not losses:
         return states, torch.zeros((0, len(states)), device=data.device)
     return states, torch.stack(losses)
+
+
+def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
+                     data: torch.Tensor, epoch_idx: Sequence[int], lr_arr,
+                     mom_arr, weight_decay, sparsity_factor, *, cd: int,
+                     sparsity_flags: Sequence[bool], batch_size: int,
+                     n_epochs: Optional[int] = None,
+                     compute_dtype: Optional[torch.dtype] = None,
+                     sr: Optional[bool] = None, fast_sampler: bool = True,
+                     mesh=None):
+    """The epochs ``epoch_idx`` of the image iDBN, with learning rates
+    ``lr_arr`` and momenta ``mom_arr``. Epoch e permutes ``data`` by its
+    key ``fold_in(epoch_key, e)``, trains the full batches
+    (``idbn_epoch``, over ``mesh``) and then the remainder batch, keyed
+    ``fold_in(key, 987)`` and run whole on every process, so every sample
+    trains once an epoch. Returns (states, loss sums[E], loss counts[E])
+    over the (batch, layer) entries."""
+    if n_epochs is not None and int(n_epochs) != len(epoch_idx):
+        raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
+                         f"epoch indices")
+    n = data.shape[0]
+    rem = n - (n // batch_size) * batch_size
+    states = list(states)
+    sums, counts = [], []
+    for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
+        key = rng.fold_in(epoch_key, int(e))
+        data_p = data[rng.permutation(key, n).to(data.device)]
+        kw = dict(lr=lr, mom=mom, weight_decay=weight_decay,
+                  sparsity_factor=sparsity_factor, cd=cd,
+                  sparsity_flags=sparsity_flags, compute_dtype=compute_dtype,
+                  sr=sr, fast_sampler=fast_sampler)
+        states, losses = idbn_epoch(states, key, data_p,
+                                    batch_size=batch_size, mesh=mesh, **kw)
+        loss_sum, count = losses.sum(), losses.numel()
+        if rem:
+            states, rl = idbn_batch_step(states, rng.fold_in(key, 987),
+                                         data_p[n - rem:], **kw)
+            loss_sum, count = loss_sum + rl.sum(), count + rl.numel()
+        sums.append(loss_sum)
+        counts.append(count)
+    return states, sums, counts
 
 
 def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
@@ -109,7 +164,8 @@ def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
                    sparsity_factor, cd: int, sparsity_flags: Sequence[bool],
                    batch_size: int,
                    compute_dtype: Optional[torch.dtype] = None,
-                   sr: Optional[bool] = None, fast_sampler: bool = True
+                   sr: Optional[bool] = None, fast_sampler: bool = True,
+                   shuffle: bool = False
                    ) -> Tuple[States, Chains, torch.Tensor]:
     """Persistent-CD epoch over the full batches of ``data``
     (dbn_train.py:235-282): like ``idbn_epoch``, but each layer carries
@@ -117,7 +173,10 @@ def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
     (states, chains, losses[nb, L]). The caller keeps the chains across
     epochs and trains the remainder rows with plain CD
     (``idbn_batch_step``), as ``idbn_epoch_block_pcd`` does (:317-327):
-    the particles are pinned to ``batch_size`` rows."""
+    the particles are pinned to ``batch_size`` rows. ``shuffle`` permutes
+    the rows by ``rng.permutation(key, n)`` first."""
+    if shuffle:
+        data = data[rng.permutation(key, data.shape[0]).to(data.device)]
     nb = data.shape[0] // batch_size
     states, chains = list(states), list(chains)
     losses = []

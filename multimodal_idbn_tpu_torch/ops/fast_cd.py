@@ -19,6 +19,11 @@ runs in jnp. Both take fp32 states only: bf16 storage and mixed precision
 go to ``rbm_ops.cd_update`` / ``pcd_update``, a route the model chooses
 from its config before any launch. Softmax groups are not supported
 (image stacks have none); the joint RBM uses ``rbm_ops.cd_update``.
+
+Inside ``shard.batch_rows`` (a data-parallel rank's rows of a batch) every
+half-step draws and plans as part of the whole batch
+(``shard.kernel_rows``), and the statistics and the loss are summed over
+the data group before the update (``shard.reduce_update``).
 """
 
 from __future__ import annotations
@@ -27,8 +32,26 @@ from typing import Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import rbm_ops, rng, shard
 from multimodal_idbn_tpu_torch.ops.half_step import half_step_sample
+
+
+def _half_step(x, w, b, seed, *, transpose_w=False):
+    """``half_step_sample`` at this process's rows of the batch."""
+    row0, total = shard.kernel_rows(x.shape[0])
+    plan = None if total is None else (
+        total, w.shape[0] if transpose_w else w.shape[1])
+    return half_step_sample(x, w, b, seed, transpose_w=transpose_w,
+                            row0=row0, plan_shape=plan)
+
+
+def _update(state, data, pos_h, v, h_prob, loss, **kw):
+    """``apply_update`` on the statistics of the whole batch; returns
+    (new_state, loss of the whole batch)."""
+    stats, loss, bsz = shard.reduce_update(
+        (data.T @ pos_h, v.T @ h_prob, pos_h.sum(0), h_prob.sum(0),
+         pos_h.mean(0), data.sum(0), v.sum(0)), loss, data.shape[0])
+    return rbm_ops.apply_update(state, *stats, bsz=bsz, **kw), loss
 
 
 def fast_sampled_cd_update(state: rbm_ops.RBMState, key: int,
@@ -43,21 +66,31 @@ def fast_sampled_cd_update(state: rbm_ops.RBMState, key: int,
     seeds = [rng.fold_in(key, i) for i in range(1 + 2 * int(cd))]
 
     # positive phase: probs + sampled chain start in one launch
-    pos_h, h = half_step_sample(data, state.w, state.hb, seeds[0])
+    pos_h, h = _half_step(data, state.w, state.hb, seeds[0])
     # negative chain: v_prob -> v=sample -> h_prob -> h=sample per step
     v = v_prob = h_prob = None
     for st in range(int(cd)):
-        v_prob, v = half_step_sample(h, state.w, state.vb, seeds[1 + 2 * st],
-                                     transpose_w=True)
-        h_prob, h = half_step_sample(v, state.w, state.hb, seeds[2 + 2 * st])
+        v_prob, v = _half_step(h, state.w, state.vb, seeds[1 + 2 * st],
+                               transpose_w=True)
+        h_prob, h = _half_step(v, state.w, state.hb, seeds[2 + 2 * st])
 
-    new_state = rbm_ops.apply_update(
-        state, data.T @ pos_h, v.T @ h_prob, pos_h.sum(0), h_prob.sum(0),
-        pos_h.mean(0), data.sum(0), v.sum(0), lr=lr, mom=mom,
-        weight_decay=weight_decay, bsz=data.shape[0], sparsity=sparsity,
-        sparsity_factor=sparsity_factor)
-    loss = torch.mean(torch.square(data - v_prob))
-    return new_state, loss
+    return _update(state, data, pos_h, v, h_prob,
+                   torch.mean(torch.square(data - v_prob)), lr=lr, mom=mom,
+                   weight_decay=weight_decay, sparsity=sparsity,
+                   sparsity_factor=sparsity_factor)
+
+
+def cd_update(state: rbm_ops.RBMState, key: int, data: torch.Tensor, *,
+              groups=(), sr=None, **kw) -> Tuple[rbm_ops.RBMState,
+                                                  torch.Tensor]:
+    """The CD update of one RBM on its route: a groupless fp32 state
+    through the half-step kernel (``fast_sampled_cd_update``), a softmax
+    group or bf16 storage through ``rbm_ops.cd_update``. ``kw``: lr, mom,
+    weight_decay, cd, sparsity, sparsity_factor."""
+    if groups or state.w.dtype != torch.float32:
+        return rbm_ops.cd_update(state, key, data, groups=groups, sr=sr,
+                                 **kw)
+    return fast_sampled_cd_update(state, key, data, **kw)
 
 
 def fast_sampled_pcd_update(state: rbm_ops.RBMState,
@@ -80,22 +113,19 @@ def fast_sampled_pcd_update(state: rbm_ops.RBMState,
     data = data.contiguous()
     seeds = [rng.fold_in(key, i) for i in range(3 + 2 * int(cd))]
 
-    pos_h, h0 = half_step_sample(data, state.w, state.hb, seeds[0])
-    _, h = half_step_sample(chain_v.contiguous(), state.w, state.hb,
-                            seeds[1])
+    pos_h, h0 = _half_step(data, state.w, state.hb, seeds[0])
+    _, h = _half_step(chain_v.contiguous(), state.w, state.hb, seeds[1])
     v = h_prob = None
     for st in range(int(cd)):
-        _, v = half_step_sample(h, state.w, state.vb, seeds[2 + 2 * st],
-                                transpose_w=True)
-        h_prob, h = half_step_sample(v, state.w, state.hb,
-                                     seeds[3 + 2 * st])
-    v_recon, _ = half_step_sample(h0, state.w, state.vb, seeds[-1],
-                                  transpose_w=True)
+        _, v = _half_step(h, state.w, state.vb, seeds[2 + 2 * st],
+                          transpose_w=True)
+        h_prob, h = _half_step(v, state.w, state.hb, seeds[3 + 2 * st])
+    v_recon, _ = _half_step(h0, state.w, state.vb, seeds[-1],
+                            transpose_w=True)
 
-    new_state = rbm_ops.apply_update(
-        state, data.T @ pos_h, v.T @ h_prob, pos_h.sum(0), h_prob.sum(0),
-        pos_h.mean(0), data.sum(0), v.sum(0), lr=lr, mom=mom,
-        weight_decay=weight_decay, bsz=data.shape[0], sparsity=sparsity,
+    new_state, loss = _update(
+        state, data, pos_h, v, h_prob,
+        torch.mean(torch.square(data - v_recon)), lr=lr, mom=mom,
+        weight_decay=weight_decay, sparsity=sparsity,
         sparsity_factor=sparsity_factor)
-    loss = torch.mean(torch.square(data - v_recon))
     return new_state, v, loss

@@ -2,8 +2,13 @@
 and their plain PyTorch versions.
 
 ``probs = sigmoid((x·W[ᵀ] + b)/max(1e-6, T))`` and, when sampling,
-``sample = probs > u`` with ``u`` the Philox uniform of (seed, row, col)
-(``ops.rng.philox_uniform``). Three public functions, each the port of
+``sample = probs > u`` with ``u`` the Philox uniform of (seed, row0 + row,
+col0 + col) (``ops.rng.philox_uniform``). ``row0``, ``col0`` and
+``plan_shape`` place the operand in a larger one: a data-parallel rank's
+rows of a batch, a model-parallel rank's columns of W. The rank draws the
+uniforms of its global elements and sums each product in the order of the
+whole operand's plan, so its outputs are the single-device outputs' rows
+and columns bit for bit. Three public functions, each the port of
 one TPU kernel (multimodal_idbn_tpu/ops/pallas_kernels.py):
 
 - ``half_step_sample``: ``half_step_sample_aligned`` (:198-306), the
@@ -52,7 +57,8 @@ from multimodal_idbn_tpu_torch.ops import _cuda, rng
 
 KERNEL = _cuda.CudaLibrary("half_step.cu", {
     "half_step_sample": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p],
     "half_step_probs": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
     "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -121,15 +127,18 @@ def _workspace(device: torch.device, stream: Optional[int], n_floats: int,
 
 def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             n_out: int, B: int, K: int, N: int, head: Tuple[int, ...],
-            tail: Tuple, *, tiling: Optional[Tuple[int, int, int]] = None
+            tail: Tuple, *, tiling: Optional[Tuple[int, int, int]] = None,
+            plan_shape: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, ...]:
     """Launch one entry and return its ``n_out`` outputs, each [B, N]
     (one allocation, cut once: a half-step is short, and the host's time
     to enqueue it counts). The C arguments are the operands, the outputs,
     scratch and tickets, the shape, ``head`` (the transpose flag, where
-    the entry has one), the tiling, then ``tail`` (1/T and the seed, where
-    the entry has one)."""
-    tile_rows, slices, k_per_slice = tiling or plan(B, K, N)
+    the entry has one), the tiling, then ``tail`` (1/T, and the seed and
+    offsets where the entry has them). ``plan_shape``: the (rows, columns)
+    of the whole operand the tiling is chosen for."""
+    pB, pN = plan_shape or (B, N)
+    tile_rows, slices, k_per_slice = tiling or plan(pB, K, pN)
     stream = _cuda.stream_handle(x)
     out = torch.empty((n_out, B, N), device=x.device)
     base = out.data_ptr()
@@ -159,32 +168,44 @@ def _out_dim(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def half_step_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    seed: int, T=1.0, *, transpose_w: bool = False
+                    seed: int, T=1.0, *, transpose_w: bool = False,
+                    row0: int = 0, col0: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain torch: addmm, sigmoid, Philox."""
     _out_dim(x, w, b, transpose_w)
     inv_T = 1.0 / max(1e-6, T)
     p = torch.sigmoid(torch.addmm(b, x, w.T if transpose_w else w) * inv_T)
-    u = rng.philox_uniform(seed, p.shape[0], p.shape[1], device=p.device)
+    u = rng.philox_uniform(seed, p.shape[0], p.shape[1], device=p.device,
+                           row0=row0, col0=col0)
     return p, (p > u).to(p.dtype)
 
 
 def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     seed: int, T=1.0, *, transpose_w: bool = False
+                     seed: int, T=1.0, *, transpose_w: bool = False,
+                     row0: int = 0, col0: int = 0,
+                     plan_shape: Optional[Tuple[int, int]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(probs, sample), both [B, N] fp32: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors. ``row0`` / ``col0``: the global index of
+    the first row / column; ``plan_shape``: (rows, columns) of the whole
+    output (module docstring)."""
     if not x.is_cuda:
-        return half_step_plain(x, w, b, seed, T, transpose_w=transpose_w)
+        return half_step_plain(x, w, b, seed, T, transpose_w=transpose_w,
+                               row0=row0, col0=col0)
     if rng.is_deterministic():
         raise RuntimeError("the deterministic sampler mode is a CPU test "
                            "hook; the CUDA kernel draws real uniforms")
     N = _out_dim(x, w, b, transpose_w)
     _cuda.check_cuda_operands(x, w, b)
     B, K = x.shape
+    if plan_shape is not None and (plan_shape[0] < row0 + B
+                                   or plan_shape[1] < col0 + N):
+        raise ValueError(f"plan_shape {plan_shape} does not hold rows "
+                         f"{row0}+{B}, columns {col0}+{N}")
     probs, sample = _launch(
         "half_step_sample", x, w, b, 2, B, K, N, (int(transpose_w),),
-        (1.0 / max(1e-6, T), int(seed) & ((1 << 64) - 1)))
+        (1.0 / max(1e-6, T), int(seed) & ((1 << 64) - 1), int(row0),
+         int(col0)), plan_shape=plan_shape)
     return probs, sample
 
 

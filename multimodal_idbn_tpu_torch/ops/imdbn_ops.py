@@ -7,6 +7,14 @@ loop over static batch slices of already-permuted data, the remainder
 left to the caller. Every chain of a batch (the 30-step noisy init of each
 auxiliary clamped CD, the 50-step IMG→TXT mean-field chain and the 50-step
 noisy TXT→IMG chain) goes through ``ops.chain``'s kernel on the card.
+``joint_epoch_block`` runs epochs one after another with the permutation
+and remainder batch of the model's epoch (JAX's nested scan, :340-470).
+
+With a ``mesh`` (``parallel.make_mesh``) each process trains its rows of
+every full batch inside ``shard.rows_of``: every joint update sums over
+the mesh and the cross-metric sums are summed once an epoch, so the
+replicas stay equal; the remainder batch runs whole on every process
+(JAX models/imdbn.py:576-597).
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng, shard
 from multimodal_idbn_tpu_torch.ops.sampling import SoftmaxGroups
 
 
@@ -209,6 +217,10 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
     return joint, cd_loss, metrics
 
 
+# JAX jits _joint_train_batch under this name (imdbn_ops.py:473).
+joint_train_batch_step = _joint_train_batch
+
+
 def joint_epoch(joint: rbm_ops.RBMState,
                 idbn_states: Sequence[rbm_ops.RBMState], key: int,
                 Z: torch.Tensor, Y: torch.Tensor, IMG: torch.Tensor, lr,
@@ -216,26 +228,88 @@ def joint_epoch(joint: rbm_ops.RBMState,
                 joint_cd: int, aux_cond_steps: int, Dz: int, steps: int,
                 groups: SoftmaxGroups, use_free_energy: bool = False,
                 zclamp_every: int = 50, batch_size: int = 128,
-                metrics_every: int = 1, sr: Optional[bool] = None):
+                metrics_every: int = 1, sr: Optional[bool] = None,
+                shuffle: bool = False, mesh=None):
     """One joint epoch over the full batches of already-permuted data
-    (imdbn_ops.py:265-337). Returns (joint, mean_cd_loss, CrossMetrics
-    sums). With ``metrics_every > 1`` the round trip runs on every Nth
-    batch only (the config's ``cross_metrics_every``)."""
+    (imdbn_ops.py:265-337; ``shuffle`` permutes them by
+    ``rng.permutation(key, n)`` first). Returns (joint, mean_cd_loss,
+    CrossMetrics sums). With ``metrics_every > 1`` the round trip runs on
+    every Nth batch only (the config's ``cross_metrics_every``). With a
+    ``mesh``, this process's rows of each batch (module docstring)."""
+    if shuffle:
+        perm = rng.permutation(key, Z.shape[0]).to(Z.device)
+        Z, Y, IMG = Z[perm], Y[perm], IMG[perm]
     nb = Z.shape[0] // batch_size
     totals = zeros_metrics(Z.device)
     loss_sum = torch.zeros((), device=Z.device)
     for b in range(nb):
         sl = slice(b * batch_size, (b + 1) * batch_size)
-        joint, cd_loss, m = _joint_train_batch(
-            joint, idbn_states, rng.fold_in(key, b), Z[sl], Y[sl], IMG[sl],
-            b, lr, mom, weight_decay, z_class_mean, warmup=warmup,
-            joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz=Dz,
-            steps=steps, groups=groups, zclamp_every=zclamp_every,
-            compute_metrics=(b % max(1, metrics_every) == 0),
-            use_free_energy=use_free_energy, sr=sr)
+        with shard.rows_of(mesh, batch_size) as rows:
+            joint, cd_loss, m = _joint_train_batch(
+                joint, idbn_states, rng.fold_in(key, b), Z[sl][rows],
+                Y[sl][rows], IMG[sl][rows], b, lr, mom, weight_decay,
+                z_class_mean, warmup=warmup, joint_cd=joint_cd,
+                aux_cond_steps=aux_cond_steps, Dz=Dz, steps=steps,
+                groups=groups, zclamp_every=zclamp_every,
+                compute_metrics=(b % max(1, metrics_every) == 0),
+                use_free_energy=use_free_energy, sr=sr)
         totals = add_metrics(totals, m)
         loss_sum = loss_sum + cd_loss
+    if mesh is not None:
+        totals = CrossMetrics(*shard.all_reduce_sum(totals, mesh.data_group))
     return joint, loss_sum / max(1, nb), totals
+
+
+def joint_epoch_block(joint: rbm_ops.RBMState,
+                      idbn_states: Sequence[rbm_ops.RBMState],
+                      epoch_key: int, Z: torch.Tensor, Y: torch.Tensor,
+                      IMG: torch.Tensor, epoch_idx: Sequence[int], lr_arr,
+                      mom_arr, weight_decay, z_class_mean, *, warmup: bool,
+                      joint_cd: int, aux_cond_steps: int, Dz: int,
+                      steps: int, groups: SoftmaxGroups,
+                      use_free_energy: bool = False, zclamp_every: int = 50,
+                      batch_size: int = 128, metrics_every: int = 1,
+                      n_epochs: Optional[int] = None,
+                      sr: Optional[bool] = None, mesh=None):
+    """The joint epochs ``epoch_idx`` (all warm-up or all main, as
+    ``warmup`` says). Epoch e permutes the data by its key
+    ``fold_in(epoch_key, e)``, trains the full batches (``joint_epoch``,
+    over ``mesh``) and then the remainder batch, keyed ``fold_in(key,
+    991)``, run whole on every process and with metrics only at the
+    every-batch cadence (JAX ops/imdbn_ops.py:430, models/imdbn.py:592).
+    Returns (joint, the free-CD losses of each epoch, one per batch and
+    none in the warm-up, CrossMetrics sums of each epoch)."""
+    if n_epochs is not None and int(n_epochs) != len(epoch_idx):
+        raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
+                         f"epoch indices")
+    n = Z.shape[0]
+    nb = n // batch_size
+    statics = dict(warmup=warmup, joint_cd=joint_cd,
+                   aux_cond_steps=aux_cond_steps, Dz=Dz, steps=steps,
+                   groups=groups, use_free_energy=use_free_energy,
+                   zclamp_every=zclamp_every, sr=sr)
+    cd_losses, totals_e = [], []
+    for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
+        key = rng.fold_in(epoch_key, int(e))
+        perm = rng.permutation(key, n).to(Z.device)
+        Zp, Yp, Xp = Z[perm], Y[perm], IMG[perm]
+        joint, mean_cd, totals = joint_epoch(
+            joint, idbn_states, key, Zp, Yp, Xp, lr, mom, weight_decay,
+            z_class_mean, batch_size=batch_size,
+            metrics_every=metrics_every, mesh=mesh, **statics)
+        losses = [] if warmup else [mean_cd] * nb
+        if n - nb * batch_size:
+            tail = slice(nb * batch_size, n)
+            joint, cd_rem, m_rem = _joint_train_batch(
+                joint, idbn_states, rng.fold_in(key, 991), Zp[tail],
+                Yp[tail], Xp[tail], nb, lr, mom, weight_decay, z_class_mean,
+                compute_metrics=(max(1, metrics_every) == 1), **statics)
+            totals = add_metrics(totals, m_rem)
+            if not warmup:
+                losses.append(cd_rem)
+        cd_losses.append(losses)
+        totals_e.append(totals)
+    return joint, cd_losses, totals_e
 
 
 def sample_txt2img(joint: rbm_ops.RBMState,

@@ -30,6 +30,11 @@ does not compute, and stay plain torch here.
 Groupless CD on the card goes through ``ops.fast_cd`` (the fused
 half-step kernel); ``cd_update`` below is the generic update that the
 joint RBM, which has a softmax group, uses.
+
+Data parallelism: inside ``shard.batch_rows`` the updates sum their batch
+statistics and loss over the data group before ``apply_update``
+(``shard.reduce_update``), the draws are the single device's for the
+rank's rows (``ops.rng``) and the chains launch as part of the whole batch.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import chain, rng, schedules
+from multimodal_idbn_tpu_torch.ops import chain, rng, schedules, shard
 from multimodal_idbn_tpu_torch.ops.sampling import (SoftmaxGroups,
                                                     apply_softmax_groups,
                                                     clamp_mask,
@@ -249,10 +254,11 @@ def cd_update(state: RBMState, key: int, data: torch.Tensor, *, lr, mom,
     pos_h = hidden_probs(cstate, data)
     h0 = sample_bernoulli(k_pos, pos_h)
     v, v_prob, h_prob = _negative_chain(cstate, k_neg, h0, int(cd), groups)
-    loss = torch.mean(torch.square((data - v_prob).float()))
+    stats, loss, bsz = shard.reduce_update(
+        _statistics(data, pos_h, v, h_prob, mixed or sr_on),
+        torch.mean(torch.square((data - v_prob).float())), data.shape[0])
     new_state = apply_update(
-        state, *_statistics(data, pos_h, v, h_prob, mixed or sr_on),
-        lr=lr, mom=mom, weight_decay=weight_decay, bsz=data.shape[0],
+        state, *stats, lr=lr, mom=mom, weight_decay=weight_decay, bsz=bsz,
         sparsity=sparsity, sparsity_factor=sparsity_factor, key=key,
         sr_on=sr_on)
     return new_state, loss
@@ -347,10 +353,11 @@ def pcd_update(state: RBMState, chain_v: torch.Tensor, key: int,
     h_chain = sample_bernoulli(k_chain, hidden_probs(cstate, chain_v))
     v, _, h_prob = _negative_chain(cstate, k_neg, h_chain, int(cd), groups)
     v_recon = visible_probs(cstate, h0, groups=groups)
-    loss = torch.mean(torch.square((data - v_recon).float()))
+    stats, loss, bsz = shard.reduce_update(
+        _statistics(data, pos_h, v, h_prob, mixed or sr_on),
+        torch.mean(torch.square((data - v_recon).float())), data.shape[0])
     new_state = apply_update(
-        state, *_statistics(data, pos_h, v, h_prob, mixed or sr_on),
-        lr=lr, mom=mom, weight_decay=weight_decay, bsz=data.shape[0],
+        state, *stats, lr=lr, mom=mom, weight_decay=weight_decay, bsz=bsz,
         sparsity=sparsity, sparsity_factor=sparsity_factor, key=key,
         sr_on=sr_on)
     return new_state, v.to(state.w.dtype), loss
@@ -400,9 +407,11 @@ def conditional_gibbs(state: RBMState, key: int, v_known: torch.Tensor,
     n_steps = int(n_steps)
     if not sample_h and not sample_v:
         sched = _meanfield_schedule_on(v.device, max(0, n_steps))
+        row0, total = shard.kernel_rows(v.shape[0])
         return chain.clamped_chain(*_chain_params(state), v, v_known,
                                    known_mask, sched, groups=groups,
-                                   final_unclamped=True)
+                                   final_unclamped=True, row0=row0,
+                                   plan_rows=total)
     kloop = rng.fold_in(key, 1)
     for t in range(n_steps):
         k = rng.fold_in(kloop, t)
@@ -530,9 +539,11 @@ def noisy_meanfield_annealed(state: RBMState, key: int,
     sched = _annealed_schedule_on(v.device, n_steps, T0, T1, sigma0,
                                   sharpen_last, T_cold_plus, eta0)
     seed = rng.fold_in(key, 1) if sigma0 > 0 else None
+    row0, total = shard.kernel_rows(v.shape[0])
     return chain.clamped_chain(*_chain_params(state), v, v_known,
                                known_mask, sched, groups=groups, mu=mu_k,
-                               seed=seed, final_unclamped=False)
+                               seed=seed, final_unclamped=False, row0=row0,
+                               plan_rows=total)
 
 
 # ---------------------------------------------------------------------------
@@ -594,9 +605,11 @@ def clamped_cd_update(state: RBMState, key: int, v_known: torch.Tensor,
     else:
         stats = (v_plus.T @ h_plus, v_neg.T @ h_neg, h_plus.sum(0),
                  h_neg.sum(0), None, v_plus.sum(0), v_neg.sum(0))
-    loss = torch.mean(torch.square((v_plus - v_neg).float()))
+    stats, loss, bsz = shard.reduce_update(
+        stats, torch.mean(torch.square((v_plus - v_neg).float())),
+        v_known.shape[0])
     new_state = apply_update(
         state, *stats, lr=aux_lr_mult * lr, mom=mom,
-        weight_decay=weight_decay, bsz=v_known.shape[0], sparsity=False,
+        weight_decay=weight_decay, bsz=bsz, sparsity=False,
         sparsity_factor=0.0, key=key, sr_on=sr_on)
     return new_state, loss

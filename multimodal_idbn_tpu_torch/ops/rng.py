@@ -23,6 +23,15 @@ ops/pallas_chain.py:72-82). The port replaces them so:
   ``u = (bits >> 8) * 2^-24`` as in pallas_kernels.py:248; Gaussians by
   Box-Muller as in pallas_chain.py:72-82.
 
+Draws of a data-parallel rank. Inside ``shard.batch_rows`` a process
+holds rows ``row0 ..`` of a larger batch. ``uniform`` and ``gumbel`` then
+draw at the whole batch's shape and return the rank's rows, and
+``philox_uniform`` / ``philox_normal`` take the global row (``row0``) and
+column (``col0``) of their first element. So every element gets the
+number a single device draws for it. This is the port's side of JAX's
+partitionable threefry (parallel/data_parallel.py:10-15). At these widths
+the drawing of the whole batch costs little.
+
 ``deterministic()`` is the sampler hook, the port's side of the
 ``det_random`` fixture of tests/test_rbm_oracle.py:24-38: uniforms are 0.5,
 normals 0, Gumbel noise a constant (so categorical draws are the argmax),
@@ -38,6 +47,8 @@ import math
 from typing import Iterator, Sequence
 
 import torch
+
+from multimodal_idbn_tpu_torch.ops import shard
 
 _M64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
@@ -110,20 +121,35 @@ def permutation(key: int, n: int) -> torch.Tensor:
 # Draws of the plain torch code
 # ---------------------------------------------------------------------------
 
+def _rand_rows(key: int, shape: Sequence[int], device) -> torch.Tensor:
+    """U[0, 1) of ``generator(key)`` at ``shape``; inside
+    ``shard.batch_rows`` the rank's rows of the draw at the whole batch's
+    shape (module docstring)."""
+    shape = tuple(shape)
+    sh = shard.current()
+    if sh is None:
+        return torch.rand(shape, generator=generator(key, device),
+                          device=device)
+    if not shape or shape[0] != sh.rows:
+        raise ValueError(f"a draw of shape {shape} inside a batch shard of "
+                         f"{sh.rows} rows")
+    full = torch.rand((sh.total,) + shape[1:],
+                      generator=generator(key, device), device=device)
+    return full[sh.row0:sh.row0 + sh.rows]
+
+
 def uniform(key: int, shape: Sequence[int], device) -> torch.Tensor:
     """U[0, 1) float32; 0.5 in deterministic mode."""
     if _MODE.deterministic:
         return torch.full(tuple(shape), 0.5, device=device)
-    return torch.rand(tuple(shape), generator=generator(key, device),
-                      device=device)
+    return _rand_rows(key, shape, device)
 
 
 def gumbel(key: int, shape: Sequence[int], device) -> torch.Tensor:
     """Standard Gumbel float32; a constant (0) in deterministic mode."""
     if _MODE.deterministic:
         return torch.zeros(tuple(shape), device=device)
-    u = torch.rand(tuple(shape), generator=generator(key, device),
-                   device=device)
+    u = _rand_rows(key, shape, device)
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(u.clamp(min=tiny)))
 
@@ -162,33 +188,39 @@ def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * _TWO_POW_M24
 
 
-def _grid_counter(rows: int, cols: int, step: int, stream: int, device):
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+def _grid_counter(rows: int, cols: int, step: int, stream: int, device,
+                  row0: int = 0, col0: int = 0):
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64,
+                     device=device)[:, None]
+    c = torch.arange(col0, col0 + cols, dtype=torch.int64,
+                     device=device)[None, :]
     return (r, c, torch.tensor(step, dtype=torch.int64, device=device),
             torch.tensor(stream, dtype=torch.int64, device=device))
 
 
 def philox_uniform(seed: int, rows: int, cols: int, *, step: int = 0,
-                   stream: int = 0, device=None) -> torch.Tensor:
+                   stream: int = 0, device=None, row0: int = 0,
+                   col0: int = 0) -> torch.Tensor:
     """[rows, cols] uniforms of the kernels: word 0 of
-    Philox(counter=(row, col, step, stream), key=seed); 0.5 in
-    deterministic mode."""
+    Philox(counter=(row0 + row, col0 + col, step, stream), key=seed); 0.5
+    in deterministic mode."""
     if _MODE.deterministic:
         return torch.full((rows, cols), 0.5, device=device)
     x0, _, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
-                                           device), seed)
+                                           device, row0, col0), seed)
     return _bits_to_uniform(x0)
 
 
 def philox_normal(seed: int, rows: int, cols: int, *, step: int = 0,
-                  stream: int = 0, device=None) -> torch.Tensor:
+                  stream: int = 0, device=None, row0: int = 0
+                  ) -> torch.Tensor:
     """[rows, cols] N(0, 1) of the kernels: Box-Muller on words 0 and 1
-    (pallas_chain.py:72-82); 0 in deterministic mode."""
+    (pallas_chain.py:72-82) of the counter (row0 + row, col, step,
+    stream); 0 in deterministic mode."""
     if _MODE.deterministic:
         return torch.zeros((rows, cols), device=device)
     x0, x1, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
-                                            device), seed)
+                                            device, row0), seed)
     u1 = torch.clamp(_bits_to_uniform(x0), min=1e-7)
     u2 = _bits_to_uniform(x1)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(

@@ -83,10 +83,11 @@ def clamp_mask(v_new: torch.Tensor, v_known: torch.Tensor,
 
 
 def group_mask(num_visible: int, groups: Sequence[Tuple[int, int]],
+               dtype: torch.dtype = torch.float32,
                device=None) -> torch.Tensor:
     """1 on coordinates covered by any softmax group, else 0
     (sampling.py:75-80)."""
-    m = torch.zeros((num_visible,), device=device)
+    m = torch.zeros((num_visible,), dtype=dtype, device=device)
     for s, e in groups:
         m[s:e] = 1.0
     return m

@@ -29,15 +29,17 @@ def hot_steps(n_steps: int, hot_frac: float) -> int:
     return int(max(0, min(n_steps, round(hot_frac * n_steps))))
 
 
-def _iota(n_steps: int) -> torch.Tensor:
+def steps_iota(n_steps: int) -> torch.Tensor:
+    """0, 1, ..., n_steps - 1 as float32 (schedules.py:33-34)."""
     return torch.arange(n_steps, dtype=_F32)
+
 
 
 def annealed_temperature(n_steps: int, T0, T1, sharpen_last: int,
                          T_cold_plus) -> torch.Tensor:
     """Linear T0→T1 with the last ``max(1, sharpen_last)`` steps pinned to
     ``T_cold_plus`` (schedules.py:37-46)."""
-    t = _iota(n_steps)
+    t = steps_iota(n_steps)
     T = lin_schedule(t, n_steps, T0, T1)
     tail = max(1, int(sharpen_last))
     return torch.where((n_steps - t) <= tail,
@@ -47,21 +49,21 @@ def annealed_temperature(n_steps: int, T0, T1, sharpen_last: int,
 def gibbs_annealed_temperature(n_steps: int, T0, T1) -> torch.Tensor:
     """Linear T0→T1 with the last 3 steps sharpened to ``min(0.9, T)``
     (schedules.py:49-56)."""
-    t = _iota(n_steps)
+    t = steps_iota(n_steps)
     T = lin_schedule(t, n_steps, T0, T1)
     return torch.where((n_steps - t) <= 3, torch.clamp(T, max=0.9), T)
 
 
 def noise_sigma(n_steps: int, sigma0) -> torch.Tensor:
     """``sigma0 * max(0, 1 - t/(n-1))`` (schedules.py:59-62)."""
-    t = _iota(n_steps)
+    t = steps_iota(n_steps)
     return torch.tensor(sigma0, dtype=_F32) * torch.clamp(
         1.0 - t / max(1, n_steps - 1), min=0.0)
 
 
 def mu_pull_eta(n_steps: int, eta0) -> torch.Tensor:
     """``eta0 * max(0, 1 - t/(n-1))`` (schedules.py:65-68)."""
-    t = _iota(n_steps)
+    t = steps_iota(n_steps)
     return torch.tensor(eta0, dtype=_F32) * torch.clamp(
         1.0 - t / max(1, n_steps - 1), min=0.0)
 

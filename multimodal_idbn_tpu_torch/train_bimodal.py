@@ -20,8 +20,10 @@ earlier one). ``wandb.enable: true`` logs the diagnostics as in
 ``training.dtype``, ``compute_dtype``, ``stochastic_rounding`` (:76-81),
 ``matmul_precision`` (:170-175) and ``dataset.distribution: zipfian``
 (which the JAX script leaves unread; the port does not ignore a
-setting). Data parallelism (``training.dp_devices``) raises
-``NotImplementedError``; none is ignored.
+setting). Data parallelism (``training.dp_devices: N``, :68) runs as in
+``train_multimodal``: one process per device under ``torchrun
+--nproc-per-node N -m multimodal_idbn_tpu_torch.train_bimodal``, all three
+phases over the mesh, rank 0 alone printing and writing files.
 The model is saved as ``{save_dir}/{save_name}.pkl``
 (``iMDBN_BiModal.save_model``).
 """
@@ -44,8 +46,10 @@ from multimodal_idbn_tpu_torch.device import (resolve_device,
                                               set_matmul_precision,
                                               synchronize)
 from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
+from multimodal_idbn_tpu_torch.parallel.distributed import is_main_process
 from multimodal_idbn_tpu_torch.train_multimodal import (build_logging_params,
                                                         check_common,
+                                                        join_process_group,
                                                         load_config,
                                                         make_loaders,
                                                         matmul_precision,
@@ -65,8 +69,8 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def check_supported(cfg: dict) -> None:
-    """Raise for every setting outside the port: ``NotImplementedError``
-    for what is not ported, ``ValueError`` for a dataset without a second
+    """Raise ``ValueError`` for a setting this entry point cannot run:
+    more ``dp_devices`` than processes, or a dataset without a second
     modality (as scripts/train_bimodal.py:196-204)."""
     check_common(cfg)
     if not (cfg.get("dataset", {}) or {}).get("second_modality"):
@@ -98,7 +102,6 @@ def build_params(cfg: dict) -> dict:
                                       t.get("aux_cond_steps", 50)),
         "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
         "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
-        # read for the fingerprint's sake, as in train_multimodal
         "DP_DEVICES": t.get("dp_devices"),
         "INIT_RETRY": t.get("init_retry", 0),
         "CHECKPOINT_EVERY": t.get("checkpoint_every", 0),
@@ -132,9 +135,11 @@ def main(argv: Optional[List[str]] = None,
     does not express, such as ``PCD``, which the JAX package too reaches
     only through the params dict. No command-line option sets it."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
+    join_process_group(cfg)
+    device = resolve_device(args.device)
     check_supported(cfg)
+    main_rank = is_main_process()
     set_matmul_precision(matmul_precision(cfg))
     dataset = cfg.get("dataset", {}) or {}
     model = cfg.get("model", {}) or {}
@@ -151,7 +156,8 @@ def main(argv: Optional[List[str]] = None,
         n_samples=dataset.get("n_samples", 512),
         side=dataset.get("side", 100))
     joint_hidden = model.get("joint_hidden", 500)
-    wandb_run = maybe_wandb(cfg, params, project="bimodal-idbn-tpu")
+    wandb_run = (maybe_wandb(cfg, params, project="bimodal-idbn-tpu")
+                 if main_rank else None)
     bimodal = iMDBN_BiModal(
         layer_sizes_mod1=model.get("mod1_layers", [10000, 1500, 500]),
         layer_sizes_mod2=model.get("mod2_layers", [1568, 500, 500]),
@@ -250,10 +256,11 @@ def main(argv: Optional[List[str]] = None,
     save_dir = Path(paths.get("save_dir", "./networks")).expanduser()
     save_dir.mkdir(parents=True, exist_ok=True)
     save_path = save_dir / f"{paths.get('save_name', 'bimodal_trained')}.pkl"
-    bimodal.save_model(str(save_path))
-    print(f"Saved bimodal model to {save_path}")
-    if ckpt_every:  # the run completed and the model is saved
-        remove_checkpoints(ckpts.values())
+    if main_rank:
+        bimodal.save_model(str(save_path))
+        print(f"Saved bimodal model to {save_path}")
+        if ckpt_every:  # the run completed and the model is saved
+            remove_checkpoints(ckpts.values())
     if wandb_run:
         wandb_run.finish()
 
@@ -269,9 +276,10 @@ def main(argv: Optional[List[str]] = None,
         "save_path": str(save_path),
         "model": bimodal,
     }
-    print("[train_bimodal] phases (s): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
-          + f"; last cross metrics {bimodal.last_metrics}")
+    if main_rank:
+        print("[train_bimodal] phases (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+              + f"; last cross metrics {bimodal.last_metrics}")
     return summary
 
 

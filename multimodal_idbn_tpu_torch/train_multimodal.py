@@ -28,11 +28,21 @@ The opt-in variants of the JAX script run too (:78-82, :133-153):
 ``stochastic_rounding``, ``matmul_precision``
 (``device.set_matmul_precision``) and ``dataset.distribution: zipfian``
 (``create_dataloaders_zipfian``); PCD is reached through ``params["PCD"]``,
-as in the JAX package. The one setting the port does not cover,
-``training.dp_devices``, raises ``NotImplementedError`` naming the part of
-the port that will bring it; none is ignored. The model is saved as
+as in the JAX package. No setting is ignored. The model is saved as
 ``{save_dir}/{save_name}.pkl`` (``iMDBN.save_model``; ``python -m
 multimodal_idbn_tpu_torch.generate`` serves it).
+
+Data parallelism (``training.dp_devices: N``, :67, :180) runs one process
+per device, started by a launcher:
+
+    torchrun --nproc-per-node N -m multimodal_idbn_tpu_torch.train_multimodal \
+        --config <config with training.dp_devices: N>
+
+Each process joins the launcher's group (``parallel.initialize_distributed``)
+and trains its rows of every batch on its device; N > 1 without such a
+group raises ``ValueError``. Rank 0 alone prints the summary and writes
+the checkpoints, the pickle and the run's logs; every rank resumes from
+the same checkpoints.
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ from multimodal_idbn_tpu_torch.device import (resolve_device,
                                               set_matmul_precision,
                                               synchronize)
 from multimodal_idbn_tpu_torch.models import iMDBN
+from multimodal_idbn_tpu_torch.parallel.distributed import (
+    initialize_distributed, is_main_process, process_rank_and_count)
 from multimodal_idbn_tpu_torch.utils.wandb_compat import wandb
 
 DEFAULT_CONFIG_PATH = (Path(__file__).resolve().parent.parent / "configs"
@@ -73,19 +85,28 @@ def load_config(path: Path) -> dict:
         return yaml.safe_load(f)
 
 
-def not_ported(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet; it comes with the port's {where} "
-        f"(ROADMAP.md Queue 1)")
+def join_process_group(cfg: dict) -> None:
+    """Join a launcher's process group when ``training.dp_devices`` asks
+    for data parallelism; shared by the training entry points."""
+    if (cfg.get("training", {}) or {}).get("dp_devices"):
+        initialize_distributed()
 
 
 def check_common(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for the one training setting the port
-    does not cover, ``dp_devices``; shared by the training entry points."""
+    """Raise ``ValueError`` for a ``training.dp_devices`` of more devices
+    than this process's group has, as JAX's "requested N devices, have M"
+    (parallel/data_parallel.py:44-51); shared by the training entry
+    points."""
     t = cfg.get("training", {}) or {}
-    if t.get("dp_devices"):
-        not_ported("training.dp_devices (data parallelism)",
-                   "parallel/ slice")
+    n = t.get("dp_devices")
+    if not n or str(n).lower() == "all":
+        return
+    have = process_rank_and_count()[1]
+    if int(n) > have:
+        raise ValueError(
+            f"training.dp_devices={n}: requested {n} devices, have {have}. "
+            f"Data parallelism runs one process per device: launch with "
+            f"torchrun --nproc-per-node {n} -m <entry point> --config ...")
 
 
 def make_loaders(dataset: dict, tag: str = "train_multimodal"):
@@ -98,8 +119,7 @@ def make_loaders(dataset: dict, tag: str = "train_multimodal"):
 
 
 def check_supported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for every setting outside this entry
-    point's port."""
+    """Raise for every setting this entry point cannot run."""
     check_common(cfg)
 
 
@@ -124,7 +144,6 @@ def build_params(cfg: dict) -> dict:
                                       t.get("aux_cond_steps", 50)),
         "JOINT_AUX_EVERY_K": t.get("JOINT_AUX_EVERY_K", 10),
         "CROSS_METRICS_EVERY": t.get("cross_metrics_every", 1),
-        # check_common refuses a value of the next one
         "DP_DEVICES": t.get("dp_devices"),
         "INIT_RETRY": t.get("init_retry", 0),
         "CHECKPOINT_EVERY": t.get("checkpoint_every", 0),
@@ -200,9 +219,11 @@ def main(argv: Optional[List[str]] = None,
     does not express, such as ``PCD``, which the JAX package too reaches
     only through the params dict. No command-line option sets it."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
+    join_process_group(cfg)
+    device = resolve_device(args.device)
     check_supported(cfg)
+    main_rank = is_main_process()
     # true fp32 products unless training.matmul_precision says otherwise
     # (scripts/train_multimodal.py:127-131)
     set_matmul_precision(matmul_precision(cfg))
@@ -218,13 +239,16 @@ def main(argv: Optional[List[str]] = None,
         num_classes=model.get("num_labels", 32),
         n_samples=dataset.get("n_samples", 512),
         side=dataset.get("side", 100))
-    wandb_run = maybe_wandb(cfg, params)
+    wandb_run = maybe_wandb(cfg, params) if main_rank else None
     imdbn = iMDBN(
         layer_sizes_img=model.get("image_layers", [10000, 1500, 1500]),
         joint_layer_size=model.get("joint_hidden", 1000), params=params,
         dataloader=train_loader, val_loader=val_loader, device=device,
         num_labels=model.get("num_labels", 32), seed=params.get("SEED"),
         wandb_run=wandb_run, logging_cfg=cfg.get("logging", {}) or {})
+    if params.get("DP_DEVICES") and main_rank:
+        print(f"[train_multimodal] data-parallel training over "
+              f"{params['DP_DEVICES']} device(s)")
     synchronize(device)
     t1 = time.perf_counter()
 
@@ -305,10 +329,11 @@ def main(argv: Optional[List[str]] = None,
     save_dir = Path(paths.get("save_dir", "./networks")).expanduser()
     save_dir.mkdir(parents=True, exist_ok=True)
     save_path = save_dir / f"{paths.get('save_name', 'imdbn_trained')}.pkl"
-    imdbn.save_model(str(save_path))
-    print(f"Saved multimodal model to {save_path}")
-    if ckpt_every:  # the run completed and the model is saved
-        remove_checkpoints((image_ckpt, joint_ckpt))
+    if main_rank:
+        imdbn.save_model(str(save_path))
+        print(f"Saved multimodal model to {save_path}")
+        if ckpt_every:  # the run completed and the model is saved
+            remove_checkpoints((image_ckpt, joint_ckpt))
     if wandb_run:
         wandb_run.finish()
 
@@ -320,9 +345,10 @@ def main(argv: Optional[List[str]] = None,
         "save_path": str(save_path),
         "model": imdbn,
     }
-    print(f"[train_multimodal] phases (s): setup {t1 - t0:.3f}, "
-          f"image {t2 - t1:.3f}, joint {t3 - t2:.3f}; "
-          f"last cross metrics {imdbn.last_metrics}")
+    if main_rank:
+        print(f"[train_multimodal] phases (s): setup {t1 - t0:.3f}, "
+              f"image {t2 - t1:.3f}, joint {t3 - t2:.3f}; "
+              f"last cross metrics {imdbn.last_metrics}")
     return summary
 
 

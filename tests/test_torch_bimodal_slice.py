@@ -204,14 +204,18 @@ def test_train_bimodal_cpu_smoke(tmp_path):
     ("training", "matmul_precision", "default"),
     ("dataset", "distribution", "zipfian")])
 def test_unsupported_bimodal_settings_raise(section, key, value):
-    """Data parallelism is the one setting still unsupported: it raises.
-    The others, which raised until the opt-in variants and the data
-    backends were ported, are accepted and reach the params."""
+    """Every setting that raised until its part of the port came is
+    accepted and reaches the params. ``dp_devices`` of more devices than
+    the process group has raises ValueError naming torchrun, as JAX's
+    "requested N devices, have M"; one device is accepted."""
     cfg = yaml.safe_load(open(SMOKE_YAML))
     cfg.setdefault(section, {})[key] = value
     if key == "dp_devices":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="torchrun"):
             train_bimodal.check_supported(cfg)
+        cfg["training"]["dp_devices"] = 1
+        train_bimodal.check_supported(cfg)
+        assert train_bimodal.build_params(cfg)["DP_DEVICES"] == 1
         return
     train_bimodal.check_supported(cfg)
     params = train_bimodal.build_params(cfg)

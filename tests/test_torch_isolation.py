@@ -124,6 +124,31 @@ def test_serving_slice_modules_are_covered(tmp_path):
     assert out.returncode == 0, out.stderr
 
 
+def test_parallel_modules_are_covered():
+    """The parallel/ package and the batch shard are among the sources
+    checked above, and with JAX blocked a mesh of this process trains."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/distributed.py",
+            "parallel/data_parallel.py", "parallel/mesh2d.py",
+            "ops/shard.py"} <= names
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.replace(
+            'print("ok", len(names))',
+            'from multimodal_idbn_tpu_torch import parallel\n'
+            'from multimodal_idbn_tpu_torch.ops import rbm_ops\n'
+            'mesh = parallel.make_mesh(1)\n'
+            'st, loss = parallel.dp_cd_update(mesh, rbm.state, 1, '
+            'torch.ones(3, 6), lr=0.1, mom=0.5, weight_decay=0.0, cd=1)\n'
+            'parallel.tp_cd_update(parallel.make_mesh_2d(dp=1, mp=1), st, '
+            '2, torch.ones(3, 6), lr=0.1, mom=0.5, weight_decay=0.0, '
+            'cd=1)\n'
+            'assert not [m for m in sys.modules '
+            'if m.split(".")[0] in BLOCK]\n'
+            'print("ok", len(names))')],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("entry", ["profile_main_path", "bench_kernels",
                                    "generate", "cuts"])
 def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch,

@@ -97,9 +97,11 @@ def _assert_dtypes_equal(js, ts):
 # ---------------------------------------------------------------------------
 
 def test_models_read_every_variant_key():
-    """The models read PCD, DTYPE, COMPUTE_DTYPE and SR, refuse a bad
-    value with JAX's ValueError and refuse DP_DEVICES. Until this slice
-    they read none of them and trained plain fp32 CD."""
+    """The models read PCD, DTYPE, COMPUTE_DTYPE and SR and refuse a bad
+    value with JAX's ValueError. Until the variants slice they read none of
+    them and trained plain fp32 CD. DP_DEVICES=2 without a process group
+    of two raises JAX's ValueError when the mesh is made; DP_DEVICES=1 is
+    a mesh of this process."""
     m = iDBN([20, 10, 5], dict(SMALL_PARAMS, PCD=True, DTYPE="bfloat16",
                                 COMPUTE_DTYPE="bf16", SR="false"), None,
              device="cpu", seed=0)
@@ -118,8 +120,10 @@ def test_models_read_every_variant_key():
         assert str(ours.value) == str(theirs.value)
     for build in (lambda p: iDBN([20, 10], p, None, device="cpu"),
                   lambda p: small_imdbn(**p), lambda p: small_bimodal(**p)):
-        with pytest.raises(NotImplementedError, match="parallel/ slice"):
-            build(dict(SMALL_PARAMS, DP_DEVICES=2))
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+            build(dict(SMALL_PARAMS, DP_DEVICES=2))._resolve_mesh()
+        assert build(dict(SMALL_PARAMS,
+                          DP_DEVICES=1))._resolve_mesh().size == 1
 
 
 def test_unseeded_shells_differ_and_global_seed_is_exported(monkeypatch):
