@@ -110,7 +110,13 @@ Phases, each fatal on failure:
    build): replicas bit-equal, each rank phase 4's launches, states
    within the tolerance stated at ``PAR_REL_TOL``; and the 1 x 2 split of
    flagship layer 0 (``tp_cd_update``, ``gather_state``) against one
-   device.
+   device;
+13. the shipped flagship schedule: configs/multimodal_training_config.yaml
+   end to end through ``train_multimodal`` (2048 samples, 100 image and
+   150 joint epochs), the launches of kernels 1 and 2 against their
+   derivation, every state finite, the 14 metrics of the quality protocol
+   (``multimodal_idbn_tpu_torch.quality``) and a collapse check (training
+   top-1 below 3/32, or image auto-reconstruction at the blank level).
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -2167,6 +2173,86 @@ def run_phase12(dev, workdir: Path, phase4):
     return by_path, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the shipped flagship schedule
+# ---------------------------------------------------------------------------
+
+# A run collapsed when its training-set top-1 is below 3/32 (chance is
+# 1/32) or its image stack reconstructs at the blank level: validation
+# auto-reconstruction MSE at or above 0.9 x the mean square of the images,
+# the image iDBN's own collapse criterion (models/idbn.py
+# _warn_if_collapsed). The TXT->IMG image MSE is printed beside its blank
+# ratio and not held: it sits at the blank level on every seed of both
+# recorded arms (benchmarks/RESULTS.md, "Round 5: flagship quality
+# parity": medians 0.092 against a blank of 0.0922).
+COLLAPSE_TOP1 = 3 / 32
+COLLAPSE_BLANK = 0.9
+
+
+def run_phase13(workdir: Path):
+    """Phase 13: configs/multimodal_training_config.yaml end to end at its
+    full schedule through ``train_multimodal`` (2048 samples, 100 image
+    epochs of CD-10, 150 joint epochs of CD-5), the launches of kernels 1
+    and 2 held against their derivation (``quality.derived_launches``),
+    every state finite, then the 14 metrics of the quality protocol
+    (``quality.evaluate_imdbn``) and the collapse check above. Returns
+    the run's launches."""
+    import numpy as np
+    import yaml
+    from multimodal_idbn_tpu_torch import quality, train_multimodal
+    from multimodal_idbn_tpu_torch.data import DataLoader
+    t_phase = time.perf_counter()
+    cfg = yaml.safe_load((ROOT / "configs"
+                          / "multimodal_training_config.yaml").read_text())
+    cfg["paths"]["save_dir"] = str(workdir / "flagship-full")
+    path = workdir / "flagship-full.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    t, m = cfg["training"], cfg["model"]
+    schedule = dict(batch=cfg["dataset"]["batch_size"],
+                    layers=m["image_layers"], epochs_img=t["epochs_image"],
+                    epochs_joint=t["epochs_joint"], cd=t["cd"])
+    reset_launches()
+    summary = train_multimodal.main(["--config", str(path)])
+    launches = read_launches()
+    model = summary["model"]
+    n_train = len(model.dataloader.dataset)
+    want = dict(dict.fromkeys(launches, 0), **quality.derived_launches(
+        "flagship", schedule, n_train))
+    check_launches("flagship-full", launches, want)
+    check_states(*cut_states("flagship-cut", model))
+    t0 = time.perf_counter()
+    metrics = quality.evaluate_imdbn(model, model.val_loader, probes=True)
+    train_eval = DataLoader(model.dataloader.dataset,
+                            batch_size=model.dataloader.batch_size)
+    metrics.update({f"train_{k}": v for k, v in quality.evaluate_imdbn(
+        model, train_eval, probes=False).items()})
+    eval_s = time.perf_counter() - t0
+    val_imgs = np.asarray(model.val_loader.materialize()[0], np.float32)
+    blank = float((val_imgs.reshape(len(val_imgs), -1) ** 2).mean())
+    log(f"[phase13] flagship YAML at its full schedule: {n_train} training "
+        f"rows, phase seconds {json.dumps(summary['seconds'])}, evaluation "
+        f"{eval_s:.1f} s; launches {json.dumps(launches)} (derived "
+        f"{json.dumps(want)}); last cross metrics "
+        f"{json.dumps(summary['cross_metrics'])}")
+    log(f"[phase13] the 14 metrics: {json.dumps(metrics)}")
+    if sorted(metrics) != sorted(quality.FLAGSHIP_METRICS) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"phase 13: metrics not finite or incomplete: "
+                             f"{metrics}")
+    collapsed = (metrics["train_top1"] < COLLAPSE_TOP1
+                 or metrics["recon_mse"] >= COLLAPSE_BLANK * blank)
+    log(f"[phase13] collapse check: train top-1 {metrics['train_top1']} "
+        f"(limit {COLLAPSE_TOP1:.4f}), validation recon MSE "
+        f"{metrics['recon_mse']} = {metrics['recon_mse'] / blank:.3f} x "
+        f"blank {blank:.6f} (limit {COLLAPSE_BLANK}); TXT->IMG image MSE "
+        f"{metrics['image_mse']} = {metrics['image_mse'] / blank:.3f} x "
+        f"blank (not held); {'COLLAPSED' if collapsed else 'not collapsed'}")
+    if collapsed:
+        raise AssertionError("phase 13: the flagship run collapsed")
+    log(f"[phase13] {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2229,6 +2315,7 @@ def main() -> int:
             by_path.update(variants)
             phase12, offset_rows = run_phase12(dev, tmp, phase4)
             by_path.update(phase12)
+            by_path["flagship-full"] = run_phase13(tmp)
     except Exception:
         traceback.print_exc()
         return 1

@@ -14,8 +14,11 @@ setup(
                                     "multimodal_idbn_tpu.*",
                                     "multimodal_idbn_tpu_torch",
                                     "multimodal_idbn_tpu_torch.*"]),
-    # the port's CUDA sources are built at run time (ops/_cuda.py)
-    package_data={"multimodal_idbn_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the port's CUDA sources are built at run time (ops/_cuda.py); its
+    # quality pools and the probe's initial weights are data (quality.py)
+    package_data={"multimodal_idbn_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                                "records/*.json",
+                                                "records/*.npz"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

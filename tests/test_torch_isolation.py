@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``multimodal_idbn_tpu_torch`` and
-nothing in ``chip_smoke.py`` imports JAX or the JAX package, the port
+nothing in ``chip_smoke.py`` imports JAX, the JAX package or the JAX
+package's ``benchmarks`` (the quality protocol reads their JSON only), the port
 imports and runs with both blocked, and ``chip_smoke.py`` fails without a
 GPU and without the package beside it. The card's installation has no
 matplotlib, pandas or wandb: no port module imports them when it is
@@ -18,7 +19,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multimodal_idbn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "multimodal_idbn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "multimodal_idbn_tpu", "benchmarks"}
 
 
 def _sources():
@@ -44,7 +45,7 @@ def test_port_sources_import_no_jax():
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu"}
+BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu", "benchmarks"}
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCK:
@@ -59,6 +60,9 @@ import torch
 from multimodal_idbn_tpu_torch.models import RBM
 rbm = RBM(6, 4, 0.1, 1e-4, 0.5, device="cpu")
 rbm.train_epoch(torch.ones(3, 6), 0, 1, CD=1)
+from multimodal_idbn_tpu_torch import quality
+assert len(quality.recorded_arms("flagship")["jax"]) == 26
+quality.compare([0.1, 0.2, 0.3], [0.2, 0.3, 0.4])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
 print("ok", len(names))
 """
@@ -197,7 +201,7 @@ def test_port_imports_no_optional_package_at_import_time():
 
 
 _BLOCKED_OPTIONAL = _BLOCKED_IMPORT.replace(
-    'BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu"}',
+    'BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu", "benchmarks"}',
     'BLOCK = {"jax", "jaxlib", "multimodal_idbn_tpu", "matplotlib", '
     '"pandas", "wandb", "mpl_toolkits"}').replace(
     'print("ok", len(names))', r"""
