@@ -116,7 +116,30 @@ Phases, each fatal on failure:
    150 joint epochs), the launches of kernels 1 and 2 against their
    derivation, every state finite, the 14 metrics of the quality protocol
    (``multimodal_idbn_tpu_torch.quality``) and a collapse check (training
-   top-1 below 3/32, or image auto-reconstruction at the blank level).
+   top-1 below 3/32, or image auto-reconstruction at the blank level);
+14. graph replays against launch by launch: ``philox_fill`` (the Philox
+   fill of the plain torch draws) against its plain version and a repeat,
+   by value and from a key table, and timed; then flagship-cut,
+   bimodal-cut and flagship-cut under PCD through their entry points
+   with every call of an epoch function recorded (``EPOCH_BLOCKS``): every
+   epoch must have run as one replay of a graphed runner, launched the
+   kernels its capture launched and as derived, with the replays under
+   ``torch.cuda.set_sync_debug_mode("error")``; the same epoch functions
+   called again with the recorded arguments and no runner (launch by
+   launch) must return bit-equal states, losses and metric sums with the
+   same launches. Each cut's joint phase is then run again from the
+   recorded inputs, replayed and launch by launch, timed on the host clock
+   and profiled (busy ms, idle share), beside PERF.md's launch-by-launch
+   figures; each capture's seconds and graph memory are printed.
+
+From phase 4 on, every fused epoch of a training path on the card is one
+replay of a CUDA graph (``ops.graphs``), so phases 4, 8 and 10-13 hold
+the graphed paths (and ``graph_replays``, the replays, beside each
+path's launches); the per-batch loops and the data-parallel runs of phase
+12 run launch by launch, and the one-rank NCCL run is held bit-equal to
+phase 4's replays.
+
+``python3 chip_smoke.py --phase-14`` runs the build and phase 14 alone.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -213,8 +236,9 @@ def bounds(flops: float, nbytes: float):
 
 
 def build_kernels():
-    from multimodal_idbn_tpu_torch.ops import _cuda, chain, half_step
-    libs = [half_step.KERNEL, chain.KERNEL]
+    from multimodal_idbn_tpu_torch.ops import (_cuda, chain, half_step,
+                                               philox_fill)
+    libs = [half_step.KERNEL, chain.KERNEL, philox_fill.KERNEL]
     t0 = time.perf_counter()
     _cuda.build_all(libs)
     log(f"[build] nvcc {' '.join(_cuda.NVCC_FLAGS)}: "
@@ -228,16 +252,24 @@ def build_kernels():
 
 
 def reset_launches():
-    from multimodal_idbn_tpu_torch.ops import chain, half_step
+    """Zero every kernel's launch count and the graph replays."""
+    from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
+                                               philox_fill)
     half_step.KERNEL.reset_launches()
     chain.KERNEL.reset_launches()
+    philox_fill.KERNEL.reset_launches()
+    graphs.reset_stats()
 
 
 def read_launches():
-    """Launches of each kernel entry since the last reset."""
-    from multimodal_idbn_tpu_torch.ops import chain, half_step
+    """Launches of each kernel entry since the last reset, and the CUDA
+    graph replays (one per epoch on a graphed path)."""
+    from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
+                                               philox_fill)
     out = dict(half_step.KERNEL.launches_by_entry)
     out["chain_run"] = chain.KERNEL.launches
+    out["philox_fill"] = philox_fill.KERNEL.launches
+    out["graph_replays"] = sum(graphs.STATS["replays"].values())
     return out
 
 
@@ -681,9 +713,10 @@ def run_path(name, workdir: Path):
     log(f"[{name}] launches {json.dumps(launches)}; phase seconds "
         f"{json.dumps(summary['seconds'])}; {extra}; cross metrics "
         f"{json.dumps(m)}")
-    if launches["half_step_sample"] <= 0 or launches["chain_run"] <= 0:
-        raise AssertionError(f"{name}: a kernel was not launched: "
-                             f"{launches}")
+    if min(launches[k] for k in ("half_step_sample", "chain_run",
+                                 "philox_fill", "graph_replays")) <= 0:
+        raise AssertionError(f"{name}: a kernel was not launched, or no "
+                             f"epoch replayed a graph: {launches}")
     return launches, summary
 
 
@@ -868,7 +901,8 @@ def run_serving(dev, model, workdir: Path):
         launches = read_launches()
         out_loaded = call(loaded)
         torch.cuda.synchronize()
-        half_steps = sum(v for k, v in launches.items() if k != "chain_run")
+        half_steps = sum(v for k, v in launches.items()
+                         if k.startswith("half_step"))
         if launches["chain_run"] != want_chain or half_steps:
             raise AssertionError(f"{name}: launches {launches}, expected "
                                  f"{want_chain} chain and no half-step")
@@ -1255,7 +1289,8 @@ def time_diagnostics(name: str, model):
         _, wall, _ = timed_call(call)
         launches = read_launches()
         busy, ops, missing = busy_ms(short[diag])
-        half = sum(v for k, v in launches.items() if k != "chain_run")
+        half = sum(v for k, v in launches.items()
+                   if k.startswith("half_step"))
         rows[diag] = dict(seconds=wall / 1e3, busy_ms=busy, operations=ops,
                           missing_records=missing,
                           chain=launches["chain_run"], half_step=half)
@@ -2216,8 +2251,10 @@ def run_phase13(workdir: Path):
     launches = read_launches()
     model = summary["model"]
     n_train = len(model.dataloader.dataset)
-    want = dict(dict.fromkeys(launches, 0), **quality.derived_launches(
+    want = dict(dict.fromkeys((k for k in launches if k not in (
+        "philox_fill", "graph_replays")), 0), **quality.derived_launches(
         "flagship", schedule, n_train))
+    want["graph_replays"] = schedule["epochs_img"] + schedule["epochs_joint"]
     check_launches("flagship-full", launches, want)
     check_states(*cut_states("flagship-cut", model))
     t0 = time.perf_counter()
@@ -2251,6 +2288,320 @@ def run_phase13(workdir: Path):
         raise AssertionError("phase 13: the flagship run collapsed")
     log(f"[phase13] {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: graph replays against launch by launch
+# ---------------------------------------------------------------------------
+
+# The epoch functions the models call, by module of the port's ops.
+EPOCH_BLOCKS = (("dbn_train", "idbn_epoch_block"),
+                ("dbn_train", "idbn_epoch_block_pcd"),
+                ("imdbn_ops", "joint_epoch_block"),
+                ("bimodal_ops", "bimodal_epoch_block"))
+# PERF.md section 5 (profile_main_path.py, F4; launch by launch, NVIDIA
+# H100 80GB HBM3, 700 W): the joint phases of the cuts, 9 epochs.
+F4_JOINT = {"flagship-cut": "joint 0.220 s, idle 44.0%",
+            "bimodal-cut": "joint 0.64-0.93 s, idle 64.5%, ~60 000 "
+                           "launches"}
+
+
+def _clone_tree(tree):
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    return graphs.map_tree(torch.clone, tree)
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def recorded_epochs():
+    """Inside the block every call of an epoch function of
+    ``EPOCH_BLOCKS`` is recorded: its arguments (cloned), its runner, its
+    outputs (cloned: a graphed runner's state lives in its buffers, which
+    the next replay overwrites) and the kernel launches it made. Every
+    replay of a captured graph runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    raises."""
+    import importlib
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    records, saved = [], []
+    for mod_name, fn_name in EPOCH_BLOCKS:
+        mod = importlib.import_module(
+            f"multimodal_idbn_tpu_torch.ops.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def wrapper(*args, _real=real, _mod=mod_name, _fn=fn_name, **kw):
+            rec = dict(mod=_mod, fn=_fn, args=_clone_tree(args),
+                       kw={k: v for k, v in kw.items() if k != "runner"},
+                       runner=kw.get("runner"))
+            before = graphs.launch_counts()
+            out = _real(*args, **kw)
+            rec["launches"] = graphs.launches_since(before)
+            rec["out"] = _clone_tree(out)
+            records.append(rec)
+            return out
+
+        saved.append((mod, fn_name, real))
+        setattr(mod, fn_name, wrapper)
+    real_replay = graphs.EpochRunner._replay
+
+    def checked_replay(self, *a):
+        if self._graph is None:
+            return real_replay(self, *a)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_replay(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs.EpochRunner._replay = checked_replay
+    try:
+        yield records
+    finally:
+        graphs.EpochRunner._replay = real_replay
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
+
+
+def derived_epoch_launches(rec) -> dict:
+    """Launches of kernels 1 and 2 in one epoch of a record, derived:
+    image CD 1 + 2·CD half-steps per layer and batch, PCD 3 + 2·CD per
+    layer and full batch and 1 + 2·CD for the remainder; joint chains as
+    ``quality.derived_launches`` per epoch (flagship warm-up 4 and main 3
+    a batch, plus the z-clamp of every 50th; bimodal 4 and 2)."""
+    kw, fn = rec["kw"], rec["fn"]
+    bs = kw["batch_size"]
+    if fn.startswith("idbn"):
+        states, data = rec["args"][0], rec["args"][3 if fn.endswith("pcd")
+                                                     else 2]
+        n, L, cd = data.shape[0], len(states), kw["cd"]
+        nb, rem = n // bs, n % bs
+        per = 3 + 2 * cd if fn.endswith("pcd") else 1 + 2 * cd
+        return {"half_step_sample": L * (nb * per
+                                         + (1 + 2 * cd) * (rem > 0)),
+                "chain_run": 0}
+    nb = -(-rec["args"][3 if fn == "joint_epoch_block" else 4].shape[0]
+           // bs)
+    if kw["warmup"]:
+        chain = 4 * nb
+    elif fn == "joint_epoch_block":
+        chain = 3 * nb + -(-nb // kw["zclamp_every"])
+    else:
+        chain = 2 * nb
+    return {"half_step_sample": 0, "chain_run": chain}
+
+
+def _port_launches(delta) -> dict:
+    out = {"half_step_sample": 0, "chain_run": 0, "philox_fill": 0}
+    for (src, entry), n in delta.items():
+        out[entry if entry in out else f"{src}:{entry}"] = n
+    return out
+
+
+def check_replays(what: str, records) -> dict:
+    """Every recorded epoch: run by a graphed runner, one replay per
+    epoch, its launches those of the runner's capture and as derived;
+    then the same epoch function called again with the same arguments and
+    no runner (launch by launch) must return bit-equal states, losses and
+    metric sums with the same launches. Returns {epoch function: epochs}."""
+    import importlib
+    from multimodal_idbn_tpu_torch.ops import graphs
+    runners = {}
+    for rec in records:
+        r = rec["runner"]
+        if r is None or not r.graphed:
+            raise AssertionError(f"{what}: {rec['fn']} ran without a "
+                                 f"graphed runner")
+        runners.setdefault(id(r), [r, 0])[1] += 1
+    for r, calls in runners.values():
+        if r.replays != calls:
+            raise AssertionError(f"{what}: {r.name} replayed {r.replays} "
+                                 f"times in {calls} epochs")
+    counts = {}
+    for i, rec in enumerate(records):
+        got = _port_launches(rec["launches"])
+        want = derived_epoch_launches(rec)
+        if any(got[k] != v for k, v in want.items()) or \
+                rec["launches"] != rec["runner"].launches_per_replay:
+            raise AssertionError(f"{what}: epoch {i} ({rec['fn']}) launched "
+                                 f"{got}, derived {want}, the capture "
+                                 f"{rec['runner'].launches_per_replay}")
+        fn = getattr(importlib.import_module(
+            f"multimodal_idbn_tpu_torch.ops.{rec['mod']}"), rec["fn"])
+        before = graphs.launch_counts()
+        eager = fn(*_clone_tree(rec["args"]), **rec["kw"])
+        eager_launches = graphs.launches_since(before)
+        if not _trees_equal(eager, rec["out"]):
+            raise AssertionError(f"{what}: epoch {i} ({rec['fn']}) replayed "
+                                 f"is not bit-equal to launch by launch")
+        if eager_launches != rec["launches"]:
+            raise AssertionError(f"{what}: epoch {i} launched "
+                                 f"{eager_launches} by launch, "
+                                 f"{rec['launches']} replayed")
+        counts[rec["fn"]] = counts.get(rec["fn"], 0) + 1
+    return counts
+
+
+def profile_joint(what: str, records) -> dict:
+    """The joint phase of a cut twice from the recorded inputs: replayed
+    (each epoch's runner called again: a replay, its output bit-equal to
+    the recorded one) and launch by launch (the epoch function without a
+    runner). For each: wall seconds (host clock around the synchronised
+    phase), device busy ms and operations (profiled once more) and the
+    idle share of the wall time."""
+    import importlib
+    from multimodal_idbn_tpu_torch.ops import graphs, rng
+    joint = [r for r in records if r["fn"] in ("joint_epoch_block",
+                                               "bimodal_epoch_block")]
+    out = {}
+
+    def replayed():
+        for rec in joint:
+            a = rec["args"]
+            state, epoch_key = _clone_tree(a[0]), a[2 if rec["fn"] ==
+                                                    "joint_epoch_block"
+                                                    else 3]
+            e_idx, lr, mom = (a[6], a[7], a[8]) if rec["fn"] == \
+                "joint_epoch_block" else (a[8], a[9], a[10])
+            rec["runner"](state, rng.fold_in(epoch_key, int(e_idx[0])),
+                          lr[0], mom[0])
+
+    def eager():
+        for rec in joint:
+            fn = getattr(importlib.import_module(
+                f"multimodal_idbn_tpu_torch.ops.{rec['mod']}"), rec["fn"])
+            fn(*_clone_tree(rec["args"]), **rec["kw"])
+
+    for label, fn in (("replayed", replayed), ("launch by launch", eager)):
+        before = graphs.launch_counts()
+        _, wall_ms, _ = timed_call(fn)
+        launches = _port_launches(graphs.launches_since(before))
+        busy, ops, missing = busy_ms(fn)
+        out[label] = dict(wall_s=wall_ms / 1e3, busy_ms=busy,
+                          device_ops=ops, records_missing=missing,
+                          idle_share=max(0.0, 1 - busy / wall_ms),
+                          launches=launches)
+        log(f"[phase14] {what} joint phase ({len(joint)} epochs) {label}: "
+            f"{wall_ms / 1e3:.4f} s wall, {busy:.1f} ms busy, idle "
+            f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%, {ops} device "
+            f"operations ({missing} records missing), port kernels "
+            f"{json.dumps(launches)}")
+    return out
+
+
+def check_philox_fill(dev):
+    """philox_fill against its plain version on the card and against a
+    repeat, bit for bit, keyed by value and from a key table, at the
+    shapes of the main paths; the kernels-line row of [128, 1500], the
+    bimodal cross metrics' Bernoulli draws."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import philox_fill, rng
+    keys = torch.tensor(rng.key_values(7, [(1,), (2, 3)]),
+                        dtype=torch.int64, device=dev)
+    rows = []
+    for (r, c, bits16, row0) in ((128, 1500, False, 0), (128, 532, False, 0),
+                                 (12, 2500, False, 116), (500, 532, True, 0),
+                                 (1500, 1, True, 0)):
+        for how in ("value", "table"):
+            if how == "value":
+                key = rng.fold_in(rng.fold_in(7, 2), 3)
+                k = philox_fill.fill(key, r, c, device=dev, row0=row0,
+                                     bits16=bits16)
+                again = philox_fill.fill(key, r, c, device=dev, row0=row0,
+                                         bits16=bits16)
+            else:
+                table = rng.KeyTable(keys, [(1,), (2, 3)])
+                with rng.key_table(table):
+                    philox_fill.fill(rng.Key((1,)), 1, 1, device=dev)
+                    k = philox_fill.fill(rng.Key((2, 3)), r, c, device=dev,
+                                         row0=row0, bits16=bits16)
+                again = k.clone()
+            p = philox_fill.fill_plain(rng.fold_in(rng.fold_in(7, 2), 3), r,
+                                       c, device=dev, row0=row0,
+                                       bits16=bits16)
+            if not (torch.equal(k, p) and torch.equal(k, again)):
+                raise AssertionError(f"philox_fill [{r},{c}] bits16={bits16}"
+                                     f" by {how}: not bit-equal")
+        rows.append(dict(shape=f"[{r},{c}]{' bits16' if bits16 else ''}",
+                         max_abs_err=float((k.double() - p.double())
+                                           .abs().max())))
+    r, c = 128, 1500
+    key = rng.fold_in(3, 4)
+    ms = time_ms(lambda: philox_fill.fill(key, r, c, device=dev), 200)
+    plain_ms = time_ms(lambda: philox_fill.fill_plain(key, r, c,
+                                                      device=dev), 20)
+    rand_ms = time_ms(lambda: torch.rand((r, c), device=dev), 200)
+    # 8 bytes of key and 4 of output per element; ~110 integer operations
+    # per Philox4x32-10 element, at the CUDA-core rate (the published fp32
+    # rate; the integer units run at most as fast)
+    n = r * c
+    t_ops = 110 * n / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (8 + 4 * n) / PEAK_HBM_BYTES * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None, torch_rand_ms=rand_ms,
+               max_abs_err=max(x["max_abs_err"] for x in rows),
+               other_shapes=rows[1:])
+    log(f"[phase14] philox_fill bit-equal to its plain version and to a "
+        f"repeat, by value and from a key table, at "
+        f"{[x['shape'] for x in rows]}; [128,1500]: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}); torch.rand (another function) {rand_ms:.4f} "
+        f"ms")
+    return row
+
+
+def run_phase14(dev, workdir: Path):
+    """Phase 14. Returns (the philox_fill row, launches by path)."""
+    from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.ops import graphs
+    t_phase = time.perf_counter()
+    fill_row = check_philox_fill(dev)
+    by_path, profiles = {}, {}
+    for name, variant in (("flagship-cut", None), ("bimodal-cut", None),
+                          ("flagship-cut", "pcd")):
+        what = f"{name} {variant}" if variant else name
+        sub = workdir / f"p14-{variant or name}"
+        sub.mkdir()
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_epochs() as records:
+            summary = (cuts.run_variant(variant, sub) if variant
+                       else cuts.run_cut(name, sub))
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        captures = list(graphs.STATS["captures"])
+        warm = dict(graphs.STATS["warmup_launches"])
+        counts = check_replays(what, records)
+        log(f"[phase14] {what}: {wall:.1f} s through the entry point, phase "
+            f"seconds {json.dumps(summary['seconds'])}; every epoch one "
+            f"replay ({launches['graph_replays']} replays: "
+            f"{json.dumps(counts)}), launches as derived, bit-equal to the "
+            f"same epochs launch by launch, replays free of host "
+            f"synchronisation; launches {json.dumps(launches)}; the "
+            f"warm-ups' (not counted) {json.dumps(warm)}")
+        for c in captures:
+            log(f"[phase14] {what} capture {c['name']}: {c['seconds']:.3f} "
+                f"s, graph pool {c['pool_bytes'] / 2 ** 20:.1f} MiB, "
+                f"launches per replay {json.dumps(c['launches'])}")
+        by_path[f"graphs {what}"] = launches
+        if variant is None:
+            profiles[name] = profile_joint(name, records)
+            log(f"[phase14] {name} joint phase launch by launch in PERF.md "
+                f"section 5 (profile_main_path.py, F4): {F4_JOINT[name]}")
+        del records, summary
+    log(f"[phase14] {time.perf_counter() - t_phase:.1f} s")
+    return fill_row, by_path
 
 
 def main() -> int:
@@ -2316,13 +2667,17 @@ def main() -> int:
             phase12, offset_rows = run_phase12(dev, tmp, phase4)
             by_path.update(phase12)
             by_path["flagship-full"] = run_phase13(tmp)
+            fill_row, phase14 = run_phase14(dev, tmp)
+            by_path.update(phase14)
     except Exception:
         traceback.print_exc()
         return 1
 
     def launches(entry, path):
         return dict(launches=by_path[path][entry], launches_by_path={
-            p: counts[entry] for p, counts in by_path.items()})
+            p: counts[entry] for p, counts in by_path.items()},
+            graph_replays_by_path={p: counts.get("graph_replays", 0)
+                                   for p, counts in by_path.items()})
 
     kernels = [
         dict(name="half_step_sample", route="cuda",
@@ -2361,6 +2716,14 @@ def main() -> int:
              replaces="multimodal_idbn_tpu/ops/pallas_kernels.py:311",
              launches_entry="half_step_sample",
              **launches("half_step_sample", "flagship-cut"), **hs_big),
+        # no TPU kernel: the JAX package draws these numbers with
+        # jax.random (XLA); the fill replaces the torch.Generator draws
+        # that a CUDA graph would replay with the captured seeds
+        dict(name="philox_fill", route="cuda",
+             source="multimodal_idbn_tpu_torch/csrc/philox_fill.cu",
+             replaces="none: jax.random in multimodal_idbn_tpu/ops/"
+                      "sampling.py:22 (XLA, no Pallas kernel)",
+             **launches("philox_fill", "bimodal-cut"), **fill_row),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2371,7 +2734,27 @@ def main() -> int:
     return 0
 
 
+def phase14_main() -> int:
+    """``chip_smoke.py --phase-14``: the build and phase 14 alone (no
+    result line)."""
+    import torch
+    from multimodal_idbn_tpu_torch import resolve_device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        build_kernels()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_phase14(resolve_device("cuda"), Path(tmp))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase-14"]:
+        sys.exit(phase14_main())
     sys.exit(main())

@@ -51,6 +51,12 @@
 //   three blocks per SM where W is large, 64-row tiles and one block per
 //   SM where it is small and the barriers set the pace, 32-row tiles for
 //   a batch of at most 32, so a remainder batch of 12 does 12 rows' work.
+// - the noise seed is keys[key_index] when keys is not null (a key table
+//   in device memory, which the host fills before each replay of a CUDA
+//   graph of an epoch, ops/graphs.py), else the value `seed`;
+// - the launch is cudaLaunchKernelEx with the cooperative attribute,
+//   which a stream capture takes; the barrier counter is zeroed by the
+//   wrapper before every launch, and so before every replay.
 // Rows beyond B are neither read nor written. There is no limit on V or
 // H. The result does not depend on the grid size or on the order in which
 // blocks run.
@@ -90,6 +96,8 @@ struct ChainArgs {
   unsigned* barrier;     // zero at launch
   int B, V, H, Vs, Hs, n_steps, n_groups, Dz, noisy, final_unclamped;
   int slices_h, k_per_slice_h, slices_v, k_per_slice_v;
+  const unsigned long long* keys;  // key table, or null: `seed` is the key
+  int key_index;
   uint64_t seed;
   uint32_t row0;         // global index of the batch's first row
 };
@@ -202,6 +210,8 @@ chain_kernel(ChainArgs a) {
   const int lane = tid & 31;
   const int gwarp = gtid >> 5, gwarps = gthreads >> 5;
   const bool pull = a.mu != nullptr;
+  const uint64_t seed =
+      a.keys != nullptr ? __ldg(a.keys + a.key_index) : a.seed;
   unsigned barrier_target = 0;
 
   if (tid < 2 * a.n_groups) sg[tid] = a.groups[tid];
@@ -246,7 +256,7 @@ chain_kernel(ChainArgs a) {
         if (j >= H) break;
         float logit = (s[e] + __ldg(a.hb + j)) * inv_T;
         if (noisy)
-          logit += philox_normal(a.seed, a.row0 + (uint32_t)r, (uint32_t)j,
+          logit += philox_normal(seed, a.row0 + (uint32_t)r, (uint32_t)j,
                                  (uint32_t)t, 0u) * sig;
         a.h[(size_t)r * a.Hs + j] = sigmoidf_exact(logit);
       }
@@ -259,7 +269,7 @@ chain_kernel(ChainArgs a) {
     auto logit_of = [&](float sum, int r, int i) {
       float logit = (sum + __ldg(a.vb + i)) * inv_T;
       if (noisy)
-        logit += philox_normal(a.seed, a.row0 + (uint32_t)r, (uint32_t)i,
+        logit += philox_normal(seed, a.row0 + (uint32_t)r, (uint32_t)i,
                                (uint32_t)t, 1u) * sig;
       return logit;
     };
@@ -396,12 +406,18 @@ cudaError_t make_plan(int B, int V, int H, int tile_rows, int max_grid,
 }
 
 template <int TM>
-cudaError_t launch(ChainArgs& a, int grid, void* stream) {
-  void* params[] = {&a};
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(chain_kernel<TM>), dim3(grid),
-      dim3(gemm::THREADS), params, gemm::Tile<TM>::SMEM_BYTES,
-      static_cast<cudaStream_t>(stream));
+cudaError_t launch(const ChainArgs& a, int grid, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(gemm::THREADS);
+  cfg.dynamicSmemBytes = gemm::Tile<TM>::SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chain_kernel<TM>, a);
 }
 
 }  // namespace
@@ -438,11 +454,13 @@ extern "C" int chain_run(const float* w, const float* hb, const float* vb,
                          const int* groups, float* out, float* v, float* h,
                          float* logits, float* partial, unsigned* barrier,
                          int B, int V, int H, int n_steps, int n_groups,
-                         int Dz, int noisy, unsigned long long seed,
+                         int Dz, int noisy, const unsigned long long* keys,
+                         int key_index, unsigned long long seed,
                          int final_unclamped, int tile_rows,
                          int max_grid, int row0, int plan_B, void* stream) {
   if (B <= 0 || V <= 0) return 0;
   if (n_groups < 0 || n_groups > MAX_GROUPS || H <= 0 || row0 < 0 ||
+      key_index < 0 ||
       (plan_B < B && plan_B != 0))
     return (int)cudaErrorInvalidValue;
   Plan p;
@@ -453,7 +471,7 @@ extern "C" int chain_run(const float* w, const float* hb, const float* vb,
               logits, partial, barrier, B, V, H, (V + 3) / 4 * 4,
               (H + 3) / 4 * 4, n_steps > 0 ? n_steps : 0, n_groups, Dz, noisy,
               final_unclamped, p.slices_h, p.k_per_slice_h, p.slices_v,
-              p.k_per_slice_v, seed, (uint32_t)row0};
+              p.k_per_slice_v, keys, key_index, seed, (uint32_t)row0};
   err = p.tile_rows == 128  ? launch<8>(a, p.grid, stream)
         : p.tile_rows == 64 ? launch<4>(a, p.grid, stream)
                             : launch<2>(a, p.grid, stream);

@@ -4,6 +4,10 @@
 //   sample = probs > u(seed, row0 + row, col0 + col)   (Philox4x32-10,
 //                                                      philox.cuh)
 //
+// The seed of half_step_sample is keys[key_index] when keys is not null (a
+// key table in device memory, which the host fills before each replay of a
+// CUDA graph of an epoch, ops/graphs.py), else the value `seed`.
+//
 // row0 and col0 place the operand in a larger one: a data-parallel rank
 // that holds rows row0.. of the batch, or a model-parallel rank that holds
 // columns col0.. of W, draws the uniforms of those global elements, the
@@ -80,6 +84,8 @@ struct HalfStepArgs {
   int* tickets;       // one per output tile, zero between launches
   int B, K, N, slices, k_per_slice;
   float inv_T;
+  const unsigned long long* keys;  // key table, or null: `seed` is the key
+  int key_index;
   uint64_t seed;
   uint32_t row0, col0;  // global index of this operand's first row, column
 };
@@ -127,6 +133,8 @@ half_step_kernel(HalfStepArgs a) {
     gemm::sum_partials<TM>(acc, a.scratch, plane, a.slices, ld, a.B, m0, n0);
   }
 
+  const uint64_t seed =
+      a.keys != nullptr ? __ldg(a.keys + a.key_index) : a.seed;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = m0 + gemm::tile_row<TM>(tid, i);
@@ -140,7 +148,7 @@ half_step_kernel(HalfStepArgs a) {
       a.probs[o] = p;
       if (a.sample != nullptr) {
         const float u =
-            philox_uniform(a.seed, a.row0 + (uint32_t)r,
+            philox_uniform(seed, a.row0 + (uint32_t)r,
                            a.col0 + (uint32_t)c, 0u, 0u);
         a.sample[o] = p > u ? 1.0f : 0.0f;
       }
@@ -170,18 +178,19 @@ int launch_tile(const HalfStepArgs& a, void* stream) {
 int launch(const float* x, const float* w, const float* b, float* probs,
            float* sample, float* scratch, int* tickets, int B, int K, int N,
            bool transpose_w, int tile_rows, int slices, int k_per_slice,
-           float inv_T, uint64_t seed, int row0, int col0, void* stream) {
+           float inv_T, const unsigned long long* keys, int key_index,
+           uint64_t seed, int row0, int col0, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if ((tile_rows != 32 && tile_rows != 64) || slices < 1 ||
       slices > 65535 || k_per_slice < gemm::BK ||
       k_per_slice % gemm::BK != 0 ||
       (long long)slices * k_per_slice < (long long)K || row0 < 0 ||
-      col0 < 0 ||
+      col0 < 0 || key_index < 0 ||
       (slices > 1 && (scratch == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const HalfStepArgs a{x, w, b, probs, sample, scratch, tickets, B, K, N,
-                       slices, k_per_slice, inv_T, seed, (uint32_t)row0,
-                       (uint32_t)col0};
+                       slices, k_per_slice, inv_T, keys, key_index, seed,
+                       (uint32_t)row0, (uint32_t)col0};
   if (tile_rows == 64)
     return transpose_w ? launch_tile<true, 4>(a, stream)
                        : launch_tile<false, 4>(a, stream);
@@ -196,11 +205,12 @@ extern "C" int half_step_sample(const float* x, const float* w,
                                 float* scratch, int* tickets, int B, int K,
                                 int N, int transpose_w, int tile_rows,
                                 int slices, int k_per_slice, float inv_T,
-                                unsigned long long seed, int row0, int col0,
-                                void* stream) {
+                                const unsigned long long* keys,
+                                int key_index, unsigned long long seed,
+                                int row0, int col0, void* stream) {
   return launch(x, w, b, probs, sample, scratch, tickets, B, K, N,
                 transpose_w != 0, tile_rows, slices, k_per_slice, inv_T,
-                seed, row0, col0, stream);
+                keys, key_index, seed, row0, col0, stream);
 }
 
 extern "C" int half_step_probs(const float* x, const float* w,
@@ -209,7 +219,8 @@ extern "C" int half_step_probs(const float* x, const float* w,
                                int tile_rows, int slices, int k_per_slice,
                                float inv_T, void* stream) {
   return launch(x, w, b, probs, nullptr, scratch, tickets, B, K, N, false,
-                tile_rows, slices, k_per_slice, inv_T, 0, 0, 0, stream);
+                tile_rows, slices, k_per_slice, inv_T, nullptr, 0, 0, 0, 0,
+                stream);
 }
 
 // seed is the TPU kernel's int32 seed; its 32 bits key Philox.
@@ -221,8 +232,8 @@ extern "C" int half_step_sample_resident(const float* x, const float* w,
                                          int k_per_slice, float inv_T,
                                          unsigned int seed, void* stream) {
   return launch(x, w, b, probs, sample, scratch, tickets, B, K, N, false,
-                tile_rows, slices, k_per_slice, inv_T, (uint64_t)seed, 0, 0,
-                stream);
+                tile_rows, slices, k_per_slice, inv_T, nullptr, 0,
+                (uint64_t)seed, 0, 0, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -31,6 +31,15 @@ bf16 storage and mixed precision run ``rbm_ops.cd_update`` /
 (seed, epoch) on the device; any other is iterated batch by batch, every
 layer through ``RBM.train_epoch`` (the half-step kernel for fp32), its
 shuffle counter re-aligned on a resumed run (``align_loader_for_resume``).
+
+How a fused epoch runs (``ops.graphs``): on a CUDA device without a mesh
+each epoch is one replay of a CUDA graph of ``dbn_train.idbn_epoch_body``,
+captured at the first epoch of each ``train`` call, CD and PCD, every
+storage and precision setting alike, the counterpart of JAX's jitted,
+scanned epoch. It runs launch by launch where the configuration asks for
+it: the per-batch loop (``fused=False``, or a loader without
+``materialize()``), which is the reference's altitude; a mesh, whose gloo
+or NCCL collectives are not captured; and the CPU.
 Data parallelism (``DP_DEVICES`` or ``set_mesh``, :126-130, :183-206):
 the fused epochs run over ``parallel.make_mesh``'s process group, each
 process on its rows of every batch (``dbn_train.idbn_epoch_block`` with
@@ -210,7 +219,7 @@ class iDBN:
         (JAX models/idbn.py:183-194). An explicit call, None included,
         overrides ``DP_DEVICES``."""
         from multimodal_idbn_tpu_torch.parallel import resolve_mesh
-        self.mesh = resolve_mesh(mesh)
+        self.mesh = resolve_mesh(mesh, self.device)
         self._dp_devices = None
 
     def _resolve_mesh(self):
@@ -241,43 +250,46 @@ class iDBN:
                 for i, r in enumerate(self.layers)]
         return self._pcd_chains
 
-    def _train_epoch(self, epoch: int, data: torch.Tensor, bs: int) -> float:
+    def _epoch_kw(self, bs: int) -> dict:
+        """The setting of this model's fused epochs."""
+        r0 = self.layers[0]
+        return dict(weight_decay=r0.weight_decay,
+                    sparsity_factor=self.sparsity_factor, cd=self.cd_k,
+                    sparsity_flags=[r.sparsity for r in self.layers],
+                    batch_size=bs, compute_dtype=self.compute_dtype,
+                    sr=self.sr, fast_sampler=self._fast_sampler())
+
+    def _epoch_runner(self, data: torch.Tensor, bs: int):
+        """The runner of this train call's fused epochs
+        (``dbn_train.idbn_epoch_runner``): graphed on a CUDA device without
+        a mesh, launch by launch on the CPU and over a mesh (module
+        docstring)."""
+        return dbn_train.idbn_epoch_runner(
+            data, pcd=self.use_pcd, mesh=self.mesh,
+            graphed=self.device.type == "cuda" and self.mesh is None,
+            **self._epoch_kw(bs))
+
+    def _train_epoch(self, epoch: int, runner, bs: int) -> float:
         """One epoch: the split permuted by this epoch's key, its full
         batches in order, then the remainder batch by CD, so every sample
-        trains exactly once (``dbn_train.idbn_epoch_block``, over the mesh
-        when there is one; under PCD ``idbn_epoch_pcd`` with the fantasy
+        trains exactly once (``dbn_train.idbn_epoch_block`` through
+        ``runner``; under PCD ``idbn_epoch_block_pcd`` with the fantasy
         particles). Returns the mean loss over the (batch, layer) entries
-        (reference idbn.py:204-208)."""
-        seed = int(self.params.get("SEED", 0))
+        (reference idbn.py:204-208), the one host read of the epoch."""
         r0 = self.layers[0]
-        lr = effective_lr(r0.lr, epoch, r0.dynamic_lr)
-        mom = effective_momentum(r0.momentum, r0.final_momentum, epoch)
-        kw = dict(weight_decay=r0.weight_decay,
-                  sparsity_factor=self.sparsity_factor, cd=self.cd_k,
-                  sparsity_flags=[r.sparsity for r in self.layers],
-                  compute_dtype=self.compute_dtype, sr=self.sr,
-                  fast_sampler=self._fast_sampler())
-        if not self.use_pcd:
+        args = (int(self.params.get("SEED", 0)), runner.consts[0], [epoch],
+                [effective_lr(r0.lr, epoch, r0.dynamic_lr)],
+                [effective_momentum(r0.momentum, r0.final_momentum, epoch)])
+        kw = dict(self._epoch_kw(bs), runner=runner)
+        if self.use_pcd:
+            states, self._pcd_chains, sums, counts = \
+                dbn_train.idbn_epoch_block_pcd(
+                    self.states(), self._ensure_pcd_chains(bs), *args, **kw)
+        else:
             states, sums, counts = dbn_train.idbn_epoch_block(
-                self.states(), seed, data, [epoch], [lr], [mom],
-                batch_size=bs, mesh=self.mesh, **kw)
-            self._set_states(states)
-            return float(sums[0]) / max(1, counts[0])
-        n = data.shape[0]
-        key = rng.fold_in(seed, epoch)
-        data_p = data[rng.permutation(key, n).to(self.device)]
-        kw.update(lr=lr, mom=mom)
-        states, self._pcd_chains, losses = dbn_train.idbn_epoch_pcd(
-            self.states(), self._ensure_pcd_chains(bs), key, data_p,
-            batch_size=bs, **kw)
-        loss_sum, count = losses.sum(), losses.numel()
-        rem = n - (n // bs) * bs
-        if rem:
-            states, rl = dbn_train.idbn_batch_step(
-                states, rng.fold_in(key, 987), data_p[n - rem:], **kw)
-            loss_sum, count = loss_sum + rl.sum(), count + rl.numel()
+                self.states(), *args, mesh=self.mesh, **kw)
         self._set_states(states)
-        return float(loss_sum) / max(1, count)
+        return float(sums[0]) / max(1, counts[0])
 
     def _train_epoch_batched(self, epoch: int, epochs: int) -> float:
         """One epoch over the loader's batches, every layer updated on
@@ -337,7 +349,8 @@ class iDBN:
         bs = int(getattr(self.dataloader, "batch_size", 128))
         if fused:
             data = as_tensor(self.dataloader.materialize()[0], self.device)
-            data = data.reshape(data.shape[0], -1)
+            runner = self._epoch_runner(data.reshape(data.shape[0], -1),
+                                        bs)
         else:
             align_loader_for_resume(self, start_epoch)
         timer = StepTimer(self.device)
@@ -346,7 +359,8 @@ class iDBN:
                 checkpoint_every if checkpoint_path else 0):
             for epoch in range(b_start, b_end):
                 with timer.step():
-                    mean_loss = (self._train_epoch(epoch, data, bs) if fused
+                    mean_loss = (self._train_epoch(epoch, runner, bs)
+                                 if fused
                                  else self._train_epoch_batched(epoch,
                                                                 epochs))
                 self.loss_history.append(mean_loss)

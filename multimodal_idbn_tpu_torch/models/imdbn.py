@@ -24,6 +24,16 @@ the loader (``_materialized_train(limit)``, :207-236). Data parallelism
 (``DP_DEVICES`` or ``set_mesh``, :129-134, :189-203) reaches both phases:
 the image iDBN's epochs and the joint epochs run over the mesh
 (``imdbn_ops.joint_epoch_block``); it needs the fused epochs.
+
+How a fused joint epoch runs (``ops.graphs``): on a CUDA device without
+a mesh each epoch is one replay of a CUDA graph of
+``imdbn_ops.joint_epoch_body``, one graph for the warm-up epochs and one
+for the main ones, captured at the first epoch of each in a
+``train_joint`` call, the counterpart of JAX's jitted, scanned epoch; the
+image iDBN's epochs likewise (``iDBN``). It runs launch by launch where
+the configuration asks for it: the per-batch loop (``fused=False``, or a
+loader without ``materialize()``), which is the reference's altitude; a
+mesh, whose collectives are not captured; and the CPU.
 """
 
 from __future__ import annotations
@@ -207,7 +217,7 @@ class iMDBN:
         iDBN included (JAX models/imdbn.py:189-196). An explicit call,
         None included, overrides ``DP_DEVICES``."""
         from multimodal_idbn_tpu_torch.parallel import resolve_mesh
-        self.mesh = resolve_mesh(mesh)
+        self.mesh = resolve_mesh(mesh, self.device)
         self._dp_devices = None
         self.image_idbn.set_mesh(self.mesh)
 
@@ -388,25 +398,35 @@ class iMDBN:
     # -- joint training (JAX :453-700) ------------------------------------------
 
     def _train_joint_epoch(self, epoch, X, Y, Z, bs, idbn_states,
-                           aux_cond_steps, metrics_every) -> List[float]:
+                           aux_cond_steps, metrics_every,
+                           runners: dict) -> List[float]:
         """One fused joint epoch: the split permuted by this epoch's key,
         its full batches, then the remainder
-        (``imdbn_ops.joint_epoch_block``, over the mesh when there is one);
-        sets ``last_metrics``. Returns the free-CD losses, one per batch
-        (none in the warm-up), as JAX models/imdbn.py:576-597 collects
-        them."""
+        (``imdbn_ops.joint_epoch_body``), through the runner of its
+        setting in ``runners`` (warm-up or main, made at first use: graphed
+        on a CUDA device without a mesh, class docstring); sets
+        ``last_metrics``. Returns the free-CD losses, one per batch (none
+        in the warm-up), as JAX models/imdbn.py:576-597 collects them."""
         jr = self.joint_rbm
-        joint, cd_losses, totals = imdbn_ops.joint_epoch_block(
-            jr.state, idbn_states, int(self.params.get("SEED", 0)) + 7, Z,
-            Y, X, [epoch], [effective_lr(jr.lr, epoch, jr.dynamic_lr)],
-            [effective_momentum(jr.momentum, jr.final_momentum, epoch)],
-            jr.weight_decay, self.z_class_mean,
-            warmup=epoch < WARMUP_Y_EPOCHS, joint_cd=self.joint_cd,
+        warmup = epoch < WARMUP_Y_EPOCHS
+        statics = dict(
+            warmup=warmup, joint_cd=self.joint_cd,
             aux_cond_steps=aux_cond_steps, Dz=self.Dz_img,
             steps=self.cross_steps, groups=self._joint_groups(),
             use_free_energy=not self.reference_best_of_k_bug,
             zclamp_every=ZCLAMP_EVERY, batch_size=bs,
             metrics_every=metrics_every, sr=jr.sr, mesh=self.mesh)
+        if warmup not in runners:
+            runners[warmup] = imdbn_ops.joint_epoch_runner(
+                Z, Y, X, idbn_states, self.z_class_mean, jr.weight_decay,
+                graphed=self.device.type == "cuda" and self.mesh is None,
+                **statics)
+        joint, cd_losses, totals = imdbn_ops.joint_epoch_block(
+            jr.state, idbn_states, int(self.params.get("SEED", 0)) + 7, Z,
+            Y, X, [epoch], [effective_lr(jr.lr, epoch, jr.dynamic_lr)],
+            [effective_momentum(jr.momentum, jr.final_momentum, epoch)],
+            jr.weight_decay, self.z_class_mean, runner=runners[warmup],
+            **statics)
         jr.state = joint
         self._set_last_metrics(
             epoch, {k: float(v) for k, v in totals[0]._asdict().items()},
@@ -531,6 +551,7 @@ class iMDBN:
         aux_cond_steps = int(self.params.get("JOINT_AUX_COND_STEPS", 10))
         metrics_every = int(self.params.get("CROSS_METRICS_EVERY", 1))
         idbn_states = self.image_idbn.states()
+        runners: dict = {}
         timer = StepTimer(self.device)
         for b_start, b_end in checkpoint_epochs(
                 start_epoch, epochs,
@@ -541,7 +562,7 @@ class iMDBN:
                     if fused:
                         cd_losses = self._train_joint_epoch(
                             epoch, X, Y, Z, bs, idbn_states,
-                            aux_cond_steps, metrics_every)
+                            aux_cond_steps, metrics_every, runners)
                     else:
                         cd_losses, tot, npix = \
                             self._train_joint_epoch_batched(

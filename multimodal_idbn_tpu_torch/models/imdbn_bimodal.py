@@ -13,7 +13,14 @@ the fused epochs over a loader with ``materialize()`` and the per-batch
 loop (``_train_joint_epoch_batched``, JAX :828-861) over any other; data
 parallelism (``DP_DEVICES`` or ``set_mesh``, :364, :629-644) runs the
 fused epochs over the mesh (``bimodal_ops.bimodal_epoch_block``) and
-reaches both modality iDBNs.
+reaches both modality iDBNs. How a fused joint epoch runs
+(``ops.graphs``): on a CUDA device without a mesh each epoch is one
+replay of a CUDA graph of ``bimodal_ops.bimodal_epoch_body``, one graph
+for the warm-up epochs and one for the main ones, captured at the first
+epoch of each in a ``train_joint`` call (the modality iDBNs' epochs
+likewise, ``iDBN``); launch by launch for the per-batch loop
+(``fused=False``, or a loader without ``materialize()``, the reference's
+altitude), over a mesh (its collectives are not captured) and on the CPU.
 Modality latents are computed once per joint run, as the modality iDBNs
 are frozen there. The diagnostics are ported too: the module functions
 (:37-320: joint embeddings and features, the joint probe, the MOD2→MOD1
@@ -376,7 +383,7 @@ class iMDBN_BiModal:
         iDBNs (JAX models/imdbn_bimodal.py:629-638). An explicit call, None
         included, overrides ``DP_DEVICES``."""
         from multimodal_idbn_tpu_torch.parallel import resolve_mesh
-        self.mesh = resolve_mesh(mesh)
+        self.mesh = resolve_mesh(mesh, self.device)
         self._dp_devices = None
         self.mod1_dbn.set_mesh(self.mesh)
         self.mod2_dbn.set_mesh(self.mesh)
@@ -580,6 +587,7 @@ class iMDBN_BiModal:
         bs = int(getattr(self.dataloader, "batch_size", 128))
         jr = self.joint_rbm
         seed = int(self.params.get("SEED", 0)) + 11
+        runners: dict = {}
         for b_start, b_end in checkpoint_epochs(
                 start_epoch, epochs,
                 checkpoint_every if checkpoint_path else 0,
@@ -594,13 +602,20 @@ class iMDBN_BiModal:
                                Dz1=self.Dz_mod1, steps=self.cross_steps,
                                sr=jr.sr)
                 if fused:
+                    if warmup not in runners:
+                        runners[warmup] = bimodal_ops.bimodal_epoch_runner(
+                            Z1, Z2, V1, V2, mod1_states, mod2_states,
+                            jr.weight_decay, batch_size=bs,
+                            metrics_every=metrics_every, mesh=mesh,
+                            graphed=(self.device.type == "cuda"
+                                     and mesh is None), **statics)
                     joint, sums, counts, totals = \
                         bimodal_ops.bimodal_epoch_block(
                             self._joint_states(), mod1_states, mod2_states,
                             seed, Z1, Z2, V1, V2, [epoch], [lr], [mom],
                             jr.weight_decay, batch_size=bs,
                             metrics_every=metrics_every, mesh=mesh,
-                            **statics)
+                            runner=runners[warmup], **statics)
                     self._set_joint_states(joint)
                     cd_sum, cd_count = sums[0], counts[0]
                     tot = {k: float(v)

@@ -40,6 +40,9 @@ def nvcc_path() -> str:
     return found
 
 
+LIBRARIES: List["CudaLibrary"] = []
+
+
 class CudaLibrary:
     """One kernel source, its built library and its launch counts.
 
@@ -57,6 +60,7 @@ class CudaLibrary:
         self.helpers = dict(helpers or {})
         self.launches_by_entry = dict.fromkeys(self.functions, 0)
         self._lib: Optional[ctypes.CDLL] = None
+        LIBRARIES.append(self)
 
     @property
     def launches(self) -> int:

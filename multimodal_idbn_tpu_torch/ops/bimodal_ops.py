@@ -13,8 +13,13 @@ The JAX epoch is a ``lax.scan`` (``bimodal_joint_epoch``) and, to cut TPU
 dispatches, a nested scan over epochs (``bimodal_epoch_block``); here one
 Python loop, ``bimodal_epoch``, trains the full batches of
 already-permuted data, then the remainder batch; ``bimodal_joint_epoch``
-is its full batches alone and ``bimodal_epoch_block`` runs epochs one
-after another, each permuted by its own key.
+is its full batches alone. ``bimodal_epoch_body`` is one epoch from device
+buffers (the permutation gathered from an index buffer, keys read from the
+epoch's key table, lr and momentum from 0-d tensors; ``ops.graphs``), and
+``bimodal_epoch_block`` runs it for each epoch through an ``EpochRunner``
+(``bimodal_epoch_runner``): launch by launch as it is called, or replayed
+as one CUDA graph per epoch when the caller hands it a graphed runner, as
+``iMDBN_BiModal.train_joint`` does on the card.
 
 With a ``mesh`` (``parallel.make_mesh``) each process trains its rows of
 every full batch inside ``shard.rows_of``: every joint update sums over
@@ -32,7 +37,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng, shard
+from multimodal_idbn_tpu_torch.ops import (dbn_train, graphs, rbm_ops, rng,
+                                           shard)
 
 States = List[rbm_ops.RBMState]
 
@@ -146,7 +152,7 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
             layers[0], mod1_states, mod2_states, keys[7], z1, z2,
             steps=steps, Dz1=Dz1)
         metrics = BimodalMetrics(
-            torch.tensor(float(z1.shape[0]), device=z1.device),
+            torch.full((), float(z1.shape[0]), device=z1.device),
             ((rec1 - v1) ** 2).sum(), ((rec2 - v2) ** 2).sum())
     return layers, cd_loss, metrics
 
@@ -232,6 +238,45 @@ def bimodal_joint_epoch(joint: Sequence[rbm_ops.RBMState],
     return joint, cd_sum / max(1, count), totals
 
 
+def bimodal_epoch_body(consts, joint, perm, lr, mom, *, weight_decay,
+                       **statics):
+    """One joint epoch from device buffers (``ops.graphs``): ``consts`` is
+    (Z1, Z2, V1, V2, mod1_states, mod2_states); the data permuted by
+    ``perm``, then ``bimodal_epoch``. Returns (joint, (CD-loss sum,
+    metric sums))."""
+    Z1, Z2, V1, V2, mod1_states, mod2_states = consts
+    Z1, Z2, V1, V2 = (a.index_select(0, perm) for a in (Z1, Z2, V1, V2))
+    joint, cd_sum, _, totals = bimodal_epoch(
+        joint, mod1_states, mod2_states, rng.Key(), Z1, Z2, V1, V2, lr, mom,
+        weight_decay, **statics)
+    return joint, (cd_sum, totals)
+
+
+def bimodal_epoch_runner(Z1: torch.Tensor, Z2: torch.Tensor,
+                         V1: torch.Tensor, V2: torch.Tensor,
+                         mod1_states: Sequence[rbm_ops.RBMState],
+                         mod2_states: Sequence[rbm_ops.RBMState],
+                         weight_decay, *, warmup: bool, joint_cd: int,
+                         aux_cond_steps: int, Dz1: int, steps: int,
+                         batch_size: int, metrics_every: int = 1,
+                         sr: Optional[bool] = None, mesh=None,
+                         graphed: bool = False) -> graphs.EpochRunner:
+    """The runner of ``bimodal_epoch_body`` at one setting (warm-up or
+    main); ``graphed`` replays it as a CUDA graph (no ``mesh``)."""
+    if graphed and mesh is not None:
+        raise ValueError("a data-parallel epoch runs launch by launch")
+    statics = dict(weight_decay=weight_decay, warmup=bool(warmup),
+                   joint_cd=int(joint_cd),
+                   aux_cond_steps=int(aux_cond_steps), Dz1=int(Dz1),
+                   steps=int(steps), batch_size=int(batch_size),
+                   metrics_every=int(metrics_every), sr=sr, mesh=mesh)
+    return graphs.EpochRunner(
+        "bimodal_epoch_warmup" if warmup else "bimodal_epoch",
+        bimodal_epoch_body,
+        (Z1, Z2, V1, V2, list(mod1_states), list(mod2_states)), statics,
+        n_rows=Z1.shape[0], device=Z1.device, graphed=graphed)
+
+
 def bimodal_epoch_block(joint: Sequence[rbm_ops.RBMState],
                         mod1_states: Sequence[rbm_ops.RBMState],
                         mod2_states: Sequence[rbm_ops.RBMState],
@@ -242,27 +287,29 @@ def bimodal_epoch_block(joint: Sequence[rbm_ops.RBMState],
                         aux_cond_steps: int, Dz1: int, steps: int,
                         batch_size: int, metrics_every: int = 1,
                         n_epochs: Optional[int] = None,
-                        sr: Optional[bool] = None, mesh=None):
+                        sr: Optional[bool] = None, mesh=None,
+                        runner: Optional[graphs.EpochRunner] = None):
     """The joint epochs ``epoch_idx`` (all warm-up or all main, as
-    ``warmup`` says): epoch e permutes the data by its key
-    ``fold_in(epoch_key, e)`` and runs ``bimodal_epoch`` (over ``mesh``).
+    ``warmup`` says): epoch e is ``bimodal_epoch_body`` under the key
+    ``fold_in(epoch_key, e)`` (its permutation ``rng.permutation`` of that
+    key), launch by launch, or through ``runner`` (a
+    ``bimodal_epoch_runner`` at this setting, which may be graphed).
     Returns (joint, CD-loss sums[E], CD batch counts[E], metric sums[E])
     (bimodal_ops.py:252-301)."""
     if n_epochs is not None and int(n_epochs) != len(epoch_idx):
         raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
                          f"epoch indices")
-    n = Z1.shape[0]
+    run = runner or bimodal_epoch_runner(
+        Z1, Z2, V1, V2, mod1_states, mod2_states, weight_decay,
+        warmup=warmup, joint_cd=joint_cd, aux_cond_steps=aux_cond_steps,
+        Dz1=Dz1, steps=steps, batch_size=batch_size,
+        metrics_every=metrics_every, sr=sr, mesh=mesh)
+    count = 0 if warmup else -(-Z1.shape[0] // batch_size)
     joint = list(joint)
     sums, counts, totals = [], [], []
     for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
-        key = rng.fold_in(epoch_key, int(e))
-        perm = rng.permutation(key, n).to(Z1.device)
-        joint, cd_sum, count, tot = bimodal_epoch(
-            joint, mod1_states, mod2_states, key, Z1[perm], Z2[perm],
-            V1[perm], V2[perm], lr, mom, weight_decay, warmup=warmup,
-            joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz1=Dz1,
-            steps=steps, batch_size=batch_size,
-            metrics_every=metrics_every, sr=sr, mesh=mesh)
+        joint, (cd_sum, tot) = run(joint, rng.fold_in(epoch_key, int(e)),
+                                   lr, mom)
         sums.append(cd_sum)
         counts.append(count)
         totals.append(tot)

@@ -14,7 +14,10 @@ and, with ``final_unclamped``, one more pass at T=1 with no noise, μ-pull
 or re-clamp (rbm_ops.py:434). ``sched`` holds the rows
 (1/max(1e-6,T_t), σ_t, η_t). Noise is drawn iff ``seed`` is given: Philox
 of (row0 + row, col, step, half) (``ops.rng.philox_normal``), so the plain
-version reproduces the kernel's draws. The chain init is drawn by the
+version reproduces the kernel's draws. The seed is an int, passed by
+value, or an ``rng.Key`` of an epoch body, which the kernel reads from the
+body's key table in device memory, so a CUDA graph of the epoch replays
+with each epoch's seeds (``ops.graphs``). The chain init is drawn by the
 caller, as in pallas_chain.py:207-209.
 
 ``row0`` and ``plan_rows`` place the batch in a larger one (a
@@ -56,7 +59,8 @@ from multimodal_idbn_tpu_torch.ops.sampling import (SoftmaxGroups,
 
 KERNEL = _cuda.CudaLibrary("chain.cu", {
     "chain_run": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-    + [ctypes.c_uint64] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 }, helpers={
     "chain_plan": [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
 })
@@ -115,7 +119,7 @@ def _check(w, hb, vb, v_init, v_known, km, sched, groups, mu) -> None:
 
 def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
                 groups: SoftmaxGroups = (), mu=None,
-                seed: Optional[int] = None,
+                seed: Optional[rng.AnyKey] = None,
                 final_unclamped: bool = False,
                 row0: int = 0) -> torch.Tensor:
     """The kernel's function in plain torch, one step at a time."""
@@ -123,6 +127,8 @@ def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
     B, V = v_init.shape
     H = w.shape[1]
     sched = sched.to(v_init.device)
+    if seed is not None:
+        seed = rng.key_word(seed)
     v = v_init
     for t in range(sched.shape[0]):
         inv_T, sig, eta = sched[t, 0], sched[t, 1], sched[t, 2]
@@ -153,7 +159,7 @@ def chain_plain(w, hb, vb, v_init, v_known, km, sched, *,
 
 def clamped_chain(w, hb, vb, v_init, v_known, km, sched, *,
                   groups: SoftmaxGroups = (), mu=None,
-                  seed: Optional[int] = None,
+                  seed: Optional[rng.AnyKey] = None,
                   final_unclamped: bool = False, row0: int = 0,
                   plan_rows: Optional[int] = None) -> torch.Tensor:
     """[B, V] chain output: the kernel on CUDA tensors, the plain version
@@ -184,6 +190,8 @@ def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
     gr = (_groups_on(dev, tuple((int(s), int(e)) for s, e in groups))
           if groups else None)
     _cuda.check_cuda_operands(w, hb, vb, v_init, v_known, km, mu, sched)
+    keys, index, value = (rng.key_operand(seed) if seed is not None
+                          else (None, 0, 0))
     out = torch.empty((B, V), device=dev)
     if B == 0:
         return out
@@ -201,7 +209,7 @@ def _launch(w, hb, vb, v_init, v_known, km, sched, groups, mu, seed,
         _cuda.ptr(h), _cuda.ptr(logits), _cuda.ptr(partial),
         _cuda.ptr(barrier), B, V, H, sched.shape[0], len(groups),
         0 if mu is None else mu.shape[1], int(seed is not None),
-        0 if seed is None else int(seed) & ((1 << 64) - 1),
-        int(final_unclamped), tile_rows, max_grid, int(row0),
+        _cuda.ptr(keys), index, value, int(final_unclamped), tile_rows,
+        max_grid, int(row0),
         int(plan_rows or 0), _cuda.stream_handle(v_init))
     return out

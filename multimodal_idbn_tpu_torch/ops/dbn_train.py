@@ -35,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng, shard
+from multimodal_idbn_tpu_torch.ops import fast_cd, graphs, rbm_ops, rng, shard
 from multimodal_idbn_tpu_torch.ops.sampling import sample_bernoulli
 
 States = List[rbm_ops.RBMState]
@@ -117,6 +117,64 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
     return states, torch.stack(losses)
 
 
+def idbn_epoch_body(consts, state, perm, lr, mom, *, batch_size: int,
+                    pcd: bool = False, mesh=None, **kw):
+    """One epoch of the image iDBN from device buffers (``ops.graphs``):
+    ``consts`` is (data,), ``state`` {"states": the layers, "chains": the
+    fantasy particles or None}. The data permuted by ``perm``, its full
+    batches (``idbn_epoch`` over ``mesh``, or ``idbn_epoch_pcd`` under
+    ``pcd``), then the remainder batch by CD, keyed ``fold_in(key, 987)``
+    and run whole on every process, so every sample trains once an epoch.
+    Returns (state, (loss sum over the (batch, layer) entries,))."""
+    (data,) = consts
+    n = data.shape[0]
+    key = rng.Key()
+    data_p = data.index_select(0, perm)
+    kw = dict(kw, lr=lr, mom=mom)
+    chains = state["chains"]
+    if pcd:
+        states, chains, losses = idbn_epoch_pcd(
+            state["states"], chains, key, data_p, batch_size=batch_size,
+            **kw)
+    else:
+        states, losses = idbn_epoch(state["states"], key, data_p,
+                                    batch_size=batch_size, mesh=mesh, **kw)
+    loss_sum = losses.sum()
+    rem = n - (n // batch_size) * batch_size
+    if rem:
+        states, rl = idbn_batch_step(states, rng.fold_in(key, 987),
+                                     data_p[n - rem:], **kw)
+        loss_sum = loss_sum + rl.sum()
+    return dict(states=states, chains=chains), (loss_sum,)
+
+
+def idbn_epoch_runner(data: torch.Tensor, *, weight_decay, sparsity_factor,
+                      cd: int, sparsity_flags: Sequence[bool],
+                      batch_size: int,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      sr: Optional[bool] = None, fast_sampler: bool = True,
+                      pcd: bool = False, mesh=None, graphed: bool = False
+                      ) -> graphs.EpochRunner:
+    """The runner of ``idbn_epoch_body`` over ``data`` at one setting;
+    ``graphed`` replays it as a CUDA graph (no ``mesh``)."""
+    if graphed and mesh is not None:
+        raise ValueError("a data-parallel epoch runs launch by launch")
+    return graphs.EpochRunner(
+        "idbn_epoch_pcd" if pcd else "idbn_epoch", idbn_epoch_body, (data,),
+        dict(batch_size=int(batch_size), pcd=bool(pcd), mesh=mesh,
+             weight_decay=weight_decay, sparsity_factor=sparsity_factor,
+             cd=int(cd), sparsity_flags=tuple(bool(f)
+                                              for f in sparsity_flags),
+             compute_dtype=compute_dtype, sr=sr,
+             fast_sampler=bool(fast_sampler)),
+        n_rows=data.shape[0], device=data.device, graphed=graphed)
+
+
+def _loss_entries(n: int, batch_size: int, layers: int) -> int:
+    """(batch, layer) entries of an epoch: full batches and remainder."""
+    return -(-n // batch_size) * layers
+
+
 def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
                      data: torch.Tensor, epoch_idx: Sequence[int], lr_arr,
                      mom_arr, weight_decay, sparsity_factor, *, cd: int,
@@ -124,38 +182,64 @@ def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
                      n_epochs: Optional[int] = None,
                      compute_dtype: Optional[torch.dtype] = None,
                      sr: Optional[bool] = None, fast_sampler: bool = True,
-                     mesh=None):
+                     mesh=None, runner: Optional[graphs.EpochRunner] = None):
     """The epochs ``epoch_idx`` of the image iDBN, with learning rates
-    ``lr_arr`` and momenta ``mom_arr``. Epoch e permutes ``data`` by its
-    key ``fold_in(epoch_key, e)``, trains the full batches
-    (``idbn_epoch``, over ``mesh``) and then the remainder batch, keyed
-    ``fold_in(key, 987)`` and run whole on every process, so every sample
-    trains once an epoch. Returns (states, loss sums[E], loss counts[E])
+    ``lr_arr`` and momenta ``mom_arr``: epoch e is ``idbn_epoch_body``
+    under the key ``fold_in(epoch_key, e)`` (its permutation
+    ``rng.permutation`` of that key), launch by launch, or through
+    ``runner`` (an ``idbn_epoch_runner`` over ``data`` at this setting,
+    which may be graphed). Returns (states, loss sums[E], loss counts[E])
     over the (batch, layer) entries."""
     if n_epochs is not None and int(n_epochs) != len(epoch_idx):
         raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
                          f"epoch indices")
-    n = data.shape[0]
-    rem = n - (n // batch_size) * batch_size
-    states = list(states)
+    run = runner or idbn_epoch_runner(
+        data, weight_decay=weight_decay, sparsity_factor=sparsity_factor,
+        cd=cd, sparsity_flags=sparsity_flags, batch_size=batch_size,
+        compute_dtype=compute_dtype, sr=sr, fast_sampler=fast_sampler,
+        mesh=mesh)
+    count = _loss_entries(data.shape[0], batch_size, len(states))
+    state = dict(states=list(states), chains=None)
     sums, counts = [], []
     for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
-        key = rng.fold_in(epoch_key, int(e))
-        data_p = data[rng.permutation(key, n).to(data.device)]
-        kw = dict(lr=lr, mom=mom, weight_decay=weight_decay,
-                  sparsity_factor=sparsity_factor, cd=cd,
-                  sparsity_flags=sparsity_flags, compute_dtype=compute_dtype,
-                  sr=sr, fast_sampler=fast_sampler)
-        states, losses = idbn_epoch(states, key, data_p,
-                                    batch_size=batch_size, mesh=mesh, **kw)
-        loss_sum, count = losses.sum(), losses.numel()
-        if rem:
-            states, rl = idbn_batch_step(states, rng.fold_in(key, 987),
-                                         data_p[n - rem:], **kw)
-            loss_sum, count = loss_sum + rl.sum(), count + rl.numel()
+        state, (loss_sum,) = run(state, rng.fold_in(epoch_key, int(e)),
+                                 lr, mom)
         sums.append(loss_sum)
         counts.append(count)
-    return states, sums, counts
+    return state["states"], sums, counts
+
+
+def idbn_epoch_block_pcd(states: Sequence[rbm_ops.RBMState],
+                         chains: Sequence[torch.Tensor], epoch_key: int,
+                         data: torch.Tensor, epoch_idx: Sequence[int],
+                         lr_arr, mom_arr, weight_decay, sparsity_factor, *,
+                         cd: int, sparsity_flags: Sequence[bool],
+                         batch_size: int, n_epochs: Optional[int] = None,
+                         compute_dtype: Optional[torch.dtype] = None,
+                         sr: Optional[bool] = None,
+                         fast_sampler: bool = True,
+                         runner: Optional[graphs.EpochRunner] = None):
+    """Persistent-CD epochs (dbn_train.py:285-330): as
+    ``idbn_epoch_block``, the fantasy particles carried across epochs and
+    the remainder rows trained by plain CD. Returns (states, chains, loss
+    sums[E], loss counts[E])."""
+    if n_epochs is not None and int(n_epochs) != len(epoch_idx):
+        raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
+                         f"epoch indices")
+    run = runner or idbn_epoch_runner(
+        data, weight_decay=weight_decay, sparsity_factor=sparsity_factor,
+        cd=cd, sparsity_flags=sparsity_flags, batch_size=batch_size,
+        compute_dtype=compute_dtype, sr=sr, fast_sampler=fast_sampler,
+        pcd=True)
+    count = _loss_entries(data.shape[0], batch_size, len(states))
+    state = dict(states=list(states), chains=list(chains))
+    sums, counts = [], []
+    for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
+        state, (loss_sum,) = run(state, rng.fold_in(epoch_key, int(e)),
+                                 lr, mom)
+        sums.append(loss_sum)
+        counts.append(count)
+    return state["states"], state["chains"], sums, counts
 
 
 def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],

@@ -1,0 +1,284 @@
+"""Epochs run from device buffers, and replayed as CUDA graphs.
+
+The JAX package runs an epoch as one ``lax.scan`` with the dataset on the
+device, and a block of epochs as one dispatch whose permutation, schedule
+values and keys are computed on the device (docs/DESIGN.md:15-25;
+ops/dbn_train.py:63-228, ops/imdbn_ops.py:265-438,
+ops/bimodal_ops.py:154-303). The port's counterpart is an epoch body
+captured once as a CUDA graph and replayed once per epoch: capture plays
+the part of trace and compile, replay the part of the dispatch.
+
+An epoch body is a function ``body(consts, state, perm, lr, mom,
+**statics) -> (state, outputs)``: ``consts`` the tensors every epoch reads
+(the data, a frozen stack), ``state`` those it updates, ``perm`` the
+epoch's permutation (int64 on the device), ``lr`` and ``mom`` 0-d float64
+tensors holding the Python floats of the schedule (so every product with
+them rounds as with the floats), ``statics`` what fixes its control flow.
+Its key is ``rng.Key()``, and every draw takes its key through the
+active ``rng.KeyTable``. A body reads nothing on the host and copies
+nothing to the device.
+
+``EpochRunner`` runs one body at one setting. Each epoch the host draws
+the permutation (``rng.permutation`` of the epoch's key, on the CPU) and
+copies it and the schedule values to the device, outside the body. Then:
+
+- launch by launch (``graphed=False``: the CPU, a mesh, the per-epoch
+  functions ``ops.*_epoch_block`` called as they are), the body runs with
+  a key table by value: each key's value is computed on the host as the
+  body draws it;
+- graphed, at the first epoch the body runs once on a side stream with a
+  key table by value, to warm up (libraries loaded, the chain kernel's
+  grid size asked, cuBLAS's workspace made) and to record the paths of
+  its keys; its results are dropped. It is then captured under
+  ``torch.cuda.graph`` into static buffers, with a key table read from a
+  static int64 buffer, and replayed at every epoch, this one included,
+  after the host filled the key buffer (``rng.key_values``: the values
+  ``fold_in`` gives for the epoch), the permutation and the schedule
+  values. The captured body ends by copying the new state into the state
+  buffers, so the state stays in them from replay to replay; the outputs
+  are cloned after each replay. A capture that fails raises: nothing falls
+  back to launch by launch.
+
+Launch counts stay counts of launches that ran on the device:
+``CudaLibrary.launch`` counts host calls, so the launches of a capture
+(which runs nothing) are taken back off the counts and added again at
+every replay, and the warm-up's are moved to ``STATS["warmup_launches"]``
+(work done once per capture, as a compile). ``STATS`` also holds the
+replays of each runner, and each capture's seconds and graph memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from multimodal_idbn_tpu_torch.ops import _cuda, rng
+
+STATS: Dict[str, Any] = {}
+
+
+def reset_stats() -> None:
+    """Zero the replay counts and forget the capture records."""
+    STATS.clear()
+    STATS.update(replays=Counter(), captures=[], warmup_launches=Counter())
+
+
+reset_stats()
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors
+# ---------------------------------------------------------------------------
+
+def flatten(tree) -> Tuple[List[torch.Tensor], Any]:
+    """(tensor leaves, structure) of a tree of lists, tuples, named
+    tuples, dicts and dataclasses; anything else is kept as a constant."""
+    leaves: List[torch.Tensor] = []
+
+    def go(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("T",)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return ("D", type(x), tuple(
+                (f.name, go(getattr(x, f.name)))
+                for f in dataclasses.fields(x)))
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return ("N", type(x), tuple(go(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return ("L" if isinstance(x, list) else "U",
+                    tuple(go(v) for v in x))
+        if isinstance(x, dict):
+            return ("M", tuple((k, go(v)) for k, v in x.items()))
+        return ("C", x)
+
+    return leaves, go(tree)
+
+
+def unflatten(spec, leaves: List[torch.Tensor]):
+    """The tree of ``spec`` with ``leaves`` in the order ``flatten``
+    gave them."""
+    it = iter(leaves)
+
+    def go(s):
+        tag = s[0]
+        if tag == "T":
+            return next(it)
+        if tag == "D":
+            return s[1](**{name: go(v) for name, v in s[2]})
+        if tag == "N":
+            return s[1](*(go(v) for v in s[2]))
+        if tag == "L":
+            return [go(v) for v in s[1]]
+        if tag == "U":
+            return tuple(go(v) for v in s[1])
+        if tag == "M":
+            return {k: go(v) for k, v in s[1]}
+        return s[1]
+
+    return go(spec)
+
+
+def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """The tree with ``fn`` applied to each tensor leaf."""
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [fn(t) for t in leaves])
+
+
+# ---------------------------------------------------------------------------
+# Launch accounting
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> Dict[Tuple[str, str], int]:
+    """Launches of every entry of every kernel library, by (source,
+    entry)."""
+    return {(lib.source.name, e): n for lib in _cuda.LIBRARIES
+            for e, n in lib.launches_by_entry.items()}
+
+
+def add_launches(delta: Dict[Tuple[str, str], int], sign: int = 1) -> None:
+    """Add ``sign`` × ``delta`` to the libraries' counts."""
+    for lib in _cuda.LIBRARIES:
+        for e in lib.launches_by_entry:
+            lib.launches_by_entry[e] += sign * delta.get(
+                (lib.source.name, e), 0)
+
+
+def launches_since(before: Dict[Tuple[str, str], int]
+                   ) -> Dict[Tuple[str, str], int]:
+    now = launch_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n != before.get(k, 0)}
+
+
+# ---------------------------------------------------------------------------
+# The runner
+# ---------------------------------------------------------------------------
+
+class EpochRunner:
+    """``body`` at one setting (``consts``, ``statics``, the shapes of the
+    state), over ``n_rows`` rows permuted each epoch. ``graphed``: capture
+    the body at its first epoch and replay it every epoch (CUDA only)."""
+
+    def __init__(self, name: str, body: Callable, consts, statics: dict, *,
+                 n_rows: int, device, graphed: bool):
+        self.name = name
+        self.body = body
+        self.consts = consts
+        self.statics = dict(statics)
+        self.n_rows = int(n_rows)
+        self.device = torch.device(device)
+        if graphed and self.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a CUDA device")
+        self.graphed = bool(graphed)
+        self.replays = 0
+        self._graph = None
+
+    # -- one epoch -----------------------------------------------------------
+
+    def __call__(self, state, key: int, lr: float, mom: float):
+        """(new state, outputs) of the epoch whose key is ``key``
+        (``fold_in(block key, epoch)``), at learning rate ``lr`` and
+        momentum ``mom``."""
+        perm = rng.permutation(key, self.n_rows)
+        hyper = torch.tensor([float(lr), float(mom)], dtype=torch.float64)
+        if self.graphed:
+            return self._replay(state, key, perm, hyper)
+        perm, hyper = (t.to(self.device, non_blocking=True)
+                       for t in (perm, hyper))
+        with rng.key_table(rng.KeyTable(root=key)):
+            return self.body(self.consts, state, perm, hyper[0], hyper[1],
+                             **self.statics)
+
+    # -- the graph -----------------------------------------------------------
+
+    def _run_static(self, table: rng.KeyTable):
+        """The body on the static buffers with the key table ``table``;
+        the new state copied into the state buffers. Returns the
+        outputs."""
+        state = unflatten(self._spec, self._bufs)
+        with rng.key_table(table):
+            new, outs = self.body(self.consts, state, self._perm,
+                                  self._hyper[0], self._hyper[1],
+                                  **self.statics)
+        new_leaves, spec = flatten(new)
+        if spec != self._spec:
+            raise RuntimeError(f"{self.name}: the body returned a state of "
+                               f"another structure")
+        for buf, t in zip(self._bufs, new_leaves):
+            if t is not buf:
+                buf.copy_(t)
+        return outs
+
+    def _load(self, state, key: Optional[int], perm, hyper) -> None:
+        """Copy the state (unless it is the buffers already), and the
+        epoch's permutation, schedule values and, when the paths are
+        known, keys into the static buffers."""
+        leaves, spec = flatten(state)
+        if spec != self._spec:
+            raise ValueError(f"{self.name}: a state of another structure")
+        for buf, t in zip(self._bufs, leaves):
+            if t is not buf:
+                buf.copy_(t)
+        self._perm.copy_(perm, non_blocking=True)
+        self._hyper.copy_(hyper, non_blocking=True)
+        if key is not None:
+            self._keys.copy_(torch.tensor(rng.key_values(key, self._paths),
+                                          dtype=torch.int64),
+                             non_blocking=True)
+
+    def _capture(self, state, key: int, perm, hyper) -> None:
+        dev = self.device
+        leaves, self._spec = flatten(state)
+        self._bufs = [t.clone() for t in leaves]
+        self._perm = torch.empty(self.n_rows, dtype=torch.int64, device=dev)
+        self._hyper = torch.empty(2, dtype=torch.float64, device=dev)
+        self._load(state, None, perm, hyper)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = launch_counts()
+        warm = rng.KeyTable(root=key)
+        with torch.cuda.stream(side):
+            self._run_static(warm)            # the warm-up
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm_launches = launches_since(before)
+        add_launches(warm_launches, -1)
+        STATS["warmup_launches"].update(
+            {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
+        self._paths = warm.paths
+        self._keys = torch.empty(len(self._paths), dtype=torch.int64,
+                                 device=dev)
+        self._load(state, key, perm, hyper)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()      # what stays reserved is the graph's
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=side):
+            self._outs = self._run_static(
+                rng.KeyTable(self._keys, self._paths))
+        self.launches_per_replay = launches_since(before)
+        add_launches(self.launches_per_replay, -1)
+        self._graph = graph
+        STATS["captures"].append(dict(
+            name=self.name, seconds=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            launches={f"{s}:{e}": n for (s, e), n
+                      in self.launches_per_replay.items()}))
+
+    def _replay(self, state, key: int, perm, hyper):
+        if self._graph is None:
+            self._capture(state, key, perm, hyper)
+        else:
+            self._load(state, key, perm, hyper)
+        self._graph.replay()
+        add_launches(self.launches_per_replay)
+        self.replays += 1
+        STATS["replays"][self.name] += 1
+        return (unflatten(self._spec, self._bufs),
+                map_tree(torch.clone, self._outs))

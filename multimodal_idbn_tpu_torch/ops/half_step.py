@@ -13,7 +13,11 @@ one TPU kernel (multimodal_idbn_tpu/ops/pallas_kernels.py):
 
 - ``half_step_sample``: ``half_step_sample_aligned`` (:198-306), the
   k-tiled sampled half-step of the image-stack CD trainer.
-  ``transpose_w`` computes ``x·Wᵀ`` from the same row-major [V, H] W.
+  ``transpose_w`` computes ``x·Wᵀ`` from the same row-major [V, H] W. Its
+  seed is an int, passed by value, or an ``rng.Key`` of an epoch body,
+  which the kernel reads from the body's key table in device memory
+  (``rng.key_operand``), so a CUDA graph of the epoch replays with each
+  epoch's seeds.
   ``half_step_sample_big`` is JAX's standalone wrapper of the same kernel
   (:311-342) under its name.
 - ``half_step_probs`` and ``hidden_probs_kernel``: ``half_step_probs``
@@ -57,8 +61,8 @@ from multimodal_idbn_tpu_torch.ops import _cuda, rng
 
 KERNEL = _cuda.CudaLibrary("half_step.cu", {
     "half_step_sample": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "half_step_probs": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
     "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -168,7 +172,7 @@ def _out_dim(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def half_step_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    seed: int, T=1.0, *, transpose_w: bool = False,
+                    seed: rng.AnyKey, T=1.0, *, transpose_w: bool = False,
                     row0: int = 0, col0: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain torch: addmm, sigmoid, Philox."""
@@ -181,7 +185,7 @@ def half_step_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     seed: int, T=1.0, *, transpose_w: bool = False,
+                     seed: rng.AnyKey, T=1.0, *, transpose_w: bool = False,
                      row0: int = 0, col0: int = 0,
                      plan_shape: Optional[Tuple[int, int]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,9 +206,10 @@ def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                    or plan_shape[1] < col0 + N):
         raise ValueError(f"plan_shape {plan_shape} does not hold rows "
                          f"{row0}+{B}, columns {col0}+{N}")
+    keys, index, value = rng.key_operand(seed)
     probs, sample = _launch(
         "half_step_sample", x, w, b, 2, B, K, N, (int(transpose_w),),
-        (1.0 / max(1e-6, T), int(seed) & ((1 << 64) - 1), int(row0),
+        (1.0 / max(1e-6, T), _cuda.ptr(keys), index, value, int(row0),
          int(col0)), plan_shape=plan_shape)
     return probs, sample
 

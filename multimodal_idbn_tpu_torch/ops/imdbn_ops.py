@@ -2,13 +2,21 @@
 
 Port of multimodal_idbn_tpu/ops/imdbn_ops.py:27-337 (``joint_bias_stats``,
 ``cross_reconstruct``, ``cross_metrics_batch``, ``_joint_train_batch``,
-``joint_epoch``) and :473-507 (``sample_txt2img``). The JAX epoch is one ``lax.scan``; here it is a Python
-loop over static batch slices of already-permuted data, the remainder
-left to the caller. Every chain of a batch (the 30-step noisy init of each
-auxiliary clamped CD, the 50-step IMG→TXT mean-field chain and the 50-step
-noisy TXT→IMG chain) goes through ``ops.chain``'s kernel on the card.
-``joint_epoch_block`` runs epochs one after another with the permutation
-and remainder batch of the model's epoch (JAX's nested scan, :340-470).
+``joint_epoch``), :340-438 (``joint_epoch_block``) and :473-507
+(``sample_txt2img``). ``joint_epoch`` is a Python loop over static batch
+slices of already-permuted data, the remainder left to the caller. Every
+chain of a batch (the 30-step noisy init of each auxiliary clamped CD,
+the 50-step IMG→TXT mean-field chain and the 50-step noisy TXT→IMG chain)
+goes through ``ops.chain``'s kernel on the card.
+
+The JAX epoch is one ``lax.scan``. Here one epoch is ``joint_epoch_body``:
+the permutation gathered from a device buffer, the full batches, then the
+remainder batch keyed ``fold_in(key, 991)``, with its keys read from the
+epoch's key table and lr and momentum from 0-d tensors (``ops.graphs``).
+``joint_epoch_block`` runs it for each epoch through an ``EpochRunner``
+(``joint_epoch_runner``): launch by launch as it is called, or replayed
+as one CUDA graph per epoch when the caller hands it a graphed runner, as
+``iMDBN.train_joint`` does on the card.
 
 With a ``mesh`` (``parallel.make_mesh``) each process trains its rows of
 every full batch inside ``shard.rows_of``: every joint update sums over
@@ -23,8 +31,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng, shard
-from multimodal_idbn_tpu_torch.ops.sampling import SoftmaxGroups
+from multimodal_idbn_tpu_torch.ops import (dbn_train, graphs, rbm_ops, rng,
+                                           shard)
+from multimodal_idbn_tpu_torch.ops.sampling import SoftmaxGroups, one_hot
 
 
 class CrossMetrics(NamedTuple):
@@ -151,10 +160,10 @@ def cross_metrics_batch(img_from_txt: torch.Tensor, p_y: torch.Tensor,
     topk_idx = torch.topk(p_y, min(3, p_y.shape[1]), dim=1).indices
     top3 = (topk_idx == gt[:, None]).any(dim=1)
     p = torch.clamp(p_y, 1e-6, 1 - 1e-6)
-    t = torch.nn.functional.one_hot(gt, p_y.shape[1]).to(p.dtype)
+    t = one_hot(gt, p_y.shape[1], p.dtype)
     ce = -(t * torch.log(p) + (1 - t) * torch.log1p(-p)).sum()
     mse = ((img_from_txt - img_flat) ** 2).sum()
-    n = torch.tensor(float(img_flat.shape[0]), device=p.device)
+    n = torch.full((), float(img_flat.shape[0]), device=p.device)
     return CrossMetrics(n, (pred == gt).sum().float(), top3.sum().float(),
                         ce, mse)
 
@@ -260,6 +269,63 @@ def joint_epoch(joint: rbm_ops.RBMState,
     return joint, loss_sum / max(1, nb), totals
 
 
+def joint_epoch_body(consts, joint, perm, lr, mom, *, weight_decay,
+                     batch_size: int, metrics_every: int, mesh=None,
+                     **statics):
+    """One joint epoch from device buffers (``ops.graphs``): ``consts`` is
+    (Z, Y, IMG, idbn_states, z_class_mean). The data permuted by ``perm``,
+    its full batches (``joint_epoch``, over ``mesh``), then the remainder
+    batch keyed ``fold_in(key, 991)``, run whole on every process and with
+    metrics only at the every-batch cadence (JAX ops/imdbn_ops.py:430,
+    models/imdbn.py:592). Returns (joint, (mean free-CD loss of the full
+    batches, the remainder's free-CD loss or None, CrossMetrics sums))."""
+    Z, Y, IMG, idbn_states, z_class_mean = consts
+    n = Z.shape[0]
+    nb = n // batch_size
+    key = rng.Key()
+    Zp, Yp, Xp = (a.index_select(0, perm) for a in (Z, Y, IMG))
+    joint, mean_cd, totals = joint_epoch(
+        joint, idbn_states, key, Zp, Yp, Xp, lr, mom, weight_decay,
+        z_class_mean, batch_size=batch_size, metrics_every=metrics_every,
+        mesh=mesh, **statics)
+    cd_rem = None
+    if n - nb * batch_size:
+        tail = slice(nb * batch_size, n)
+        joint, cd_rem, m_rem = _joint_train_batch(
+            joint, idbn_states, rng.fold_in(key, 991), Zp[tail], Yp[tail],
+            Xp[tail], nb, lr, mom, weight_decay, z_class_mean,
+            compute_metrics=(max(1, metrics_every) == 1), **statics)
+        totals = add_metrics(totals, m_rem)
+    return joint, (mean_cd, cd_rem, totals)
+
+
+def joint_epoch_runner(Z: torch.Tensor, Y: torch.Tensor, IMG: torch.Tensor,
+                       idbn_states: Sequence[rbm_ops.RBMState],
+                       z_class_mean, weight_decay, *, warmup: bool,
+                       joint_cd: int, aux_cond_steps: int, Dz: int,
+                       steps: int, groups: SoftmaxGroups,
+                       use_free_energy: bool = False, zclamp_every: int = 50,
+                       batch_size: int = 128, metrics_every: int = 1,
+                       sr: Optional[bool] = None, mesh=None,
+                       graphed: bool = False) -> graphs.EpochRunner:
+    """The runner of ``joint_epoch_body`` at one setting (warm-up or
+    main); ``graphed`` replays it as a CUDA graph (no ``mesh``)."""
+    if graphed and mesh is not None:
+        raise ValueError("a data-parallel epoch runs launch by launch")
+    statics = dict(
+        weight_decay=weight_decay, warmup=bool(warmup),
+        joint_cd=int(joint_cd), aux_cond_steps=int(aux_cond_steps),
+        Dz=int(Dz), steps=int(steps),
+        groups=tuple((int(a), int(b)) for a, b in groups),
+        use_free_energy=bool(use_free_energy),
+        zclamp_every=int(zclamp_every), sr=sr, batch_size=int(batch_size),
+        metrics_every=int(metrics_every), mesh=mesh)
+    return graphs.EpochRunner(
+        "joint_epoch_warmup" if warmup else "joint_epoch", joint_epoch_body,
+        (Z, Y, IMG, list(idbn_states), z_class_mean), statics,
+        n_rows=Z.shape[0], device=Z.device, graphed=graphed)
+
+
 def joint_epoch_block(joint: rbm_ops.RBMState,
                       idbn_states: Sequence[rbm_ops.RBMState],
                       epoch_key: int, Z: torch.Tensor, Y: torch.Tensor,
@@ -270,43 +336,32 @@ def joint_epoch_block(joint: rbm_ops.RBMState,
                       use_free_energy: bool = False, zclamp_every: int = 50,
                       batch_size: int = 128, metrics_every: int = 1,
                       n_epochs: Optional[int] = None,
-                      sr: Optional[bool] = None, mesh=None):
+                      sr: Optional[bool] = None, mesh=None,
+                      runner: Optional[graphs.EpochRunner] = None):
     """The joint epochs ``epoch_idx`` (all warm-up or all main, as
-    ``warmup`` says). Epoch e permutes the data by its key
-    ``fold_in(epoch_key, e)``, trains the full batches (``joint_epoch``,
-    over ``mesh``) and then the remainder batch, keyed ``fold_in(key,
-    991)``, run whole on every process and with metrics only at the
-    every-batch cadence (JAX ops/imdbn_ops.py:430, models/imdbn.py:592).
-    Returns (joint, the free-CD losses of each epoch, one per batch and
-    none in the warm-up, CrossMetrics sums of each epoch)."""
+    ``warmup`` says): epoch e is ``joint_epoch_body`` under the key
+    ``fold_in(epoch_key, e)`` (its permutation ``rng.permutation`` of that
+    key), launch by launch, or through ``runner`` (a ``joint_epoch_runner``
+    at this setting, which may be graphed). Returns (joint, the free-CD
+    losses of each epoch, one per batch and none in the warm-up,
+    CrossMetrics sums of each epoch)."""
     if n_epochs is not None and int(n_epochs) != len(epoch_idx):
         raise ValueError(f"n_epochs {n_epochs} but {len(epoch_idx)} "
                          f"epoch indices")
-    n = Z.shape[0]
-    nb = n // batch_size
-    statics = dict(warmup=warmup, joint_cd=joint_cd,
-                   aux_cond_steps=aux_cond_steps, Dz=Dz, steps=steps,
-                   groups=groups, use_free_energy=use_free_energy,
-                   zclamp_every=zclamp_every, sr=sr)
+    run = runner or joint_epoch_runner(
+        Z, Y, IMG, idbn_states, z_class_mean, weight_decay, warmup=warmup,
+        joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz=Dz,
+        steps=steps, groups=groups, use_free_energy=use_free_energy,
+        zclamp_every=zclamp_every, batch_size=batch_size,
+        metrics_every=metrics_every, sr=sr, mesh=mesh)
+    nb = Z.shape[0] // batch_size
     cd_losses, totals_e = [], []
     for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
-        key = rng.fold_in(epoch_key, int(e))
-        perm = rng.permutation(key, n).to(Z.device)
-        Zp, Yp, Xp = Z[perm], Y[perm], IMG[perm]
-        joint, mean_cd, totals = joint_epoch(
-            joint, idbn_states, key, Zp, Yp, Xp, lr, mom, weight_decay,
-            z_class_mean, batch_size=batch_size,
-            metrics_every=metrics_every, mesh=mesh, **statics)
+        joint, (mean_cd, cd_rem, totals) = run(
+            joint, rng.fold_in(epoch_key, int(e)), lr, mom)
         losses = [] if warmup else [mean_cd] * nb
-        if n - nb * batch_size:
-            tail = slice(nb * batch_size, n)
-            joint, cd_rem, m_rem = _joint_train_batch(
-                joint, idbn_states, rng.fold_in(key, 991), Zp[tail],
-                Yp[tail], Xp[tail], nb, lr, mom, weight_decay, z_class_mean,
-                compute_metrics=(max(1, metrics_every) == 1), **statics)
-            totals = add_metrics(totals, m_rem)
-            if not warmup:
-                losses.append(cd_rem)
+        if cd_rem is not None and not warmup:
+            losses.append(cd_rem)
         cd_losses.append(losses)
         totals_e.append(totals)
     return joint, cd_losses, totals_e

@@ -44,6 +44,7 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch.ops import chain, rng, schedules, shard
@@ -175,27 +176,24 @@ def stochastic_round_bits(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int32).view(torch.float32).to(torch.bfloat16)
 
 
-def stochastic_round(key: int, x: torch.Tensor,
+def stochastic_round(key: rng.AnyKey, x: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """Unbiased rounding of fp32 values into ``dtype`` (rbm_ops.py:145-170):
     16 uniform random bits below the bf16 mantissa cut are added and the
     result truncated, so ``E[stochastic_round(x)] == x`` for finite x.
     Nearest-rounded bf16 updates drop every increment below ~0.4% of the
     parameter, the measured quality collapse of bf16 storage
-    (benchmarks/quality_bf16sr_r5.json). The bits come from a
-    ``torch.Generator`` seeded by ``key``, as every plain draw of the
-    port; the deterministic sampler mode leaves them real, as the
-    ``det_random`` fixture leaves ``jax.random.bits``. An fp32 target is
-    the identity."""
+    (benchmarks/quality_bf16sr_r5.json). The bits are
+    ``rng.random_bits16`` of ``key`` (Philox, as every draw of the port);
+    the deterministic sampler mode leaves them real, as the ``det_random``
+    fixture leaves ``jax.random.bits``. An fp32 target is the identity."""
     if dtype == torch.float32:
         return x.float()
     if dtype != torch.bfloat16:
         raise ValueError(f"stochastic_round supports bfloat16/float32 "
                          f"targets, got {dtype}")
-    r = torch.randint(0, 1 << 16, tuple(x.shape), dtype=torch.int64,
-                      generator=rng.generator(key, x.device),
-                      device=x.device)
-    return stochastic_round_bits(x, r)
+    return stochastic_round_bits(x, rng.random_bits16(key, x.shape,
+                                                      x.device))
 
 
 def compute_cast(state: RBMState,
@@ -315,12 +313,26 @@ def apply_update(state: RBMState, pos_assoc, neg_assoc, pos_h_sum,
 
 
 def _weak(x, t: torch.Tensor):
-    """The Python scalar ``x`` as it meets ``t`` in JAX: a weakly typed
-    scalar takes the array's dtype, so it is rounded to bf16 before a bf16
+    """The scalar ``x`` (a Python float, or a 0-d float64 tensor of an
+    epoch body's schedule) as it meets ``t`` in JAX: a weakly typed scalar
+    takes the array's dtype, so it is rounded to bf16 before a bf16
     product; torch keeps it at fp32 and rounds only the result."""
     if t.dtype == torch.float32:
         return x
-    return float(torch.tensor(float(x), dtype=t.dtype))
+    if isinstance(x, torch.Tensor):
+        return x.to(t.dtype)
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"no weak scalar rule for {t.dtype}")
+    return _round_bf16(float(x))
+
+
+def _round_bf16(x: float) -> float:
+    """``x`` rounded as torch rounds a Python float into bf16 (to fp32,
+    then to the nearest bf16, ties to even), on the host and without a
+    tensor."""
+    b = int(np.float32(x).view(np.uint32))
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(b).view(np.float32))
 
 
 def pcd_update(state: RBMState, chain_v: torch.Tensor, key: int,

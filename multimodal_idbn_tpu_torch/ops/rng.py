@@ -13,24 +13,28 @@ ops/pallas_chain.py:72-82). The port replaces them so:
   its permutation ``permutation(key, n)``, as the JAX package derives
   ``fold_in(epoch_key, epoch)`` (models/idbn.py:348, :433), so a run
   resumed at epoch e draws what the uninterrupted run draws.
-- Draws made by plain torch code (chain inits, the Bernoulli and Gumbel
-  draws of the generic CD, the bits of stochastic rounding) come from a
-  ``torch.Generator`` seeded by a key.
-- Draws made inside the CUDA kernels come from Philox4x32-10 keyed by a
-  64-bit seed, with the counter (row, column, step, stream). It is written
-  twice: in ``csrc/philox.cuh`` and here in torch integer arithmetic, so the
-  kernels' plain versions reproduce their uniforms bit for bit.
+- Every draw is Philox4x32-10 keyed by a 64-bit key, with the counter
+  (row, column, step, stream). It is written twice: in ``csrc/philox.cuh``
+  (the CUDA kernels and ``philox_fill``, the fill of the plain torch
+  code's uniforms and random bits) and here in torch integer arithmetic,
+  so the plain versions reproduce the card's draws bit for bit.
   ``u = (bits >> 8) * 2^-24`` as in pallas_kernels.py:248; Gaussians by
-  Box-Muller as in pallas_chain.py:72-82.
+  Box-Muller as in pallas_chain.py:72-82. The kernels draw at stream 0 (and
+  the chain's visible half at 1); ``uniform`` and ``gumbel`` at stream 2,
+  ``random_bits16`` at stream 3, every one at step 0. So every draw of the
+  port is a function of (key, counter).
 
-Draws of a data-parallel rank. Inside ``shard.batch_rows`` a process
-holds rows ``row0 ..`` of a larger batch. ``uniform`` and ``gumbel`` then
-draw at the whole batch's shape and return the rank's rows, and
-``philox_uniform`` / ``philox_normal`` take the global row (``row0``) and
-column (``col0``) of their first element. So every element gets the
-number a single device draws for it. This is the port's side of JAX's
-partitionable threefry (parallel/data_parallel.py:10-15). At these widths
-the drawing of the whole batch costs little.
+Keys of an epoch body. An epoch that the card replays as a CUDA graph
+(``ops.graphs``) cannot take its keys as host integers: a captured launch
+would keep them. Inside an epoch body the epoch's key is a ``Key``, a path
+of ``fold_in`` data from the epoch's key, and ``fold_in`` extends the path.
+A draw registers its key with the active ``KeyTable``. Run launch by
+launch, the table computes the key's value on the host and the draw takes
+it by value; captured, the draw reads it by index from the table's int64
+tensor, which the host fills before each replay with the values ``fold_in``
+gives for that epoch (``key_values``). Either way every key is the one the
+same code computes with integers, so a replay and the same epoch run launch
+by launch draw the same numbers.
 
 ``deterministic()`` is the sampler hook, the port's side of the
 ``det_random`` fixture of tests/test_rbm_oracle.py:24-38: uniforms are 0.5,
@@ -43,8 +47,9 @@ refuse it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Iterator, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -91,9 +96,117 @@ def _mix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
-def fold_in(key: int, data: int) -> int:
-    """Child key of ``key`` for the integer ``data``."""
+@dataclasses.dataclass(frozen=True)
+class Key:
+    """A key of an epoch body: ``fold_in`` applied along ``path`` to the
+    epoch's key, which the body does not know (module docstring)."""
+
+    path: Tuple[int, ...] = ()
+
+
+def fold_in(key, data: int):
+    """Child key of ``key`` for the integer ``data``: a 64-bit int, or a
+    ``Key`` one step further along its path."""
+    if isinstance(key, Key):
+        return Key(key.path + (int(data) & _M64,))
     return _mix64(_mix64(int(key) & _M64) ^ (int(data) & _M64))
+
+
+class KeyTable:
+    """The keys of one run of an epoch body, in the order it draws them.
+
+    By value (``keys`` None, ``root`` the epoch's key): each key's value is
+    computed on the host as it is drawn and passed by value, and its path
+    recorded (``paths``). From a table (``keys`` an int64 tensor on the
+    body's device, filled with ``key_values(root, expected)``): each key is
+    read by index, and must be the ``expected`` path at that index, so a
+    body whose draws depended on its data would raise."""
+
+    def __init__(self, keys: Optional[torch.Tensor] = None,
+                 expected: Optional[Sequence[Tuple[int, ...]]] = None, *,
+                 root: Optional[int] = None):
+        if (keys is None) == (root is None):
+            raise ValueError("a key table is by value (root) or read from "
+                             "a tensor (keys), not both")
+        if keys is not None and expected is None:
+            raise ValueError("a key table tensor needs its key paths")
+        self.keys = keys
+        self.expected = None if expected is None else list(expected)
+        self.paths: List[Tuple[int, ...]] = []
+        self._memo: Dict[Tuple[int, ...], int] = (
+            {} if root is None else {(): int(root) & _M64})
+
+    def index(self, key: Key) -> int:
+        i = len(self.paths)
+        if self.expected is not None and (i >= len(self.expected)
+                                          or self.expected[i] != key.path):
+            raise RuntimeError(
+                f"draw {i} of the epoch body has key path {key.path}, not "
+                f"the recorded one: the body's draws depend on its data")
+        self.paths.append(key.path)
+        return i
+
+    def value(self, key: Key) -> int:
+        """The 64-bit value of ``key`` from the root (by value)."""
+        memo, path = self._memo, key.path
+        for n in range(1, len(path) + 1):
+            if path[:n] not in memo:
+                memo[path[:n]] = fold_in(memo[path[:n - 1]], path[n - 1])
+        return memo[path]
+
+
+def key_values(root: int, paths: Sequence[Tuple[int, ...]]) -> List[int]:
+    """The values of ``paths`` from the epoch key ``root``, in order, as
+    int64 (the two's complement of each 64-bit key), for a key table's
+    tensor."""
+    table = KeyTable(root=root)
+    out = [table.value(Key(tuple(p))) for p in paths]
+    return [v - (1 << 64) if v >> 63 else v for v in out]
+
+
+_TABLES: List[KeyTable] = []
+
+
+@contextlib.contextmanager
+def key_table(table: KeyTable) -> Iterator[KeyTable]:
+    """Resolve every ``Key`` drawn inside the block through ``table``."""
+    _TABLES.append(table)
+    try:
+        yield table
+    finally:
+        _TABLES.pop()
+
+
+AnyKey = Union[int, Key, torch.Tensor]
+
+
+def key_operand(key: AnyKey) -> Tuple[Optional[torch.Tensor], int, int]:
+    """(table, index, value) of a draw's key for a kernel: a ``Key`` is
+    registered with the active table, and read by the kernel from the
+    table's tensor at ``index``, or passed by value when the table is by
+    value; an int is passed by value."""
+    if isinstance(key, Key):
+        if not _TABLES:
+            raise RuntimeError("a Key outside an epoch body's key table")
+        table = _TABLES[-1]
+        i = table.index(key)
+        if table.keys is None:
+            return None, 0, table.value(key)
+        return table.keys, i, 0
+    if isinstance(key, torch.Tensor):
+        raise TypeError("a kernel takes a Key or an int, not a tensor")
+    return None, 0, int(key) & _M64
+
+
+def key_word(key: AnyKey):
+    """The key as the torch Philox takes it: an int as it is; a ``Key``
+    registered with the active table and given as its value, or read from
+    the table's tensor as a 0-d int64 tensor (no host synchronisation); a
+    tensor as it is."""
+    if isinstance(key, Key):
+        keys, i, value = key_operand(key)
+        return value if keys is None else keys[i]
+    return key
 
 
 def next_key(gen: torch.Generator) -> int:
@@ -118,45 +231,12 @@ def permutation(key: int, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Draws of the plain torch code
-# ---------------------------------------------------------------------------
-
-def _rand_rows(key: int, shape: Sequence[int], device) -> torch.Tensor:
-    """U[0, 1) of ``generator(key)`` at ``shape``; inside
-    ``shard.batch_rows`` the rank's rows of the draw at the whole batch's
-    shape (module docstring)."""
-    shape = tuple(shape)
-    sh = shard.current()
-    if sh is None:
-        return torch.rand(shape, generator=generator(key, device),
-                          device=device)
-    if not shape or shape[0] != sh.rows:
-        raise ValueError(f"a draw of shape {shape} inside a batch shard of "
-                         f"{sh.rows} rows")
-    full = torch.rand((sh.total,) + shape[1:],
-                      generator=generator(key, device), device=device)
-    return full[sh.row0:sh.row0 + sh.rows]
-
-
-def uniform(key: int, shape: Sequence[int], device) -> torch.Tensor:
-    """U[0, 1) float32; 0.5 in deterministic mode."""
-    if _MODE.deterministic:
-        return torch.full(tuple(shape), 0.5, device=device)
-    return _rand_rows(key, shape, device)
-
-
-def gumbel(key: int, shape: Sequence[int], device) -> torch.Tensor:
-    """Standard Gumbel float32; a constant (0) in deterministic mode."""
-    if _MODE.deterministic:
-        return torch.zeros(tuple(shape), device=device)
-    u = _rand_rows(key, shape, device)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(min=tiny)))
-
-
-# ---------------------------------------------------------------------------
 # Philox4x32-10, the kernels' generator, in torch integer arithmetic
 # ---------------------------------------------------------------------------
+
+STREAM_UNIFORM = 2   # the counter's stream of ``uniform`` and ``gumbel``
+STREAM_BITS = 3      # of ``random_bits16``
+
 
 def _mulhilo(a: torch.Tensor, m: int):
     """(hi, lo) 32-bit words of ``a * m`` for 32-bit ``a`` (int64 tensor)
@@ -169,12 +249,16 @@ def _mulhilo(a: torch.Tensor, m: int):
     return hi & _M32, low & _M32
 
 
-def philox4x32(counter: Sequence[torch.Tensor], key: int):
+def philox4x32(counter: Sequence[torch.Tensor], key):
     """Philox4x32-10 (Salmon et al. 2011) on int64 tensors holding 32-bit
-    words. ``counter`` is four broadcastable tensors, ``key`` 64 bits."""
+    words. ``counter`` is four broadcastable tensors, ``key`` 64 bits: an
+    int, or an int64 tensor (a key read from a table)."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) & _M32
                       for c in counter)
-    k0, k1 = int(key) & _M32, (int(key) >> 32) & _M32
+    if isinstance(key, torch.Tensor):
+        k0, k1 = key & _M32, (key >> 32) & _M32
+    else:
+        k0, k1 = int(key) & _M32, (int(key) >> 32) & _M32
     for _ in range(10):
         hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
         hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
@@ -184,7 +268,7 @@ def philox4x32(counter: Sequence[torch.Tensor], key: int):
     return c0, c1, c2, c3
 
 
-def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * _TWO_POW_M24
 
 
@@ -194,34 +278,104 @@ def _grid_counter(rows: int, cols: int, step: int, stream: int, device,
                      device=device)[:, None]
     c = torch.arange(col0, col0 + cols, dtype=torch.int64,
                      device=device)[None, :]
-    return (r, c, torch.tensor(step, dtype=torch.int64, device=device),
-            torch.tensor(stream, dtype=torch.int64, device=device))
+    return (r, c, torch.full((), step, dtype=torch.int64, device=device),
+            torch.full((), stream, dtype=torch.int64, device=device))
 
 
-def philox_uniform(seed: int, rows: int, cols: int, *, step: int = 0,
+def philox_bits(seed: AnyKey, rows: int, cols: int, *, step: int = 0,
+                stream: int = 0, device=None, row0: int = 0,
+                col0: int = 0) -> torch.Tensor:
+    """[rows, cols] int64: word 0 of Philox(counter=(row0 + row, col0 +
+    col, step, stream), key=seed)."""
+    x0, _, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
+                                           device, row0, col0),
+                             key_word(seed))
+    return x0
+
+
+def philox_uniform(seed: AnyKey, rows: int, cols: int, *, step: int = 0,
                    stream: int = 0, device=None, row0: int = 0,
                    col0: int = 0) -> torch.Tensor:
-    """[rows, cols] uniforms of the kernels: word 0 of
-    Philox(counter=(row0 + row, col0 + col, step, stream), key=seed); 0.5
-    in deterministic mode."""
+    """[rows, cols] uniforms of the kernels: ``philox_bits`` to [0, 1);
+    0.5 in deterministic mode."""
     if _MODE.deterministic:
+        key_word(seed)
         return torch.full((rows, cols), 0.5, device=device)
-    x0, _, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
-                                           device, row0, col0), seed)
-    return _bits_to_uniform(x0)
+    return bits_to_uniform(philox_bits(seed, rows, cols, step=step,
+                                        stream=stream, device=device,
+                                        row0=row0, col0=col0))
 
 
-def philox_normal(seed: int, rows: int, cols: int, *, step: int = 0,
+def philox_normal(seed: AnyKey, rows: int, cols: int, *, step: int = 0,
                   stream: int = 0, device=None, row0: int = 0
                   ) -> torch.Tensor:
     """[rows, cols] N(0, 1) of the kernels: Box-Muller on words 0 and 1
     (pallas_chain.py:72-82) of the counter (row0 + row, col, step,
     stream); 0 in deterministic mode."""
     if _MODE.deterministic:
+        key_word(seed)
         return torch.zeros((rows, cols), device=device)
     x0, x1, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
-                                            device, row0), seed)
-    u1 = torch.clamp(_bits_to_uniform(x0), min=1e-7)
-    u2 = _bits_to_uniform(x1)
+                                            device, row0), key_word(seed))
+    u1 = torch.clamp(bits_to_uniform(x0), min=1e-7)
+    u2 = bits_to_uniform(x1)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
         (2.0 * math.pi) * u2)
+
+
+# ---------------------------------------------------------------------------
+# Draws of the plain torch code, through ``ops.philox_fill``
+# ---------------------------------------------------------------------------
+
+def _rows_cols(shape: Sequence[int]) -> Tuple[int, int]:
+    """A draw of ``shape`` as the [rows, cols] grid of its counter: axis 0
+    the rows, the other axes flattened into the columns."""
+    shape = tuple(shape)
+    if not shape:
+        return 1, 1
+    return shape[0], math.prod(shape[1:])
+
+
+def _fill(key: AnyKey, shape: Sequence[int], device, bits16: bool
+          ) -> torch.Tensor:
+    from multimodal_idbn_tpu_torch.ops import philox_fill
+    rows, cols = _rows_cols(shape)
+    row0 = 0
+    sh = shard.current()
+    if sh is not None and not bits16:
+        if not tuple(shape) or shape[0] != sh.rows:
+            raise ValueError(f"a draw of shape {tuple(shape)} inside a "
+                             f"batch shard of {sh.rows} rows")
+        row0 = sh.row0
+    out = philox_fill.fill(key, rows, cols, device=device, row0=row0,
+                           bits16=bits16)
+    return out.reshape(tuple(shape))
+
+
+def uniform(key: AnyKey, shape: Sequence[int], device) -> torch.Tensor:
+    """U[0, 1) float32 of Philox(key) at stream 2, rows counted from the
+    rank's first global row inside ``shard.batch_rows``; 0.5 in
+    deterministic mode."""
+    if _MODE.deterministic:
+        key_word(key)
+        return torch.full(tuple(shape), 0.5, device=device)
+    return _fill(key, shape, device, bits16=False)
+
+
+def gumbel(key: AnyKey, shape: Sequence[int], device) -> torch.Tensor:
+    """Standard Gumbel float32 of ``uniform``'s draw; a constant (0) in
+    deterministic mode."""
+    if _MODE.deterministic:
+        key_word(key)
+        return torch.zeros(tuple(shape), device=device)
+    u = _fill(key, shape, device, bits16=False)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def random_bits16(key: AnyKey, shape: Sequence[int], device
+                  ) -> torch.Tensor:
+    """int32 in [0, 2^16): the top 16 bits of word 0 of Philox(key) at
+    stream 3, the same in every mode (the ``det_random`` fixture leaves
+    ``jax.random.bits`` real)."""
+    return _fill(key, shape, device, bits16=True)

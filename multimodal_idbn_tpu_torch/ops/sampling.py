@@ -1,8 +1,10 @@
 """Sampling primitives for Bernoulli / softmax-group RBM units.
 
 Port of multimodal_idbn_tpu/ops/sampling.py:22-80. Draws come from
-``ops.rng`` (keyed ``torch.Generator`` streams), so they follow the
-sampler hook's deterministic mode in the parity tests.
+``ops.rng`` (Philox keyed by an int or by an epoch body's ``rng.Key``),
+so they follow the sampler hook's deterministic mode in the parity tests.
+Nothing here reads a tensor on the host, so an epoch body that samples can
+be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -18,19 +20,27 @@ from multimodal_idbn_tpu_torch.ops import rng
 SoftmaxGroups = Tuple[Tuple[int, int], ...]
 
 
-def sample_bernoulli(key: int, p: torch.Tensor) -> torch.Tensor:
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``one_hot(idx, n)`` as a comparison with ``arange(n)``: the same
+    0/1 values with no host check of ``idx`` (torch's ``one_hot`` reads
+    its input's range on the host, on the CPU)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def sample_bernoulli(key: rng.AnyKey, p: torch.Tensor) -> torch.Tensor:
     """``(p > u)`` with strict ``>``, as the reference (sampling.py:22-29)."""
     u = rng.uniform(key, p.shape, p.device)
     return (p > u).to(p.dtype)
 
 
-def sample_categorical_onehot(key: int, probs: torch.Tensor) -> torch.Tensor:
+def sample_categorical_onehot(key: rng.AnyKey,
+                              probs: torch.Tensor) -> torch.Tensor:
     """One-hot rows by Gumbel-max over ``log(clip(probs, 1e-8, 1))``
     (sampling.py:32-41)."""
     logp = torch.log(torch.clamp(probs, 1e-8, 1.0))
     idx = torch.argmax(logp + rng.gumbel(key, probs.shape, probs.device),
                        dim=-1)
-    return torch.nn.functional.one_hot(idx, probs.shape[-1]).to(probs.dtype)
+    return one_hot(idx, probs.shape[-1], probs.dtype)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +75,7 @@ def apply_softmax_groups(v_prob: torch.Tensor, logits: torch.Tensor,
     return v_prob
 
 
-def sample_visible(key: int, v_prob: torch.Tensor,
+def sample_visible(key: rng.AnyKey, v_prob: torch.Tensor,
                    groups: SoftmaxGroups) -> torch.Tensor:
     """Bernoulli units elementwise; each group re-sampled categorically
     as a one-hot block (sampling.py:57-67)."""

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from multimodal_idbn_tpu_torch.device import DeviceLike, resolve_device
 from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, fast_cd,
                                            imdbn_ops, rbm_ops, shard)
 
@@ -72,19 +73,25 @@ class Mesh:
         return self.rank
 
 
-def _local_device() -> torch.device:
-    if torch.cuda.is_available():
+def mesh_device(device: DeviceLike = None) -> torch.device:
+    """This process's device in a mesh: the caller's (the model's device,
+    or an explicit one), ``cuda`` (the current card) unless the CPU is
+    asked for; without a GPU a CUDA request raises, as every entry point
+    of the port does."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    return dev
 
 
-def make_mesh(n_devices: Optional[int] = None,
-              axis_name: str = "data") -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
+              device: DeviceLike = None) -> Mesh:
     """The 1-D mesh over the process group (default: every process; JAX
     data_parallel.py:40-51). Each process is one device, so the mesh spans
     the whole group: more devices than processes raises, as JAX's "have
     M" does, and so does a count below the group's size. Without a group
-    the mesh is this process alone."""
+    the mesh is this process alone. ``device``: this process's device
+    (``mesh_device``)."""
     if dist.is_initialized():
         have, rank = dist.get_world_size(), dist.get_rank()
         group, backend = dist.group.WORLD, dist.get_backend()
@@ -99,20 +106,22 @@ def make_mesh(n_devices: Optional[int] = None,
     if n < 1 or n < have:
         raise ValueError(f"requested {n} devices, but the mesh spans every "
                          f"process of the group ({have})")
-    return Mesh(group, have, rank, _local_device(), backend, (axis_name,))
+    return Mesh(group, have, rank, mesh_device(device), backend,
+                (axis_name,))
 
 
-def resolve_mesh(spec) -> Optional[Mesh]:
+def resolve_mesh(spec, device: DeviceLike = None) -> Optional[Mesh]:
     """A user-facing mesh spec as a mesh, or None: None (no data
     parallelism), a mesh (used as it is), a device count or ``"all"``;
-    what ``set_mesh`` and ``params["DP_DEVICES"]`` take."""
+    what ``set_mesh`` and ``params["DP_DEVICES"]`` take. A mesh made here
+    lies on ``device`` (the model's)."""
     if spec is None or isinstance(spec, Mesh):
         return spec
     if isinstance(spec, str):
         if spec.lower() == "all":
-            return make_mesh()
+            return make_mesh(device=device)
         spec = int(spec)
-    return make_mesh(int(spec))
+    return make_mesh(int(spec), device=device)
 
 
 def batch_sharding(mesh: Mesh, ndim: int = 2) -> Tuple[Optional[str], ...]:

@@ -41,7 +41,8 @@ from multimodal_idbn_tpu_torch.ops import rbm_ops, rng, shard
 from multimodal_idbn_tpu_torch.ops.half_step import half_step_sample
 from multimodal_idbn_tpu_torch.ops.sampling import (apply_softmax_groups,
                                                     sigmoid)
-from multimodal_idbn_tpu_torch.parallel.data_parallel import _local_device
+from multimodal_idbn_tpu_torch.device import DeviceLike
+from multimodal_idbn_tpu_torch.parallel.data_parallel import mesh_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -73,11 +74,13 @@ class Mesh2D:
 
 
 def make_mesh_2d(dp: Optional[int] = None, mp: int = 2,
-                 devices=None) -> Mesh2D:
+                 devices=None, device: DeviceLike = None) -> Mesh2D:
     """A ``(dp, mp)`` mesh with axes ``("data", "model")`` over the
     processes of the group, or over ``devices``, a list of its ranks
     (JAX mesh2d.py:53-73). ``dp`` defaults to ``n // mp``. Every process
-    of the group calls it: the groups are made collectively."""
+    of the group calls it: the groups are made collectively. ``device``:
+    this process's device (``data_parallel.mesh_device``: ``cuda`` unless
+    the CPU is asked for)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ranks = list(range(world)) if devices is None else [int(r)
                                                         for r in devices]
@@ -103,7 +106,8 @@ def make_mesh_2d(dp: Optional[int] = None, mp: int = 2,
     if not len(where):
         raise ValueError(f"process {me} is not in the mesh {grid.tolist()}")
     d, m = (int(x) for x in where[0])
-    return Mesh2D(dp, mp, d, m, data_group, model_group, _local_device(),
+    return Mesh2D(dp, mp, d, m, data_group, model_group,
+                  mesh_device(device),
                   dist.get_backend() if dist.is_initialized() else None)
 
 

@@ -12,6 +12,9 @@ unprofiled warm-up run, and prints for each:
 - the device's busy and idle share between the first and the last kernel;
 - the number of kernel launches of each group.
 
+Every fused epoch of the cuts is one CUDA graph replay on the card
+(``ops.graphs``), so the profile is of the replayed epochs.
+
     python -m multimodal_idbn_tpu_torch.profile_main_path
 
 Needs a CUDA device; prints one JSON line per cut, the last line holding
@@ -37,6 +40,8 @@ def _group(name: str) -> str:
         return "half_step (port kernel)"
     if "chain_kernel" in name:
         return "chain (port kernel)"
+    if "philox_fill_kernel" in name:
+        return "philox_fill (port kernel)"
     if "gemm" in name.lower() or "gemv" in name.lower():
         return "matrix products (cuBLAS)"
     return "other torch kernels"

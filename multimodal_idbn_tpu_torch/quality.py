@@ -42,10 +42,15 @@ benchmarks/head_to_head_r5_pooled.json:ref <file>`` reads it unchanged. A
 bimodal file has the layout of benchmarks/quality_bimodal_r5.json (one
 record per seed under ``seeds``, the collapse verdict beside). Both also
 carry, per seed, the kernel launches of the training against their
-derivation (``launches``) and a digest of every trained parameter
-(``digests``): a seed run twice on the card ends bit-equal (on the CPU
-the number of threads changes the order of the sums). The file is
-rewritten after every seed.
+derivation (``launches``), a digest of every trained parameter
+(``digests``) and one of each stack (``stack_digests``), and a flagship
+seed's image-phase seconds (``phase_s``): a seed run twice
+on the card ends bit-equal (on the CPU the number of threads changes the
+order of the sums). The file is rewritten after every seed. This file run
+as a script trains with whichever package ``PYTHONPATH`` holds, so the
+same seeds' stacks under another checkout of the port come from
+``cd <checkout> && PYTHONPATH=. python <this file> flagship --seeds 0
+--out f.json``.
 
 Settings of the recorded arms, and the port's: the JAX arm of the
 flagship pool ran at the TPU's default matmul precision (bf16 operands)
@@ -297,6 +302,22 @@ def read_launches() -> dict:
             "chain_run": chain.KERNEL.launches}
 
 
+def stack_digests(model) -> Dict[str, str]:
+    """sha256 of each stack of ``model`` (``image_idbn``, ``mod1_dbn``,
+    ``mod2_dbn``, the joint), over the bytes of its RBMs' states in the
+    checkpoint's order of names and fields: the modality stacks' digests
+    can be held against another run's alone."""
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    from multimodal_idbn_tpu_torch.convert import FIELDS
+    hashes: Dict[str, "hashlib._Hash"] = {}
+    for name, rbm in sorted(_collect_rbms(model).items()):
+        h = hashes.setdefault(name.split("/")[0], hashlib.sha256())
+        for f in FIELDS:
+            h.update(name.encode() + f.encode())
+            h.update(to_numpy(getattr(rbm.state, f)).tobytes())
+    return {k: h.hexdigest() for k, h in hashes.items()}
+
+
 def state_digest(model) -> str:
     """sha256 over the bytes of every RBM state of ``model``, in the
     checkpoint's order of names and fields."""
@@ -328,7 +349,8 @@ def run_flagship_seed(s: dict, seed: int, data: Dict[str, np.ndarray],
     """Train and evaluate one seed of the iMDBN protocol
     (reference_head_to_head.py:245-376); returns (the per-seed record:
     the validation metrics with the probes, the ``train_*`` metrics of the
-    training set and ``train_s``; the training's kernel launches; the
+    training set, ``train_s`` and ``image_s``, the seconds of the whole
+    training and of its image phase; the training's kernel launches; the
     trained model)."""
     from multimodal_idbn_tpu_torch.data import DataLoader, Subset
     from multimodal_idbn_tpu_torch.models import iMDBN
@@ -361,6 +383,7 @@ def run_flagship_seed(s: dict, seed: int, data: Dict[str, np.ndarray],
     out.update({f"train_{k}": v for k, v in
                 evaluate_imdbn(model, train_eval, probes=False).items()})
     out["train_s"] = round(t_all, 1)
+    out["image_s"] = round(t_img, 1)
     return out, launches, model
 
 
@@ -626,7 +649,7 @@ def run_pool(kind: str, seeds: Sequence[int], out: Optional[str],
                        else "cpu"), "nvidia_smi": (
                            _nvidia_smi() if dev.type == "cuda" else None),
             "torch": torch.__version__}
-    launches, digests = {}, {}
+    launches, digests, stacks, phase_s = {}, {}, {}, {}
     if kind == "flagship":
         s = QUICK if quick else FLAGSHIP
         data = build_dataset(s)
@@ -647,11 +670,13 @@ def run_pool(kind: str, seeds: Sequence[int], out: Optional[str],
                "schedule": s, "matmul_precision": MATMUL_PRECISION,
                "collapse_criterion": BIMODAL_COLLAPSE, "seeds": {}}
     res.update(meta, derived_launches=derived_launches(kind, s, n_train),
-               launches=launches, digests=digests)
+               launches=launches, digests=digests, stack_digests=stacks,
+               phase_s=phase_s)
     for seed in seeds:
         if kind == "flagship":
             rec, launches[str(seed)], model = run_flagship_seed(
                 s, seed, data, dev)
+            phase_s[str(seed)] = {"image_s": rec.pop("image_s")}
             res["ours"][str(seed)] = rec
         else:
             rec, launches[str(seed)], model = run_bimodal_seed(
@@ -661,6 +686,7 @@ def run_pool(kind: str, seeds: Sequence[int], out: Optional[str],
             res.update(collapsed_seeds=bad,
                        collapse_rate=f"{len(bad)}/{len(res['seeds'])}")
         digests[str(seed)] = state_digest(model)
+        stacks[str(seed)] = stack_digests(model)
         del model
         log(f"[quality {kind} seed {seed}] {json.dumps(rec)}")
         _write(out, res)
@@ -679,9 +705,11 @@ def merge_files(kind: str, paths: Sequence[Path]) -> dict:
     key = "ours" if kind == "flagship" else "seeds"
     files = [json.loads(Path(p).read_text()) for p in paths]
     res = dict(files[0])
-    for k in (key, "launches", "digests"):
+    for k in (key, "launches", "digests", "stack_digests", "phase_s"):
         res[k] = {}
         for p, f in zip(paths, files):
+            if k not in f:
+                continue
             if k == key and set(res[k]) & set(f[k]):
                 raise ValueError(f"{p} repeats seeds "
                                  f"{sorted(set(res[k]) & set(f[k]))}")
@@ -710,10 +738,11 @@ def run_pools(flagship: Sequence[int], bimodal: Sequence[int], outdir: str,
     any starts; then the first seed of each pool once more alone on the
     card, its digest held against its pool run's (``repeat``). Writes
     ``{outdir}/{kind}.json`` and returns {kind: that file's content}."""
-    from multimodal_idbn_tpu_torch.ops import _cuda, chain, half_step
+    from multimodal_idbn_tpu_torch.ops import (_cuda, chain, half_step,
+                                               philox_fill)
     out = Path(outdir)
     (out / "seeds").mkdir(parents=True, exist_ok=True)
-    _cuda.build_all([half_step.KERNEL, chain.KERNEL])
+    _cuda.build_all([half_step.KERNEL, chain.KERNEL, philox_fill.KERNEL])
     # the host's cores shared out: torch's CPU threads would otherwise
     # oversubscribe them jobs times over
     env = dict(os.environ, OMP_NUM_THREADS=str(max(

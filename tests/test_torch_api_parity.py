@@ -61,8 +61,6 @@ EXCEPTIONS = {
         "ignored by JAX too (imdbn.py:67)",
     "models/imdbn.py:iMDBN.__init__(embedding_dim)":
         "ignored by JAX too (imdbn.py:67)",
-    "ops/dbn_train.py:idbn_epoch_block_pcd":
-        "PCD's epochs run in iDBN's epoch loop over idbn_epoch_pcd",
     "ops/dbn_train.py:idbn_epoch(shard_axis)": _AXIS,
     "ops/dbn_train.py:idbn_epoch_block(shard_axis)": _AXIS,
     "ops/imdbn_ops.py:joint_epoch(shard_axis)": _AXIS,

@@ -590,3 +590,128 @@ def test_native_generator_builds_and_is_deterministic():
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(a[4], nums)
+
+
+# ---------------------------------------------------------------------------
+# Epochs replayed as CUDA graphs (ops.graphs) and the Philox fill
+# ---------------------------------------------------------------------------
+
+def _tree_equal(a, b):
+    from multimodal_idbn_tpu_torch.ops import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and all(x.dtype == y.dtype and torch.equal(x, y)
+                            for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("rows,cols,row0,bits16", [
+    (128, 1500, 0, False), (12, 2500, 116, False), (1, 1, 0, False),
+    (500, 532, 0, True), (3, 70001, 5, True)])
+def test_philox_fill_vs_plain(dev, rows, cols, row0, bits16):
+    """Bit for bit against its plain version and a repeat, keyed by value
+    and from a key table on the card."""
+    from multimodal_idbn_tpu_torch.ops import philox_fill
+    key = rng.fold_in(rng.fold_in(3, 1), 2)
+    want = philox_fill.fill_plain(key, rows, cols, device=dev, row0=row0,
+                                  bits16=bits16)
+    got = philox_fill.fill(key, rows, cols, device=dev, row0=row0,
+                           bits16=bits16)
+    assert torch.equal(got, want)
+    assert torch.equal(philox_fill.fill(key, rows, cols, device=dev,
+                                        row0=row0, bits16=bits16), got)
+    keys = torch.tensor(rng.key_values(3, [(1, 2)]), device=dev)
+    with rng.key_table(rng.KeyTable(keys, [(1, 2)])):
+        assert torch.equal(philox_fill.fill(rng.Key((1, 2)), rows, cols,
+                                            device=dev, row0=row0,
+                                            bits16=bits16), want)
+
+
+def _joint_inputs(dev, bimodal):
+    g = torch.Generator().manual_seed(7)
+    N = 70                                   # two batches of 32 and 6 rows
+    V = 48
+    img = (torch.rand((N, V), generator=g) < 0.4).float().to(dev)
+    if bimodal:
+        Z1 = torch.rand((N, 20), generator=g).to(dev)
+        Z2 = torch.rand((N, 12), generator=g).to(dev)
+        V2 = (torch.rand((N, 30), generator=g) < 0.4).float().to(dev)
+        m1 = [rbm_ops.init_rbm_state(1, V, 20, device=dev)]
+        m2 = [rbm_ops.init_rbm_state(2, 30, 12, device=dev)]
+        joint = [rbm_ops.init_rbm_state(3, 32, 24, device=dev),
+                 rbm_ops.init_rbm_state(4, 24, 16, device=dev)]
+        return (Z1, Z2, img, V2, m1, m2), joint
+    K = 4
+    Z = torch.rand((N, 20), generator=g).to(dev)
+    Y = torch.eye(K)[torch.randint(0, K, (N,), generator=g)].to(dev)
+    img_states = [rbm_ops.init_rbm_state(1, V, 20, device=dev)]
+    joint = rbm_ops.init_rbm_state(3, 20 + K, 24, device=dev)
+    return (Z, Y, img, img_states, Z[:K].clone()), joint
+
+
+@pytest.mark.parametrize("bimodal", [False, True])
+@pytest.mark.parametrize("warmup", [True, False])
+def test_joint_epochs_replayed_equal_launch_by_launch(dev, bimodal, warmup):
+    """Three joint epochs through a graphed runner (one capture, three
+    replays) are bit-equal to the same epoch function run launch by
+    launch, with the same kernel launches."""
+    from multimodal_idbn_tpu_torch.ops import bimodal_ops, graphs, imdbn_ops
+    consts, joint = _joint_inputs(dev, bimodal)
+    if bimodal:
+        kw = dict(warmup=warmup, joint_cd=2, aux_cond_steps=5, Dz1=20,
+                  steps=6, batch_size=32)
+        runner = bimodal_ops.bimodal_epoch_runner(*consts, 1e-4,
+                                                  graphed=True, **kw)
+
+        def block(**extra):
+            return bimodal_ops.bimodal_epoch_block(
+                joint, consts[4], consts[5], 9, *consts[:4], [0, 6, 7],
+                [0.05, 0.04, 0.03], [0.5, 0.5, 0.9], 1e-4, **kw, **extra)
+    else:
+        kw = dict(warmup=warmup, joint_cd=2, aux_cond_steps=5, Dz=20,
+                  steps=6, groups=((20, 24),), zclamp_every=2,
+                  batch_size=32)
+        Z, Y, img, img_states, zcm = consts
+        runner = imdbn_ops.joint_epoch_runner(Z, Y, img, img_states, zcm,
+                                              1e-4, graphed=True, **kw)
+
+        def block(**extra):
+            return imdbn_ops.joint_epoch_block(
+                joint, img_states, 9, Z, Y, img, [0, 6, 7],
+                [0.05, 0.04, 0.03], [0.5, 0.5, 0.9], 1e-4, zcm, **kw,
+                **extra)
+    before = graphs.launch_counts()
+    eager = block()
+    eager_launches = graphs.launches_since(before)
+    before = graphs.launch_counts()
+    replayed = block(runner=runner)
+    torch.cuda.synchronize()
+    assert graphs.launches_since(before) == eager_launches
+    assert runner.replays == 3
+    assert _tree_equal(replayed, eager)
+
+
+@pytest.mark.parametrize("pcd", [False, True])
+def test_image_epochs_replayed_equal_launch_by_launch(dev, pcd):
+    from multimodal_idbn_tpu_torch.ops import dbn_train
+    g = torch.Generator().manual_seed(3)
+    data = (torch.rand((70, 300), generator=g) < 0.3).float().to(dev)
+    states = [rbm_ops.init_rbm_state(1, 300, 64, device=dev),
+              rbm_ops.init_rbm_state(2, 64, 32, device=dev)]
+    chains = [(torch.rand((32, v), generator=g) < 0.5).float().to(dev)
+              for v in (300, 64)]
+    kw = dict(weight_decay=1e-4, sparsity_factor=0.05, cd=2,
+              sparsity_flags=(False, True), batch_size=32)
+    args = ([0, 1, 6], [0.1, 0.09, 0.08], [0.5, 0.5, 0.9])
+    if pcd:
+        runner = dbn_train.idbn_epoch_runner(data, pcd=True, graphed=True,
+                                             **kw)
+        eager = dbn_train.idbn_epoch_block_pcd(states, chains, 5, data,
+                                               *args, **kw)
+        replayed = dbn_train.idbn_epoch_block_pcd(states, chains, 5, data,
+                                                  *args, runner=runner, **kw)
+    else:
+        runner = dbn_train.idbn_epoch_runner(data, graphed=True, **kw)
+        eager = dbn_train.idbn_epoch_block(states, 5, data, *args, **kw)
+        replayed = dbn_train.idbn_epoch_block(states, 5, data, *args,
+                                              runner=runner, **kw)
+    assert runner.replays == 3 and _tree_equal(replayed, eager)

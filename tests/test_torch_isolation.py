@@ -140,10 +140,11 @@ def test_parallel_modules_are_covered():
             'print("ok", len(names))',
             'from multimodal_idbn_tpu_torch import parallel\n'
             'from multimodal_idbn_tpu_torch.ops import rbm_ops\n'
-            'mesh = parallel.make_mesh(1)\n'
+            'mesh = parallel.make_mesh(1, device="cpu")\n'
             'st, loss = parallel.dp_cd_update(mesh, rbm.state, 1, '
             'torch.ones(3, 6), lr=0.1, mom=0.5, weight_decay=0.0, cd=1)\n'
-            'parallel.tp_cd_update(parallel.make_mesh_2d(dp=1, mp=1), st, '
+            'parallel.tp_cd_update(parallel.make_mesh_2d(dp=1, mp=1, '
+            'device="cpu"), st, '
             '2, torch.ones(3, 6), lr=0.1, mom=0.5, weight_decay=0.0, '
             'cd=1)\n'
             'assert not [m for m in sys.modules '

@@ -87,7 +87,7 @@ def _init(rank, world, store):
 def _dp_job(rank, world, store, out):
     _init(rank, world, store)
     try:
-        mesh = parallel.make_mesh(2)
+        mesh = parallel.make_mesh(2, device="cpu")
         res = {"backend": mesh.backend, "size": mesh.size}
         st = rbm_ops.init_rbm_state(3, V, H)
         # 13 rows: an uneven split, 6 and 7
@@ -107,13 +107,13 @@ def _dp_job(rank, world, store, out):
         # set_mesh accepts counts, "all", a mesh and None
         m = small_imdbn()
         sizes = []
-        for spec in (2, "all", parallel.make_mesh(2)):
+        for spec in (2, "all", parallel.make_mesh(2, device="cpu")):
             m.set_mesh(spec)
             sizes.append(m.mesh.size)
         m.set_mesh(None)
         res["set_mesh"] = (sizes, m.mesh, m.image_idbn.mesh)
         try:
-            parallel.make_mesh(3)
+            parallel.make_mesh(3, device="cpu")
         except ValueError as e:
             res["make_mesh_3"] = str(e)
         # a group of one rank gives the single-device bits
@@ -136,7 +136,7 @@ def _tp_job(rank, world, store, out):
         st = rbm_ops.init_rbm_state(3, V, H)
         data = _data(12, V)
         for dp, mp in ((1, 2), (2, 1)):
-            mesh = parallel.make_mesh_2d(dp=dp, mp=mp)
+            mesh = parallel.make_mesh_2d(dp=dp, mp=mp, device="cpu")
             res[f"shape{dp}{mp}"] = mesh.shape
             s, loss = parallel.tp_cd_update(mesh, st, 5, data, **CD_KW)
             res[f"cd{dp}{mp}"] = (_arrays(parallel.gather_state(s)), loss)
@@ -145,7 +145,7 @@ def _tp_job(rank, world, store, out):
                                             groups=((Dz, Dz + K),), **CD_KW)
             res[f"groups{dp}{mp}"] = (_arrays(parallel.gather_state(s)),
                                       loss)
-        mesh = parallel.make_mesh_2d(mp=2)
+        mesh = parallel.make_mesh_2d(mp=2, device="cpu")
         sh = parallel.shard_state(mesh, st)
         res["local_w"] = tuple(sh.w.shape)
         res["local_vb"] = tuple(sh.vb.shape)
@@ -158,7 +158,7 @@ def _tp_job(rank, world, store, out):
                          for s in out_states], losses)
         for kw in (dict(mp=3), dict(dp=2, mp=2)):
             try:
-                parallel.make_mesh_2d(**kw)
+                parallel.make_mesh_2d(**kw, device="cpu")
             except ValueError as e:
                 res[f"err{sorted(kw.items())}"] = str(e)
         torch.save(res, pathlib.Path(out) / f"tp{rank}.pt")
@@ -372,7 +372,7 @@ def test_helpers_match_jax():
         assert parallel.local_batch_slice(n) == jdist.local_batch_slice(n)
     assert not parallel.is_multi_process() and parallel.is_main_process()
     assert parallel.initialize_distributed() is False
-    mesh = parallel.make_mesh()
+    mesh = parallel.make_mesh(device="cpu")
     assert parallel.batch_sharding(mesh, 3) == ("data", None, None)
     assert parallel.resolve_mesh(None) is None
     assert parallel.resolve_mesh(mesh) is mesh
@@ -386,7 +386,7 @@ def test_helpers_match_jax():
 def test_dp_epochs_without_group_are_the_epoch_functions():
     """Every dp_* function on a mesh of this process alone returns what
     its epoch function returns without one."""
-    mesh = parallel.make_mesh(1)
+    mesh = parallel.make_mesh(1, device="cpu")
     states = [rbm_ops.init_rbm_state(1, V, H), rbm_ops.init_rbm_state(2, H, 8)]
     data = torch.as_tensor(_data(40, V, 3))
     kw = dict(cd=1, sparsity_flags=(False, True), batch_size=16)
@@ -468,7 +468,7 @@ def test_tp_cd_update_matches_one_device(tp_runs, grid):
     st = rbm_ops.init_rbm_state(3, V, H)
     want, want_loss = fast_cd.fast_sampled_cd_update(
         st, 5, torch.as_tensor(_data(12, V)), **CD_KW)
-    one = parallel.make_mesh_2d(dp=1, mp=1)
+    one = parallel.make_mesh_2d(dp=1, mp=1, device="cpu")
     gwant, gloss = parallel.tp_cd_update(
         one, rbm_ops.init_rbm_state(4, Dz + K, 12), 6, _joint_data(12),
         groups=((Dz, Dz + K),), **CD_KW)
@@ -502,3 +502,17 @@ def test_parallel_exports_every_jax_name():
     assert names and all(hasattr(parallel, n) for n in names)
     assert all(hasattr(tmesh, n) for n in ("gather_state", "shard_batch_2d",
                                            "state_pspecs"))
+
+
+def test_mesh_takes_its_device_from_the_caller():
+    """A mesh lies on the device its caller names (the model's, or an
+    explicit one): on the CPU only when the CPU was asked for; a CUDA
+    request without a card raises, as the entry points do, and never
+    turns into a CPU mesh."""
+    assert parallel.make_mesh(device="cpu").device == torch.device("cpu")
+    assert small_imdbn(DP_DEVICES=1)._resolve_mesh().device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.make_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.make_mesh_2d(dp=1, mp=1)
