@@ -48,15 +48,32 @@ Phases, each fatal on failure:
    (``save_model``), loaded into fresh objects on the card
    (``iMDBN.load_model`` + ``from_payload``) and served through
    ``txt2img`` (all 32 labels x 4, and 3 labels), ``img2txt`` (128 images,
-   and 1) and ``sample_txt2img`` (128 rows). Every state of the loaded
-   model and, under one seed, every output must be bit-equal to the
-   trained model's; ``txt2img`` and ``img2txt`` must launch the chain
-   kernel once and no half-step, ``sample_txt2img`` no kernel; the chain
-   is held against its plain version at the request-sized batches 1, 3,
-   96 and 200;
+   and 1) and ``sample_txt2img`` (128 and 3 rows). Each call runs three
+   times from the same key: launch by launch (``graphs.launch_by_launch``),
+   then through the model's graph cache twice (a capture and a replay,
+   then a replay under ``torch.cuda.set_sync_debug_mode("error")``); the
+   three outputs must be bit-equal, for the trained and the loaded model,
+   and the two models' too; each kernel's launches the same three ways
+   and as derived (``txt2img`` / ``img2txt`` one chain and one fill, the
+   sampled call 2 + 3 x steps fills and no chain, no half-step), one
+   replay per call JAX jits (``img2txt``: the encode and the cross). Each
+   call is timed replayed and launch by launch (median wall, CUDA events,
+   device busy ms); each capture's seconds and graph pool are printed.
+   Then the trained model takes one more image epoch and one more joint
+   epoch and every call is served again: bit-equal to launch by launch
+   on the new weights, every output changed, no new capture;
+6b. the bimodal serving drive on bimodal-cut's trained model and on the
+   same model pickled and loaded onto the card: ``mod1_to_mod2``,
+   ``mod2_to_mod1``, ``_cross_reconstruct`` both ways, and
+   ``sample_mod1_to_mod2`` / ``sample_mod2_to_mod1``, at B = 128 and 3,
+   each held the same three ways (launches as derived: no chain, the
+   sampled cross 1 + steps fills a direction, the sampled chain 2 + 2 x
+   steps), outputs in [0, 1], loaded equal to trained, the B = 128 calls
+   timed both ways;
 7. ``python -m multimodal_idbn_tpu_torch.generate`` as a subprocess on
    that pickle, sampled and ``--mean``; the ``--mean`` images must equal
-   phase 6's ``txt2img``;
+   phase 6's ``txt2img``; then both requests once more in this process,
+   each one capture and one replay with the subprocess's images;
 8. resume: flagship-cut with checkpoints (``cuts.RESUME``) once
    uninterrupted, and stopped right after a checkpoint write in the image
    phase, inside the joint warm-up and after the warm-up boundary, each
@@ -137,9 +154,13 @@ replay of a CUDA graph (``ops.graphs``), so phases 4, 8 and 10-13 hold
 the graphed paths (and ``graph_replays``, the replays, beside each
 path's launches); the per-batch loops and the data-parallel runs of phase
 12 run launch by launch, and the one-rank NCCL run is held bit-equal to
-phase 4's replays.
+phase 4's replays. Every serving call (encode, decode, the cross and
+sampled calls) on the card is one replay of its graph wherever it is
+called (``serving_replays``), training's own encodes included.
 
-``python3 chip_smoke.py --phase-14`` runs the build and phase 14 alone.
+``python3 chip_smoke.py --phase-14`` runs the build and phase 14 alone;
+``python3 chip_smoke.py --serving`` the build, phase 4 and the serving
+phases 6, 6b and 7.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -263,13 +284,18 @@ def reset_launches():
 
 def read_launches():
     """Launches of each kernel entry since the last reset, and the CUDA
-    graph replays (one per epoch on a graphed path)."""
+    graph replays: of epochs (one per epoch on a graphed path) and of
+    serving calls (one per call of a jitted function in JAX)."""
     from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
                                                philox_fill)
     out = dict(half_step.KERNEL.launches_by_entry)
     out["chain_run"] = chain.KERNEL.launches
     out["philox_fill"] = philox_fill.KERNEL.launches
-    out["graph_replays"] = sum(graphs.STATS["replays"].values())
+    replays = graphs.STATS["replays"]
+    out["graph_replays"] = sum(n for k, n in replays.items()
+                               if not k.startswith("serve:"))
+    out["serving_replays"] = sum(n for k, n in replays.items()
+                                 if k.startswith("serve:"))
     return out
 
 
@@ -848,6 +874,141 @@ def busy_ms(fn):
 
 
 SERVE_SEED = 20261
+KERNEL_ENTRIES = ("half_step_sample", "half_step_probs",
+                  "half_step_sample_resident", "chain_run", "philox_fill")
+
+
+@contextlib.contextmanager
+def replays_checked():
+    """Inside the block every replay of a serving graph (a call whose
+    signature was captured before: the buffers' refresh, the key table's
+    copy, the replay and the outputs' clones) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    raises."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    real = graphs.ServingGraphs.call
+
+    def checked(self, fn, key, *args, **kwargs):
+        leaves, spec = graphs.flatten((args, kwargs))
+        if graphs._signature(fn, leaves, spec) not in self.graphs:
+            return real(self, fn, key, *args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, fn, key, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs.ServingGraphs.call = checked
+    try:
+        yield
+    finally:
+        graphs.ServingGraphs.call = real
+
+
+def serve_three_ways(m, call, reseed):
+    """``call(m)`` three times from the same key stream (``reseed(m)``
+    before each): launch by launch (``graphs.launch_by_launch``), its
+    first call through the model's graph cache (a capture where the
+    signature is new, then a replay) and once more (replays alone, under
+    ``replays_checked``). Returns [(output, launches, captures)] in that
+    order."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    runs = []
+    for way in ("launch by launch", "first call", "replay"):
+        reseed(m)
+        reset_launches()
+        with (graphs.launch_by_launch() if way == "launch by launch" else
+              replays_checked() if way == "replay" else
+              contextlib.nullcontext()):
+            out = call(m)
+        torch.cuda.synchronize()
+        runs.append((out, read_launches(), list(graphs.STATS["captures"])))
+    return runs
+
+
+def check_served(name, runs, want, rows, simplex=False):
+    """The three runs of ``serve_three_ways``: outputs bit-equal; each
+    kernel's launches equal in the three and to ``want`` (derived), with
+    ``want["serving_replays"]`` replays (one per call that JAX jits) in
+    the cache's runs and none launch by launch; no capture in the last
+    run; every output finite with ``rows`` rows, its values in [0, 1] or,
+    with ``simplex``, its rows summing to 1. Returns (the output, the
+    launches of a replayed call, the captures of the first call)."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    (eager, le, _), (first, lf, caps), (again, lr, caps2) = runs
+    for what, out in (("first call", first), ("replay", again)):
+        if not _trees_equal(out, eager):
+            raise AssertionError(f"{name}: the {what} through the graph "
+                                 f"cache is not bit-equal to launch by "
+                                 f"launch")
+    kernels = {k: le.get(k, 0) for k in KERNEL_ENTRIES}
+    for what, got in (("first call", lf), ("replay", lr)):
+        if {k: got.get(k, 0) for k in KERNEL_ENTRIES} != kernels:
+            raise AssertionError(f"{name}: launches {got} in the {what}, "
+                                 f"{le} launch by launch")
+    derived = dict(dict.fromkeys(KERNEL_ENTRIES, 0), **want)
+    got = dict(kernels, serving_replays=lr["serving_replays"])
+    if got != derived or le["serving_replays"] or \
+            lf["serving_replays"] != want["serving_replays"] or caps2:
+        raise AssertionError(f"{name}: launches {got}, derived {derived}; "
+                             f"replays launch by launch "
+                             f"{le['serving_replays']}, first call "
+                             f"{lf['serving_replays']}; captures in the "
+                             f"replay run {len(caps2)}")
+    leaves, _ = graphs.flatten(eager)
+    for t in leaves:
+        if t.shape[0] != rows or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: bad output {tuple(t.shape)}")
+        if simplex:
+            off = float((t.sum(dim=1) - 1.0).abs().max())
+            if not off <= 1e-5:
+                raise AssertionError(f"{name}: rows sum to 1 +- {off:.2e}")
+        elif float(t.min()) < 0.0 or float(t.max()) > 1.0:
+            raise AssertionError(f"{name}: values outside [0, 1]")
+    return eager, lr, caps
+
+
+def drive_launches(calls) -> dict:
+    """The launches of every call of ``calls`` once, summed from each
+    call's derivation (the second item of each entry)."""
+    total = dict.fromkeys(KERNEL_ENTRIES + ("serving_replays",), 0)
+    for entry in calls.values():
+        for k, n in entry[1].items():
+            total[k] += n
+    return total
+
+
+def time_served(name, m, call, reps: int = 5) -> dict:
+    """Median wall and CUDA-event ms of ``call(m)`` over ``reps`` calls,
+    and the device busy ms of one profiled call, replayed and launch by
+    launch."""
+    import statistics
+    from multimodal_idbn_tpu_torch.ops import graphs
+    row = {}
+    for way in ("replayed", "launch by launch"):
+        with (graphs.launch_by_launch() if way == "launch by launch"
+              else contextlib.nullcontext()):
+            call(m)
+            times = [timed_call(lambda: call(m))[1:] for _ in range(reps)]
+            busy, ops, missing = busy_ms(lambda: call(m))
+        row[way] = dict(
+            wall_ms=round(statistics.median(t[0] for t in times), 4),
+            event_ms=round(statistics.median(t[1] for t in times), 4),
+            busy_ms=round(busy, 4), device_ops=ops, records_missing=missing)
+    log(f"[serve] {name}: replayed {json.dumps(row['replayed'])}; launch "
+        f"by launch {json.dumps(row['launch by launch'])}")
+    return row
+
+
+def log_captures(tag: str, caps) -> None:
+    for c in caps:
+        log(f"[{tag}] capture {c['name']} at {c['shapes'][-2:]}: "
+            f"{c['seconds']:.3f} s, graph pool "
+            f"{c['pool_bytes'] / 2 ** 20:.1f} MiB, launches per replay "
+            f"{json.dumps(c['launches'])}")
 
 
 def run_serving(dev, model, workdir: Path):
@@ -858,6 +1019,7 @@ def run_serving(dev, model, workdir: Path):
     from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
     from multimodal_idbn_tpu_torch.models import iMDBN
 
+    t_phase = time.perf_counter()
     pkl = workdir / "served.pkl"
     t0 = time.perf_counter()
     model.save_model(str(pkl))
@@ -882,48 +1044,50 @@ def run_serving(dev, model, workdir: Path):
         batch_size=128, num_classes=32, n_samples=1024, side=100,
         seed=1)[1].materialize()[0][:128]
     all_labels = np.repeat(np.arange(32), 4)
-    calls = {  # name: (call, chain launches, result rows)
-        "txt2img B=128": (lambda m: m.txt2img(all_labels), 1, 128),
-        "txt2img B=3": (lambda m: m.txt2img([3, 7, 12]), 1, 3),
-        "img2txt B=128": (lambda m: m.img2txt(images), 1, 128),
-        "img2txt B=1": (lambda m: m.img2txt(images[:1]), 1, 1),
+    # derived launches: a mean-field call one chain and its init's one
+    # fill; the sampled chain one fill for its init and three a step (h,
+    # v, the label group's Gumbel), its decode one a layer above the
+    # bottom; replays: img2txt encodes (dbn_represent), then the cross
+    sampled = (1 + 3 * loaded.cross_steps
+               + len(loaded.image_idbn.layers) - 1)
+    mean = dict(chain_run=1, philox_fill=1)
+    calls = {  # name: (call, derived launches, result rows, simplex)
+        "txt2img B=128": (lambda m: m.txt2img(all_labels),
+                          dict(mean, serving_replays=1), 128, False),
+        "txt2img B=3": (lambda m: m.txt2img([3, 7, 12]),
+                        dict(mean, serving_replays=1), 3, False),
+        "img2txt B=128": (lambda m: m.img2txt(images),
+                          dict(mean, serving_replays=2), 128, True),
+        "img2txt B=1": (lambda m: m.img2txt(images[:1]),
+                        dict(mean, serving_replays=2), 1, True),
         "sample_txt2img B=128": (
-            lambda m: m.sample_txt2img(all_labels, seed=SERVE_SEED), 0, 128),
+            lambda m: m.sample_txt2img(all_labels, seed=SERVE_SEED),
+            dict(philox_fill=sampled, serving_replays=1), 128, False),
         "sample_txt2img B=3": (
-            lambda m: m.sample_txt2img([3, 7, 12], seed=SERVE_SEED), 0, 3),
+            lambda m: m.sample_txt2img([3, 7, 12], seed=SERVE_SEED),
+            dict(philox_fill=sampled, serving_replays=1), 3, False),
     }
-    outputs = {}
-    for name, (call, want_chain, rows) in calls.items():
-        for m in (model, loaded):
-            m.joint_rbm.reseed(SERVE_SEED)
-        reset_launches()
-        out = call(model)
-        launches = read_launches()
-        out_loaded = call(loaded)
-        torch.cuda.synchronize()
-        half_steps = sum(v for k, v in launches.items()
-                         if k.startswith("half_step"))
-        if launches["chain_run"] != want_chain or half_steps:
-            raise AssertionError(f"{name}: launches {launches}, expected "
-                                 f"{want_chain} chain and no half-step")
-        if out.shape[0] != rows or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
-        if not torch.equal(out, out_loaded):
+
+    def reseed(m):
+        m.joint_rbm.reseed(SERVE_SEED)
+
+    outputs, captures = {}, []
+    for name, (call, want, rows, simplex) in calls.items():
+        out = {}
+        for tag, m in (("trained", model), ("loaded", loaded)):
+            out[tag], launches, caps = check_served(
+                f"{name} ({tag})", serve_three_ways(m, call, reseed), want,
+                rows, simplex)
+            captures += caps
+        if not torch.equal(out["trained"], out["loaded"]):
             raise AssertionError(f"{name}: the loaded model's output differs "
                                  f"from the trained model's")
-        if name.startswith("img2txt"):
-            off = float((out.sum(dim=1) - 1.0).abs().max())
-            if not off <= 1e-5:
-                raise AssertionError(f"{name}: rows sum to 1 +- {off:.2e}")
-        elif float(out.min()) < 0.0 or float(out.max()) > 1.0:
-            raise AssertionError(f"{name}: pixels outside [0, 1]")
-        outputs[name] = out
-        _, wall, ev = timed_call(lambda: call(loaded))
-        busy, kernels, missing = busy_ms(lambda: call(loaded))
-        log(f"[serve] {name}: wall {wall:.3f} ms, between CUDA events "
-            f"{ev:.3f} ms, device busy {busy} ms in {kernels} device "
-            f"operations ({missing} kernel records missing); launches "
+        outputs[name] = out["trained"]
+        log(f"[serve] {name}: capture then replay bit-equal to launch by "
+            f"launch, trained and loaded; launches per call "
             f"{json.dumps(launches)}")
+        time_served(name, loaded, call)
+    log_captures("serve", captures)
     again = loaded.sample_txt2img(all_labels, seed=SERVE_SEED)
     other = loaded.sample_txt2img(all_labels, seed=SERVE_SEED + 1)
     if not torch.equal(again, outputs["sample_txt2img B=128"]) or \
@@ -931,15 +1095,116 @@ def run_serving(dev, model, workdir: Path):
         raise AssertionError("sample_txt2img: one seed must give one draw "
                              "and two seeds two")
     reset_launches()
-    for call, _, _ in calls.values():
+    for call, _, _, _ in calls.values():
         call(loaded)
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[serve] serving drive (six calls on the loaded model): launches "
         f"{json.dumps(launches)}")
-    if launches["chain_run"] != 4:
-        raise AssertionError(f"serving drive: {launches}")
+    check_launches("serving drive", launches, drive_launches(calls))
+
+    # the weights change under the graphs: one more image epoch and one
+    # more joint epoch; every call must serve the new weights, from the
+    # same graphs
+    graphs_before = sum(len(o._serving.graphs)
+                        for o in (model, model.image_idbn))
+    model.image_idbn.train(2, start_epoch=1)
+    done = len(model.joint_metrics_history)
+    model.train_joint(done + 1, start_epoch=done)
+    for name, (call, want, rows, simplex) in calls.items():
+        runs = serve_three_ways(model, call, reseed)
+        out, _, caps = check_served(f"{name} (trained further)", runs, want,
+                                    rows, simplex)
+        if caps or torch.equal(out, outputs[name]):
+            raise AssertionError(f"{name}: after training, {len(caps)} "
+                                 f"captures and an output that did not "
+                                 f"change")
+    graphs_after = sum(len(o._serving.graphs)
+                       for o in (model, model.image_idbn))
+    log(f"[serve] after one more image and one more joint epoch: every call "
+        f"bit-equal to launch by launch on the new weights, every output "
+        f"changed, no new capture ({graphs_before} graphs before training, "
+        f"{graphs_after} after, the training's own encode included)")
+    log(f"[serve] phase 6: {time.perf_counter() - t_phase:.1f} s")
     return launches, pkl, outputs["txt2img B=128"]
+
+
+def run_bimodal_serving(dev, model):
+    """Phase 6b: the bimodal serving calls on bimodal-cut's trained model
+    and on the same model pickled and loaded onto the card, at B = 128 and
+    B = 3: ``mod1_to_mod2`` / ``mod2_to_mod1`` (the modality encode, then
+    the cross through joint layer 0: sampled h, no chain kernel, one fill
+    for the init and one a step), ``_cross_reconstruct`` both ways on
+    given latents, and ``sample_mod1_to_mod2`` / ``sample_mod2_to_mod1``
+    (the sampled chain: a fill for the init and two a step; the decode one
+    a layer above the bottom). Each through ``serve_three_ways``. Returns
+    the launches of the drive (every call once on the loaded model)."""
+    import pickle
+    import torch
+    from multimodal_idbn_tpu_torch.device import as_tensor
+
+    t_phase = time.perf_counter()
+    loaded = pickle.loads(pickle.dumps(model)).to(dev)
+    assert_bit_equal(model, loaded, "bimodal loaded vs trained")
+    m1, m2 = model.dataloader.materialize()
+    v1, v2 = as_tensor(m1[:128], dev), as_tensor(m2[:128], dev)
+    z1, z2 = model._latents(v1, v2)
+    steps = model.cross_steps
+    cross = dict(philox_fill=1 + steps)
+
+    def sampled(target):      # the chain's init, h and v a step, the decode
+        return dict(philox_fill=1 + 2 * steps + len(target.layers) - 1,
+                    serving_replays=2)
+
+    calls = {}
+    for b in (128, 3):
+        calls.update({
+            f"mod1_to_mod2 B={b}": (lambda m, b=b: m.mod1_to_mod2(v1[:b]),
+                                    dict(cross, serving_replays=2), b),
+            f"mod2_to_mod1 B={b}": (lambda m, b=b: m.mod2_to_mod1(v2[:b]),
+                                    dict(cross, serving_replays=2), b),
+            f"_cross_reconstruct both B={b}": (
+                lambda m, b=b: m._cross_reconstruct(z1[:b], z2[:b]),
+                dict(philox_fill=2 * (1 + steps), serving_replays=1), b),
+            f"sample_mod1_to_mod2 B={b}": (
+                lambda m, b=b: m.sample_mod1_to_mod2(v1[:b],
+                                                     seed=SERVE_SEED),
+                sampled(model.mod2_dbn), b),
+            f"sample_mod2_to_mod1 B={b}": (
+                lambda m, b=b: m.sample_mod2_to_mod1(v2[:b],
+                                                     seed=SERVE_SEED),
+                sampled(model.mod1_dbn), b),
+        })
+
+    def reseed(m):
+        m.joint_rbm.reseed(SERVE_SEED)
+
+    captures = []
+    for name, (call, want, rows) in calls.items():
+        out = {}
+        for tag, m in (("trained", model), ("loaded", loaded)):
+            out[tag], launches, caps = check_served(
+                f"bimodal {name} ({tag})", serve_three_ways(m, call, reseed),
+                want, rows)
+            captures += caps
+        if not _trees_equal(out["trained"], out["loaded"]):
+            raise AssertionError(f"bimodal {name}: the loaded model's output "
+                                 f"differs from the trained model's")
+        log(f"[serve-bimodal] {name}: capture then replay bit-equal to "
+            f"launch by launch, trained and loaded; launches per call "
+            f"{json.dumps(launches)}")
+        if rows == 128:
+            time_served(f"bimodal {name}", loaded, call)
+    log_captures("serve-bimodal", captures)
+    reset_launches()
+    for call, _, _ in calls.values():
+        call(loaded)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[serve-bimodal] drive (ten calls on the loaded model): launches "
+        f"{json.dumps(launches)}; {time.perf_counter() - t_phase:.1f} s")
+    check_launches("bimodal serving drive", launches, drive_launches(calls))
+    return launches
 
 
 def run_generate(pkl: Path, workdir: Path, mean_images):
@@ -947,7 +1212,7 @@ def run_generate(pkl: Path, workdir: Path, mean_images):
     started together."""
     import numpy as np
     labels = [str(i) for i in range(32)]
-    procs = {}
+    procs, images = {}, {}
     try:
         for mode in ("sampled", "mean"):
             out = workdir / f"generate-{mode}.npz"
@@ -982,11 +1247,35 @@ def run_generate(pkl: Path, workdir: Path, mean_images):
                                      "under the same seed")
             log(f"[generate] {mode}: exit 0 after "
                 f"{time.perf_counter() - t0:.1f} s; {line}")
+            images[mode] = imgs
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    # the same requests in this process, with the replays counted: one
+    # capture and one replay per request (a fresh model's first call)
+    from multimodal_idbn_tpu_torch import generate
+    from multimodal_idbn_tpu_torch.ops import graphs
+    for mode, (out, _) in procs.items():
+        reset_launches()
+        imgs = generate.main(
+            ["--model", str(pkl), "--labels", *labels, "--n-per-label", "4",
+             "--seed", str(SERVE_SEED), "--out", str(out)]
+            + (["--mean"] if mode == "mean" else []))
+        launches, caps = read_launches(), list(graphs.STATS["captures"])
+        if not np.array_equal(imgs, images[mode]) or len(caps) != 1 or \
+                launches["serving_replays"] != 1:
+            raise AssertionError(f"generate ({mode}) in process: "
+                                 f"{len(caps)} captures, launches "
+                                 f"{launches}, images equal to the "
+                                 f"subprocess's: "
+                                 f"{np.array_equal(imgs, images[mode])}")
+        log(f"[generate] {mode} in process: one capture "
+            f"({caps[0]['seconds']:.3f} s, graph pool "
+            f"{caps[0]['pool_bytes'] / 2 ** 20:.1f} MiB) and one replay, "
+            f"images equal to the subprocess's; launches "
+            f"{json.dumps(launches)}")
 
 
 class Interrupted(Exception):
@@ -1111,7 +1400,7 @@ def run_retry_finetune(dev, workdir: Path):
         num_classes=cfg["model"]["num_labels"],
         n_samples=cfg["dataset"]["n_samples"], side=cfg["dataset"]["side"])
     m = iMDBN(cfg["model"]["image_layers"], cfg["model"]["joint_hidden"],
-              params, train, val, device=dev,
+              params=params, dataloader=train, val_loader=val, device=dev,
               num_labels=cfg["model"]["num_labels"], seed=params["SEED"])
     reset_launches()
     retries = m.image_idbn.train_with_retry(2, max_retries=1)
@@ -1586,8 +1875,9 @@ def check_bf16_round_trip(model, workdir: Path):
     checkpoint.save_checkpoint(model, str(path))
     fresh = iMDBN([r.num_visible for r in model.image_idbn.layers]
                   + [model.image_idbn.layers[-1].num_hidden],
-                  model.joint_rbm.num_hidden, model.params,
-                  model.dataloader, model.val_loader, device=model.device,
+                  model.joint_rbm.num_hidden, params=model.params,
+                  dataloader=model.dataloader, val_loader=model.val_loader,
+                  device=model.device,
                   num_labels=model.num_labels, seed=12345)
     checkpoint.load_checkpoint(fresh, str(path))
     assert_bit_equal(model, fresh, "bf16 checkpoint round trip")
@@ -2252,8 +2542,8 @@ def run_phase13(workdir: Path):
     model = summary["model"]
     n_train = len(model.dataloader.dataset)
     want = dict(dict.fromkeys((k for k in launches if k not in (
-        "philox_fill", "graph_replays")), 0), **quality.derived_launches(
-        "flagship", schedule, n_train))
+        "philox_fill", "graph_replays", "serving_replays")), 0),
+        **quality.derived_launches("flagship", schedule, n_train))
     want["graph_replays"] = schedule["epochs_img"] + schedule["epochs_joint"]
     check_launches("flagship-full", launches, want)
     check_states(*cut_states("flagship-cut", model))
@@ -2644,6 +2934,8 @@ def main() -> int:
                     ("flagship-cut", flagship), ("bimodal-cut", summary))}
             by_path["resident-drive"] = run_resident_drive(
                 dev, summary["model"])
+            by_path["bimodal-serving-drive"] = run_bimodal_serving(
+                dev, summary["model"])
             del summary
             by_path["serving-drive"], pkl, mean_images = run_serving(
                 dev, flagship["model"], tmp)
@@ -2677,7 +2969,9 @@ def main() -> int:
         return dict(launches=by_path[path][entry], launches_by_path={
             p: counts[entry] for p, counts in by_path.items()},
             graph_replays_by_path={p: counts.get("graph_replays", 0)
-                                   for p, counts in by_path.items()})
+                                   for p, counts in by_path.items()},
+            serving_replays_by_path={p: counts.get("serving_replays", 0)
+                                     for p, counts in by_path.items()})
 
     kernels = [
         dict(name="half_step_sample", route="cuda",
@@ -2752,9 +3046,35 @@ def phase14_main() -> int:
     return 0
 
 
+def serving_main() -> int:
+    """``chip_smoke.py --serving``: the build, both cuts (phase 4) and the
+    serving phases 6, 6b and 7 alone (no result line)."""
+    import torch
+    from multimodal_idbn_tpu_torch import resolve_device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device("cuda")
+        build_kernels()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            _, flagship = run_path("flagship-cut", tmp)
+            _, summary = run_path("bimodal-cut", tmp)
+            run_bimodal_serving(dev, summary["model"])
+            _, pkl, mean_images = run_serving(dev, flagship["model"], tmp)
+            run_generate(pkl, tmp, mean_images)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase-14"]:
         sys.exit(phase14_main())
+    if sys.argv[1:2] == ["--serving"]:
+        sys.exit(serving_main())
     sys.exit(main())

@@ -18,8 +18,25 @@ one process per device.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no such request they raise (``device.resolve_device``).
+The package exports what the JAX package's does (``RBM``, ``iDBN``,
+``iMDBN``, ``iMDBN_BiModal``, ``set_global_seed``, ``__version__``), and
+``resolve_device``.
 """
 
 from multimodal_idbn_tpu_torch.device import resolve_device  # noqa: F401
-from multimodal_idbn_tpu_torch.models.rbm import (  # noqa: F401
-    set_global_seed)
+
+__version__ = "0.1.0"
+
+__all__ = ["RBM", "iDBN", "iMDBN", "iMDBN_BiModal", "set_global_seed",
+           "__version__", "resolve_device"]
+
+_MODEL_EXPORTS = {"RBM", "iDBN", "iMDBN", "iMDBN_BiModal", "set_global_seed"}
+
+
+def __getattr__(name):
+    # Lazy, as in multimodal_idbn_tpu/__init__.py:33-39, so that importing
+    # ``multimodal_idbn_tpu_torch.ops`` does not load the model shells.
+    if name in _MODEL_EXPORTS:
+        import multimodal_idbn_tpu_torch.models as _models
+        return getattr(_models, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -45,6 +45,13 @@ the fused epochs run over ``parallel.make_mesh``'s process group, each
 process on its rows of every batch (``dbn_train.idbn_epoch_block`` with
 the mesh); it takes the default fp32 CD path and bf16 storage, not PCD,
 ``COMPUTE_DTYPE`` or the per-batch loop, as in JAX.
+
+``represent``, ``reconstruct`` and ``decode`` are JAX's jitted
+``dbn_represent``, ``dbn_reconstruct`` and ``dbn_decode``
+(ops/dbn_train.py:388-434): on a CUDA device each call is one replay of
+a graph captured at its first call with that shape (``graphs.serve``,
+which refreshes the graph's copy of the weights whenever they changed);
+on the CPU they run launch by launch.
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM, param_compute_dtype,
                                                   param_dtype, param_sr)
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import dbn_train, graphs, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
@@ -107,6 +114,20 @@ def feature_map(feats: dict) -> dict:
         ("labels", "Labels"), ("density", "Density")) if src in feats}
 
 
+def load_logging_cfg(path: Optional[str]) -> dict:
+    """The logging YAML at ``path`` (default
+    ``configs/logging_config.yaml``), or {} where there is none
+    (JAX models/idbn.py:53-67)."""
+    from pathlib import Path
+    import yaml
+    cfg_path = Path(path) if path else Path("configs/logging_config.yaml")
+    if not cfg_path.exists():
+        return {}
+    with cfg_path.open("r") as f:
+        cfg = yaml.safe_load(f)
+    return cfg if isinstance(cfg, dict) else {}
+
+
 def check_train_args(start_epoch: int, epochs: int, checkpoint_every: int,
                      checkpoint_path) -> None:
     """The validation every resumable train loop shares
@@ -131,22 +152,26 @@ class iDBN:
     """
 
     def __init__(self, layer_sizes: List[int], params: dict, dataloader,
-                 val_loader=None, device: DeviceLike = None,
-                 seed: Optional[int] = None, wandb_run=None):
+                 val_loader=None, device: DeviceLike = None, wandb_run=None,
+                 logging_config_path: Optional[str] = None,
+                 seed: Optional[int] = None):
         self.params = params
         self.dataloader = dataloader
         self.val_loader = val_loader
         self.device = resolve_device(device)
         self.wandb_run = wandb_run
+        self.logging_cfg = load_logging_cfg(logging_config_path)
         self.text_flag = False
         self.arch_str = "-".join(map(str, layer_sizes))
         self.arch_dir = os.path.join("logs-idbn",
                                      f"architecture_{self.arch_str}")
         self.cd_k = int(params.get("CD", 1))
+        self.sparsity_last = bool(params.get("SPARSITY", False))
         self.sparsity_factor = float(params.get("SPARSITY_FACTOR", 0.1))
-        self.val_batch = None
+        self.val_batch = self.val_labels = None
         if val_loader is not None:
-            self.val_batch = next(iter(val_loader), (None,))[0]
+            self.val_batch, self.val_labels = next(iter(val_loader),
+                                                   (None, None))[:2]
         self.features = val_features(val_loader)
         self._init_seed = seed
         # params["DP_DEVICES"] = N | "all": data parallelism, the mesh made
@@ -159,7 +184,6 @@ class iDBN:
         self.use_pcd = bool(params.get("PCD", False))
         self._pcd_chains = None
         self._route_said = False
-        last_sparse = bool(params.get("SPARSITY", False))
         self.layers: List[RBM] = [
             RBM(num_visible=layer_sizes[i], num_hidden=layer_sizes[i + 1],
                 learning_rate=params["LEARNING_RATE"],
@@ -167,7 +191,7 @@ class iDBN:
                 momentum=params["INIT_MOMENTUM"],
                 dynamic_lr=params["LEARNING_RATE_DYNAMIC"],
                 final_momentum=params["FINAL_MOMENTUM"],
-                sparsity=last_sparse and i == len(layer_sizes) - 2,
+                sparsity=self.sparsity_last and i == len(layer_sizes) - 2,
                 sparsity_factor=self.sparsity_factor,
                 seed=None if seed is None else seed + i,
                 device=self.device, dtype=self.dtype, sr=self.sr)
@@ -534,22 +558,27 @@ class iDBN:
 
     # -- inference (JAX models/idbn.py:645-658) -------------------------------
 
+    def _weights(self):
+        return [rbm_ops.weights_only(s) for s in self.states()]
+
     def represent(self, x, upto_layer: Optional[int] = None) -> torch.Tensor:
         """Mean-field encode to a layer."""
         L = (len(self.layers) if upto_layer is None
              else max(0, min(len(self.layers), int(upto_layer))))
-        return dbn_train.dbn_represent(self.states(),
-                                       as_tensor(x, self.device), upto=L)
+        return graphs.serve(self, self.device, dbn_train.dbn_represent,
+                            None, self._weights(), as_tensor(x, self.device),
+                            upto=L)
 
     def reconstruct(self, x) -> torch.Tensor:
         """Encode all the way up, then decode back."""
-        return dbn_train.dbn_reconstruct(self.states(),
-                                         as_tensor(x, self.device))
+        return graphs.serve(self, self.device, dbn_train.dbn_reconstruct,
+                            None, self._weights(),
+                            as_tensor(x, self.device))
 
     def decode(self, top) -> torch.Tensor:
         """Decode top activations to input space."""
-        return dbn_train.dbn_decode(self.states(),
-                                    as_tensor(top, self.device))
+        return graphs.serve(self, self.device, dbn_train.dbn_decode, None,
+                            self._weights(), as_tensor(top, self.device))
 
     # -- persistence (JAX models/idbn.py:660-674) -----------------------------
 
@@ -568,8 +597,10 @@ class iDBN:
         d["val_loader"] = None
         d["device"] = "cpu"
         d["mesh"] = None  # a process group lives with its job, not a file
-        if d.get("val_batch") is not None:
-            d["val_batch"] = np.asarray(d["val_batch"])
+        d.pop("_serving", None)  # graphs live with their process
+        for k in ("val_batch", "val_labels"):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k])
         if d.get("_pcd_chains") is not None:  # fp32, as the layers unpickle
             d["_pcd_chains"] = [c.detach().float().cpu().numpy()
                                 for c in d["_pcd_chains"]]
@@ -582,8 +613,11 @@ class iDBN:
                      ("compute_dtype", None), ("sr", None),
                      ("use_pcd", False), ("_pcd_chains", None),
                      ("_route_said", False), ("mesh", None),
-                     ("_dp_devices", None)):
+                     ("_dp_devices", None), ("val_labels", None),
+                     ("logging_cfg", {})):
             d.setdefault(k, v)
+        d.setdefault("sparsity_last",
+                     bool((d.get("params") or {}).get("SPARSITY", False)))
         d.setdefault("arch_dir", os.path.join(
             "logs-idbn", f"architecture_{d.get('arch_str', 'loaded')}"))
         self.__dict__.update(d)

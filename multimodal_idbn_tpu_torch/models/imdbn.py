@@ -34,6 +34,14 @@ image iDBN's epochs likewise (``iDBN``). It runs launch by launch where
 the configuration asks for it: the per-batch loop (``fused=False``, or a
 loader without ``materialize()``), which is the reference's altitude; a
 mesh, whose collectives are not captured; and the CPU.
+
+How a serving call runs: the calls JAX jits, ``imdbn_ops.cross_reconstruct``
+(``_cross_reconstruct``, ``img2txt``, ``txt2img``) and
+``imdbn_ops.sample_txt2img``, are each one graph replay on a CUDA device
+after their first call at a shape (``graphs.serve``: the model's cache,
+refreshed whenever the weights changed); the image encode of ``img2txt``
+and ``represent`` is the iDBN's, likewise. On the CPU they run launch by
+launch.
 """
 
 from __future__ import annotations
@@ -52,11 +60,13 @@ from multimodal_idbn_tpu_torch.checkpoint import (align_loader_for_resume,
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
-                                                   feature_map, val_features)
+                                                   feature_map,
+                                                   load_logging_cfg,
+                                                   val_features)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM,
                                                   _warn_compute_dtype_joint,
                                                   param_dtype, param_sr)
-from multimodal_idbn_tpu_torch.ops import imdbn_ops, rng
+from multimodal_idbn_tpu_torch.ops import graphs, imdbn_ops, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
@@ -118,20 +128,6 @@ def finetune_last_layer(dbn: iDBN, loader, epochs: int, lr_scale: float,
         last.lr = old_lr
 
 
-def load_logging_cfg(path: Optional[str]) -> dict:
-    """The logging YAML at ``path`` (default
-    ``configs/logging_config.yaml``), or {} where there is none
-    (JAX models/idbn.py:53-67)."""
-    from pathlib import Path
-    import yaml
-    cfg_path = Path(path) if path else Path("configs/logging_config.yaml")
-    if not cfg_path.exists():
-        return {}
-    with cfg_path.open("r") as f:
-        cfg = yaml.safe_load(f)
-    return cfg if isinstance(cfg, dict) else {}
-
-
 class iMDBN:
     """Image iDBN + joint RBM whose visible layer is [z_img ⊕ y], the
     label block a softmax group (JAX models/imdbn.py:34-187).
@@ -144,14 +140,33 @@ class iMDBN:
     phases log per epoch. ``logging_cfg`` is the YAML's ``logging:`` tree
     (which extras run, and how often); without it the file at
     ``logging_config_path`` is read (JAX models/imdbn.py:76-92).
+
+    The parameters are JAX's, in its order (models/imdbn.py:49-56): the
+    short form ``iMDBN(image_layers, joint_hidden, ...)`` and the
+    reference's long form ``iMDBN(image_layers, text_layers,
+    joint_layer_size=joint_hidden, ...)``, whose text layers, like
+    ``text_posenc_dim`` and ``embedding_dim``, are accepted and unused.
     """
 
-    def __init__(self, layer_sizes_img: List[int], joint_layer_size: int,
-                 params: dict, dataloader, val_loader=None,
-                 device: DeviceLike = None, num_labels: int = 32,
-                 seed: Optional[int] = None, wandb_run=None,
+    def __init__(self, layer_sizes_img: List[int],
+                 layer_sizes_txt_or_joint=None,
+                 joint_layer_size: Optional[int] = None,
+                 params: Optional[dict] = None, dataloader=None,
+                 val_loader=None, device: DeviceLike = None,
+                 text_posenc_dim: int = 0, num_labels: int = 32,
+                 embedding_dim: int = 64, wandb_run=None,
                  logging_config_path: Optional[str] = None,
-                 logging_cfg: Optional[dict] = None):
+                 logging_cfg: Optional[dict] = None,
+                 seed: Optional[int] = None):
+        # the two constructor forms (JAX models/imdbn.py:57-65)
+        if isinstance(layer_sizes_txt_or_joint, (list, tuple)):
+            if joint_layer_size is None:
+                raise ValueError("joint_layer_size required with legacy "
+                                 "constructor signature")
+        elif joint_layer_size is None:
+            joint_layer_size = int(layer_sizes_txt_or_joint)
+        del text_posenc_dim, embedding_dim
+        params = params or {}
         self.params = params
         self.dataloader = dataloader
         self.val_loader = val_loader
@@ -168,18 +183,25 @@ class iMDBN:
         self.validation_images = self.validation_labels = None
         first = next(iter(val_loader), None) if val_loader is not None \
             else None
+        self.val_batch = None if first is None else tuple(first[:2])
         if first is not None:
             n = min(8, len(first[0]))
             self.validation_images = np.asarray(
                 first[0], np.float32)[:n].reshape(n, -1)
             self.validation_labels = np.asarray(first[1], np.float32)[:n]
         self.image_idbn = iDBN(layer_sizes_img, params, dataloader,
-                               val_loader, device=self.device, seed=seed,
-                               wandb_run=wandb_run)
+                               val_loader, device=self.device,
+                               wandb_run=wandb_run,
+                               logging_config_path=logging_config_path,
+                               seed=seed)
         self._build_joint(int(self.image_idbn.layers[-1].num_hidden),
                           int(joint_layer_size))
         self.joint_cd = int(params.get("JOINT_CD", params.get("CD", 1)))
         self.cross_steps = int(params.get("CROSS_GIBBS_STEPS", 50))
+        # Parsed and unread by training, as in JAX (models/imdbn.py:121-124;
+        # ``train_joint`` reads JOINT_AUX_COND_STEPS with a default of 10).
+        self.aux_every_k = int(params.get("JOINT_AUX_EVERY_K", 0))
+        self.aux_cond_steps = int(params.get("JOINT_AUX_COND_STEPS", 50))
         self.reference_best_of_k_bug = True
         self.z_class_mean: Optional[torch.Tensor] = None
         self.features = val_features(val_loader)
@@ -326,10 +348,13 @@ class iMDBN:
         """IMG→TXT + TXT→IMG round trip; returns (decoded images,
         p(y|img)), the half ``direction`` skips being None
         (JAX models/imdbn.py:342-366)."""
-        return imdbn_ops.cross_reconstruct(
-            self.joint_rbm.state, self.image_idbn.states(),
-            self.joint_rbm._next_key(), as_tensor(z_img, self.device),
-            as_tensor(y_onehot, self.device),
+        return graphs.serve(
+            self, self.device, imdbn_ops.cross_reconstruct,
+            self.joint_rbm._next_key(),
+            rbm_ops.weights_only(self.joint_rbm.state),
+            self.image_idbn._weights(),
+            z_img=as_tensor(z_img, self.device),
+            y_onehot=as_tensor(y_onehot, self.device),
             steps=int(self.cross_steps if steps is None else steps),
             Dz=self.Dz_img, groups=self._joint_groups(),
             z_class_mean=self.z_class_mean, z_affine=self._z_affine(),
@@ -382,9 +407,11 @@ class iMDBN:
         steps = int(self.cross_steps if gibbs_steps is None else gibbs_steps)
         key = rng.fold_in(seed, 0) if seed is not None \
             else self.joint_rbm._next_key()
-        return imdbn_ops.sample_txt2img(
-            self.joint_rbm.state, self.image_idbn.states(), key, y,
-            steps=steps, Dz=self.Dz_img, groups=self._joint_groups(),
+        return graphs.serve(
+            self, self.device, imdbn_ops.sample_txt2img, key,
+            rbm_ops.weights_only(self.joint_rbm.state),
+            self.image_idbn._weights(), y_onehot=y, steps=steps,
+            Dz=self.Dz_img, groups=self._joint_groups(),
             z_affine=self._z_affine())[0]
 
     def represent(self, batch) -> torch.Tensor:
@@ -807,7 +834,7 @@ class iMDBN:
         m.val_loader = val_loader
         m.wandb_run = wandb_run
         m.logging_cfg = {}
-        m.validation_images = m.validation_labels = None
+        m.validation_images = m.validation_labels = m.val_batch = None
         m._seed = m.params.get("SEED")
         m.mesh = None
         m._dp_devices = m.params.get("DP_DEVICES")
@@ -825,6 +852,8 @@ class iMDBN:
         m.features = payload.get("features")
         m.joint_cd = int(m.params.get("JOINT_CD", m.params.get("CD", 1)))
         m.cross_steps = int(m.params.get("CROSS_GIBBS_STEPS", 50))
+        m.aux_every_k = int(m.params.get("JOINT_AUX_EVERY_K", 0))
+        m.aux_cond_steps = int(m.params.get("JOINT_AUX_COND_STEPS", 50))
         m.reference_best_of_k_bug = bool(
             payload.get("reference_best_of_k_bug", True))
         m.joint_metrics_history = []
@@ -846,6 +875,9 @@ class iMDBN:
         d["val_loader"] = None
         d["device"] = "cpu"
         d["mesh"] = None  # a process group lives with its job, not a file
+        d.pop("_serving", None)  # graphs live with their process
+        d["val_batch"] = None if self.val_batch is None else tuple(
+            np.asarray(x) for x in self.val_batch)
         d["z_class_mean"] = (None if self.z_class_mean is None else
                              self.z_class_mean.detach().cpu().numpy())
         return d
@@ -853,9 +885,13 @@ class iMDBN:
     def __setstate__(self, d):
         # pickles written before the diagnostics hooks lack their fields
         for k in ("wandb_run", "validation_images", "validation_labels",
-                  "features", "mesh", "_dp_devices"):
+                  "features", "mesh", "_dp_devices", "val_batch"):
             d.setdefault(k, None)
         d.setdefault("logging_cfg", {})
+        params = d.get("params") or {}
+        d.setdefault("aux_every_k", int(params.get("JOINT_AUX_EVERY_K", 0)))
+        d.setdefault("aux_cond_steps",
+                     int(params.get("JOINT_AUX_COND_STEPS", 50)))
         self.__dict__.update(d)
         self.device = torch.device("cpu")
         if d.get("z_class_mean") is not None:

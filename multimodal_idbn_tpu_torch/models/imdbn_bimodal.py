@@ -27,6 +27,15 @@ are frozen there. The diagnostics are ported too: the module functions
 chain and the latent trajectories 2-D / 3-D) and the per-epoch logging to
 a run object (``_log_joint_epoch``, ``_log_snapshots``, :863-1011); they
 draw from joint layer 0's own stream, never from the training keys.
+
+How a serving call runs: the calls JAX jits,
+``bimodal_ops.bimodal_cross_reconstruct`` (``_cross_reconstruct``,
+``mod1_to_mod2``, ``mod2_to_mod1``), ``bimodal_ops.sample_cross``
+(``sample_mod1_to_mod2``, ``sample_mod2_to_mod1``) and the joint encode
+of ``represent``, are each one graph replay on a CUDA device after their
+first call at a shape (``graphs.serve``: the model's cache, refreshed
+whenever the weights changed); the modality encodes are the iDBNs',
+likewise. On the CPU they run launch by launch.
 """
 
 from __future__ import annotations
@@ -51,8 +60,8 @@ from multimodal_idbn_tpu_torch.models.imdbn import (finetune_last_layer,
 from multimodal_idbn_tpu_torch.models.rbm import (RBM,
                                                   _warn_compute_dtype_joint,
                                                   param_dtype, param_sr)
-from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, rbm_ops,
-                                           rng)
+from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, graphs,
+                                           rbm_ops, rng)
 from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
                                                     sample_bernoulli)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
@@ -308,9 +317,9 @@ class iMDBN_BiModal:
                  layer_sizes_mod2: List[int],
                  joint_layer_sizes: Union[int, Sequence[int]],
                  params: Optional[dict] = None, dataloader=None,
-                 val_loader=None, device: DeviceLike = None,
-                 seed: Optional[int] = None, wandb_run=None,
-                 logging_cfg: Optional[dict] = None):
+                 val_loader=None, device: DeviceLike = None, wandb_run=None,
+                 logging_cfg: Optional[dict] = None,
+                 seed: Optional[int] = None):
         self.params = params or {}
         # params["DP_DEVICES"]: data parallelism of all three phases
         self.mesh = None
@@ -476,10 +485,13 @@ class iMDBN_BiModal:
                            direction: str = "both"):
         """Cross-reconstruction through joint layer 0; returns
         (mod1_from_mod2, mod2_from_mod1) (JAX :548-560)."""
-        return bimodal_ops.bimodal_cross_reconstruct(
-            self.joint_rbm.state, self.mod1_dbn.states(),
-            self.mod2_dbn.states(), self.joint_rbm._next_key(),
-            as_tensor(z_mod1, self.device), as_tensor(z_mod2, self.device),
+        return graphs.serve(
+            self, self.device, bimodal_ops.bimodal_cross_reconstruct,
+            self.joint_rbm._next_key(),
+            rbm_ops.weights_only(self.joint_rbm.state),
+            self.mod1_dbn._weights(), self.mod2_dbn._weights(),
+            z1=as_tensor(z_mod1, self.device),
+            z2=as_tensor(z_mod2, self.device),
             steps=int(self.cross_steps if steps is None else steps),
             Dz1=self.Dz_mod1, direction=direction)
 
@@ -519,17 +531,19 @@ class iMDBN_BiModal:
         steps = int(self.cross_steps if gibbs_steps is None else gibbs_steps)
         key = rng.fold_in(seed, 0) if seed is not None \
             else self.joint_rbm._next_key()
-        return bimodal_ops.sample_cross(
-            self.joint_rbm.state, self.mod1_dbn.states(),
-            self.mod2_dbn.states(), key, z1, z2, steps=steps,
-            Dz1=self.Dz_mod1, direction=direction)
+        return graphs.serve(
+            self, self.device, bimodal_ops.sample_cross, key,
+            rbm_ops.weights_only(self.joint_rbm.state),
+            self.mod1_dbn._weights(), self.mod2_dbn._weights(), z1=z1,
+            z2=z2, steps=steps, Dz1=self.Dz_mod1, direction=direction)
 
     def represent(self, batch) -> torch.Tensor:
         """Joint representation through all joint layers (JAX :616-625)."""
         z1, z2 = self._latents(*batch)
-        return dbn_train.dbn_represent(self._joint_states(),
-                                       torch.cat([z1, z2], dim=1),
-                                       upto=self.num_joint_layers)
+        return graphs.serve(
+            self, self.device, dbn_train.dbn_represent, None,
+            [rbm_ops.weights_only(s) for s in self._joint_states()],
+            torch.cat([z1, z2], dim=1), upto=self.num_joint_layers)
 
     # -- joint training (JAX :653-828) --------------------------------------
 
@@ -832,6 +846,7 @@ class iMDBN_BiModal:
         d["val_loader"] = None
         d["device"] = "cpu"
         d["mesh"] = None  # a process group lives with its job, not a file
+        d.pop("_serving", None)  # graphs live with their process
         return d
 
     def __setstate__(self, d):

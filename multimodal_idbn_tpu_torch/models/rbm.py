@@ -140,9 +140,9 @@ class RBM:
                  dynamic_lr: bool = False, final_momentum: float = 0.97,
                  sparsity: bool = False, sparsity_factor: float = 0.05,
                  softmax_groups: Optional[List[Tuple[int, int]]] = None,
-                 seed: Optional[int] = None, device: DeviceLike = None,
+                 seed: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None,
-                 sr: Optional[bool] = None):
+                 sr: Optional[bool] = None, device: DeviceLike = None):
         self.num_visible = int(num_visible)
         self.num_hidden = int(num_hidden)
         self.lr = float(learning_rate)

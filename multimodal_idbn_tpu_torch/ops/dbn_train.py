@@ -22,7 +22,8 @@ whole on every process, as JAX's models run it (models/idbn.py:265-269).
 
 The route of a layer update is the caller's ``fast_sampler`` flag, which
 the model sets from its config before any launch (JAX
-models/idbn.py:164-180): ``True`` (fp32 storage, no mixed precision) runs
+models/idbn.py:164-180), False by default as in JAX (dbn_train.py:71,
+:151): ``True`` (fp32 storage, no mixed precision) runs
 ``fast_cd`` (the fused half-step kernel on the card), ``False`` runs
 ``rbm_ops.cd_update`` / ``pcd_update`` in plain torch, the route of bf16
 storage and of ``compute_dtype``. ``sr`` is the stochastic-rounding
@@ -63,11 +64,11 @@ def _layer_pcd(st, chain, key, v, *, fast_sampler: bool, compute_dtype,
 
 
 def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
-                    batch: torch.Tensor, *, lr, mom, weight_decay,
-                    sparsity_factor, cd: int,
+                    batch: torch.Tensor, lr, mom, weight_decay,
+                    sparsity_factor, *, cd: int,
                     sparsity_flags: Sequence[bool],
                     compute_dtype: Optional[torch.dtype] = None,
-                    sr: Optional[bool] = None, fast_sampler: bool = True
+                    sr: Optional[bool] = None, fast_sampler: bool = False
                     ) -> Tuple[States, torch.Tensor]:
     """All-layers CD update on one batch (dbn_train.py:366-385); returns
     (states, losses[L])."""
@@ -86,10 +87,10 @@ def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
 
 
 def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
-               data: torch.Tensor, *, lr, mom, weight_decay, sparsity_factor,
+               data: torch.Tensor, lr, mom, weight_decay, sparsity_factor, *,
                cd: int, sparsity_flags: Sequence[bool], batch_size: int,
                compute_dtype: Optional[torch.dtype] = None,
-               sr: Optional[bool] = None, fast_sampler: bool = True,
+               sr: Optional[bool] = None, fast_sampler: bool = False,
                shuffle: bool = False, mesh=None
                ) -> Tuple[States, torch.Tensor]:
     """One iDBN epoch over the ``n // batch_size`` full batches of ``data``
@@ -181,7 +182,7 @@ def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
                      sparsity_flags: Sequence[bool], batch_size: int,
                      n_epochs: Optional[int] = None,
                      compute_dtype: Optional[torch.dtype] = None,
-                     sr: Optional[bool] = None, fast_sampler: bool = True,
+                     sr: Optional[bool] = None, fast_sampler: bool = False,
                      mesh=None, runner: Optional[graphs.EpochRunner] = None):
     """The epochs ``epoch_idx`` of the image iDBN, with learning rates
     ``lr_arr`` and momenta ``mom_arr``: epoch e is ``idbn_epoch_body``
@@ -244,8 +245,9 @@ def idbn_epoch_block_pcd(states: Sequence[rbm_ops.RBMState],
 
 def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
                    chains: Sequence[torch.Tensor], key: int,
-                   data: torch.Tensor, *, lr, mom, weight_decay,
-                   sparsity_factor, cd: int, sparsity_flags: Sequence[bool],
+                   data: torch.Tensor, lr, mom, weight_decay,
+                   sparsity_factor, *, cd: int,
+                   sparsity_flags: Sequence[bool],
                    batch_size: int,
                    compute_dtype: Optional[torch.dtype] = None,
                    sr: Optional[bool] = None, fast_sampler: bool = True,

@@ -39,22 +39,54 @@ copies it and the schedule values to the device, outside the body. Then:
   are cloned after each replay. A capture that fails raises: nothing falls
   back to launch by launch.
 
+Serving calls. The JAX package jits each serving call as one dispatch
+(ops/imdbn_ops.py:462-507, ops/bimodal_ops.py:319-361,
+ops/dbn_train.py:388-434). ``ServingGraphs`` is the port's counterpart:
+one cache per model, which captures a call at its first use at a given
+signature (the function, the structure, shapes, dtypes and devices of its
+tensor arguments, and its other arguments, among them the ones JAX names
+in ``static_argnames``) and replays it at every later call with that
+signature, as ``jax.jit`` retraces per shape. The warm-up, the capture,
+the key table (filled per call with ``rng.key_values`` of the call's key)
+and the launch accounting are the runner's above.
+
+A graph reads static buffers, never the caller's tensors. Before each
+replay every tensor argument is held against the buffer it feeds: a
+buffer is refreshed (``copy_``) unless the tensor it last copied is the
+same object at the same ``_version``. So a new input is copied at every
+call, and the model's weights only after they changed: a launch-by-launch
+update, a ``load_model`` / ``from_payload``, a checkpoint restore or any
+state assignment gives new tensors; an in-place update moves the version
+counter, and so does an ``EpochRunner`` replay, which writes its state
+buffers (the model's weights after a graphed epoch) behind torch's back.
+Any other writer outside torch's view (``.data``, a raw pointer) must do
+the same (``torch.autograd.graph.increment_version``).
+A dtype or shape change is another signature, so another graph. The
+graphs of one cache share the buffers of the tensors they were captured
+on (a model's weights are held once, not once per graph), and a call
+whose arguments would feed one buffer two different tensors raises.
+Outputs are cloned after each replay, so two calls never share memory.
+
 Launch counts stay counts of launches that ran on the device:
 ``CudaLibrary.launch`` counts host calls, so the launches of a capture
 (which runs nothing) are taken back off the counts and added again at
 every replay, and the warm-up's are moved to ``STATS["warmup_launches"]``
 (work done once per capture, as a compile). ``STATS`` also holds the
-replays of each runner, and each capture's seconds and graph memory.
+replays of each runner and serving call, and each capture's seconds and
+graph memory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import weakref
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd.graph import increment_version
 
 from multimodal_idbn_tpu_torch.ops import _cuda, rng
 
@@ -277,8 +309,192 @@ class EpochRunner:
         else:
             self._load(state, key, perm, hyper)
         self._graph.replay()
+        # the replay wrote the state buffers behind torch's back: move
+        # their version counters, as an in-place update would, so that a
+        # serving graph holding a copy of them refreshes it
+        for buf in self._bufs:
+            increment_version(buf)
         add_launches(self.launches_per_replay)
         self.replays += 1
         STATS["replays"][self.name] += 1
         return (unflatten(self._spec, self._bufs),
                 map_tree(torch.clone, self._outs))
+
+
+# ---------------------------------------------------------------------------
+# Serving calls
+# ---------------------------------------------------------------------------
+
+def _signature(fn, leaves, spec) -> tuple:
+    return (fn, spec, tuple((tuple(t.shape), t.dtype, t.device)
+                            for t in leaves))
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """The version counter of ``t``; None for an inference tensor, which
+    has none (it is copied at every call)."""
+    return None if t.is_inference() else t._version
+
+
+class _Buffers:
+    """Static buffers shared by the graphs of one cache, each with the
+    tensor (a weak reference) and version it last copied."""
+
+    def __init__(self):
+        self.bufs: List[torch.Tensor] = []
+        self.src: List[Tuple[Any, Optional[int]]] = []
+
+    def _same(self, i: int, t: torch.Tensor) -> bool:
+        ref, version = self.src[i]
+        return ref() is t and version is not None and \
+            _version(t) == version
+
+    def slot(self, t: torch.Tensor) -> int:
+        """The buffer of ``t``: one already holding ``t`` as it is, or a
+        new copy of it."""
+        for i in range(len(self.bufs)):
+            if self._same(i, t):
+                return i
+        self.bufs.append(t.clone())
+        self.src.append((weakref.ref(t), _version(t)))
+        return len(self.bufs) - 1
+
+    def load(self, slots: List[int], leaves: List[torch.Tensor]) -> None:
+        """Copy into each slot the tensor that now feeds it, unless it
+        holds it already."""
+        fed: Dict[int, torch.Tensor] = {}
+        for i, t in zip(slots, leaves):
+            if fed.setdefault(i, t) is not t:
+                raise ValueError("two different tensors feed one buffer of "
+                                 "a serving graph")
+            if not self._same(i, t):
+                self.bufs[i].copy_(t, non_blocking=True)
+                self.src[i] = (weakref.ref(t), _version(t))
+
+
+class _CallGraph:
+    """One serving call at one signature: its buffer slots, key table,
+    graph and outputs."""
+
+    def __init__(self, name: str, slots: List[int], spec):
+        self.name = name
+        self.slots = slots
+        self.spec = spec
+        self.replays = 0
+
+
+class ServingGraphs:
+    """The serving calls of one model on one CUDA device, each captured
+    at its first call with a signature and replayed at every later one
+    (module docstring). ``call(fn, key, *args, **kwargs)`` returns what
+    ``fn(*args, key=key, **kwargs)`` returns (no ``key`` given when it is
+    None), bit for bit as launch by launch."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a CUDA device; on the CPU "
+                             "a serving call runs launch by launch")
+        self.graphs: Dict[tuple, _CallGraph] = {}
+        self.buffers = _Buffers()
+
+    def _run(self, g: _CallGraph, fn, table: Optional[rng.KeyTable]):
+        args, kwargs = unflatten(g.spec, [self.buffers.bufs[i]
+                                          for i in g.slots])
+        if table is None:
+            return fn(*args, **kwargs)
+        with rng.key_table(table):
+            return fn(*args, key=rng.Key(), **kwargs)
+
+    def _capture(self, name: str, fn, key: Optional[int], leaves, spec
+                 ) -> _CallGraph:
+        dev = self.device
+        g = _CallGraph(name, [self.buffers.slot(t) for t in leaves], spec)
+        self.buffers.load(g.slots, leaves)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = launch_counts()
+        warm = None if key is None else rng.KeyTable(root=key)
+        with torch.cuda.stream(side):
+            self._run(g, fn, warm)                 # the warm-up
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm_launches = launches_since(before)
+        add_launches(warm_launches, -1)
+        STATS["warmup_launches"].update(
+            {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
+        g.paths = [] if warm is None else warm.paths
+        g.keys = torch.empty(len(g.paths), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()      # what stays reserved is the graph's
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        table = None if key is None else rng.KeyTable(g.keys, g.paths)
+        with torch.cuda.graph(graph, stream=side):
+            g.outs = self._run(g, fn, table)
+        g.launches_per_replay = launches_since(before)
+        add_launches(g.launches_per_replay, -1)
+        g.graph = graph
+        STATS["captures"].append(dict(
+            name=name, seconds=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            shapes=[tuple(t.shape) for t in leaves],
+            launches={f"{s}:{e}": n for (s, e), n
+                      in g.launches_per_replay.items()}))
+        return g
+
+    def call(self, fn, key: Optional[int], *args, **kwargs):
+        leaves, spec = flatten((args, kwargs))
+        sig = _signature(fn, leaves, spec)
+        name = f"serve:{fn.__name__}"
+        g = self.graphs.get(sig)
+        if g is None:
+            g = self.graphs[sig] = self._capture(name, fn, key, leaves, spec)
+        else:
+            self.buffers.load(g.slots, leaves)
+        if g.paths:
+            g.keys.copy_(torch.tensor(rng.key_values(key, g.paths),
+                                      dtype=torch.int64), non_blocking=True)
+        g.graph.replay()
+        add_launches(g.launches_per_replay)
+        g.replays += 1
+        STATS["replays"][name] += 1
+        return map_tree(torch.clone, g.outs)
+
+
+class _Eager:
+    on = False
+
+
+_EAGER = _Eager()
+
+
+@contextlib.contextmanager
+def launch_by_launch():
+    """Run the serving calls inside the block launch by launch on the
+    card too: the reference a replay is held against (``chip_smoke.py``,
+    tests/test_torch_cuda.py). Nothing switches to it on its own: a
+    capture or replay that fails raises."""
+    prev = _EAGER.on
+    _EAGER.on = True
+    try:
+        yield
+    finally:
+        _EAGER.on = prev
+
+
+def serve(owner, device, fn, key: Optional[int], *args, **kwargs):
+    """``fn(*args, key=key, **kwargs)`` (no ``key`` when None) for a
+    model ``owner`` on ``device``: launch by launch on the CPU (and inside
+    ``launch_by_launch``), through the owner's ``ServingGraphs`` (made at
+    first use, kept as ``owner._serving``) on a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda" or _EAGER.on:
+        if key is None:
+            return fn(*args, **kwargs)
+        return fn(*args, key=key, **kwargs)
+    cache = owner.__dict__.get("_serving")
+    if cache is None or cache.device != device:
+        cache = owner._serving = ServingGraphs(device)
+    return cache.call(fn, key, *args, **kwargs)

@@ -226,8 +226,25 @@ def _joint_train_batch(joint: rbm_ops.RBMState,
     return joint, cd_loss, metrics
 
 
-# JAX jits _joint_train_batch under this name (imdbn_ops.py:473).
-joint_train_batch_step = _joint_train_batch
+def joint_train_batch_step(joint: rbm_ops.RBMState,
+                           idbn_states: Sequence[rbm_ops.RBMState], key: int,
+                           zb: torch.Tensor, yb: torch.Tensor,
+                           imgb: torch.Tensor, b_idx: int, lr, mom,
+                           weight_decay, z_class_mean, *, warmup: bool,
+                           joint_cd: int, aux_cond_steps: int, Dz: int,
+                           steps: int, groups: SoftmaxGroups,
+                           use_free_energy: bool = False,
+                           zclamp_every: int = 50,
+                           compute_metrics: bool = True,
+                           sr: Optional[bool] = None):
+    """``_joint_train_batch`` with JAX's defaults: the single-batch jitted
+    variant (imdbn_ops.py:440-459)."""
+    return _joint_train_batch(
+        joint, idbn_states, key, zb, yb, imgb, b_idx, lr, mom, weight_decay,
+        z_class_mean, warmup=warmup, joint_cd=joint_cd,
+        aux_cond_steps=aux_cond_steps, Dz=Dz, steps=steps, groups=groups,
+        use_free_energy=use_free_energy, zclamp_every=zclamp_every,
+        compute_metrics=compute_metrics, sr=sr)
 
 
 def joint_epoch(joint: rbm_ops.RBMState,

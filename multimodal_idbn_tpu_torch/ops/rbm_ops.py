@@ -70,8 +70,14 @@ class RBMState:
         return dataclasses.replace(self, **changes)
 
 
+def weights_only(state: RBMState) -> RBMState:
+    """``state`` without its momentum buffers (None): what the inference
+    calls read, so that a serving graph holds no copy of the momentum."""
+    return RBMState(state.w, state.hb, state.vb, None, None, None)
+
+
 def init_rbm_state(key: int, num_visible: int, num_hidden: int,
-                   device=None, dtype: torch.dtype = torch.float32
+                   dtype: torch.dtype = torch.float32, device=None
                    ) -> RBMState:
     """W ~ N(0,1)/sqrt(max(1,V)); biases and momentum zero, every field
     stored in ``dtype`` (rbm_ops.py:47-56). W is drawn in fp32 on the CPU

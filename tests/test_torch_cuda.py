@@ -16,6 +16,8 @@ Tolerances: 1e-5 on probabilities and chains (fp32, other summation
 order); a Bernoulli sample may differ only where |p - u| <= 1e-5.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -343,8 +345,9 @@ def _small_imdbn(device, seed=0, **kw):
               "JOINT_AUX_COND_STEPS": 2, "SEED": 0}
     train, val, _ = create_dataloaders_uniform(
         batch_size=16, n_samples=64, num_classes=4, side=16, seed=0)
-    return iMDBN([256, 64, 32], 24, params, train, val, device=device,
-                 num_labels=4, seed=seed, **kw)
+    return iMDBN([256, 64, 32], 24, params=params, dataloader=train,
+                 val_loader=val, device=device, num_labels=4, seed=seed,
+                 **kw)
 
 
 def _states(model):
@@ -700,7 +703,7 @@ def test_image_epochs_replayed_equal_launch_by_launch(dev, pcd):
     chains = [(torch.rand((32, v), generator=g) < 0.5).float().to(dev)
               for v in (300, 64)]
     kw = dict(weight_decay=1e-4, sparsity_factor=0.05, cd=2,
-              sparsity_flags=(False, True), batch_size=32)
+              sparsity_flags=(False, True), batch_size=32, fast_sampler=True)
     args = ([0, 1, 6], [0.1, 0.09, 0.08], [0.5, 0.5, 0.9])
     if pcd:
         runner = dbn_train.idbn_epoch_runner(data, pcd=True, graphed=True,
@@ -715,3 +718,168 @@ def test_image_epochs_replayed_equal_launch_by_launch(dev, pcd):
         replayed = dbn_train.idbn_epoch_block(states, 5, data, *args,
                                               runner=runner, **kw)
     assert runner.replays == 3 and _tree_equal(replayed, eager)
+
+
+# -- serving calls as graph replays --------------------------------------------
+
+def _small_bimodal(device):
+    from multimodal_idbn_tpu_torch.data import create_dataloaders_uniform
+    from multimodal_idbn_tpu_torch.models import iMDBN_BiModal
+    params = {"LEARNING_RATE": 0.1, "WEIGHT_PENALTY": 1e-4,
+              "INIT_MOMENTUM": 0.5, "FINAL_MOMENTUM": 0.9,
+              "LEARNING_RATE_DYNAMIC": True, "CD": 1, "JOINT_CD": 1,
+              "CROSS_GIBBS_STEPS": 4, "JOINT_AUX_COND_STEPS": 2, "SEED": 0}
+    train, val, _ = create_dataloaders_uniform(
+        batch_size=16, n_samples=64, num_classes=4, side=16, seed=0,
+        second_modality="mnist100")
+    return iMDBN_BiModal([256, 32], [1568, 32], [16], params=params,
+                         dataloader=train, val_loader=val, device=device,
+                         seed=0)
+
+
+def _serving_calls(m, bimodal):
+    """name -> call of every serving method of a small model, at two
+    batch sizes."""
+    import numpy as np
+    if bimodal:
+        v1, v2 = (torch.as_tensor(np.asarray(a[:8]), dtype=torch.float32)
+                  for a in m.dataloader.materialize())
+        z1, z2 = m._latents(v1, v2)
+        calls = {}
+        for b in (8, 3):
+            calls.update({
+                f"mod1_to_mod2 {b}": lambda m, b=b: m.mod1_to_mod2(v1[:b]),
+                f"mod2_to_mod1 {b}": lambda m, b=b: m.mod2_to_mod1(v2[:b]),
+                f"cross {b}": lambda m, b=b: m._cross_reconstruct(z1[:b],
+                                                                  z2[:b]),
+                f"sample 1to2 {b}": lambda m, b=b: m.sample_mod1_to_mod2(
+                    v1[:b], seed=5),
+                f"sample 2to1 {b}": lambda m, b=b: m.sample_mod2_to_mod1(
+                    v2[:b]),
+                f"represent {b}": lambda m, b=b: m.represent((v1[:b],
+                                                              v2[:b])),
+            })
+        return calls
+    img, y = next(iter(m.val_loader))
+    img, y = np.asarray(img), np.asarray(y)
+    calls = {}
+    for b in (8, 1):
+        calls.update({
+            f"txt2img {b}": lambda m, b=b: m.txt2img(np.arange(b) % 4),
+            f"img2txt {b}": lambda m, b=b: m.img2txt(img[:b]),
+            f"sample_txt2img {b}": lambda m, b=b: m.sample_txt2img(
+                np.arange(b) % 4, seed=3),
+            f"sample_txt2img unseeded {b}": lambda m, b=b: m.sample_txt2img(
+                np.arange(b) % 4),
+            f"represent {b}": lambda m, b=b: m.represent((img[:b], y[:b])),
+            f"reconstruct {b}": lambda m, b=b: m.image_idbn.reconstruct(
+                img[:b]),
+            f"decode {b}": lambda m, b=b: m.image_idbn.decode(
+                m.image_idbn.represent(img[:b])),
+        })
+    return calls
+
+
+def _three_ways(m, call):
+    """``call(m)`` launch by launch, then through the graph cache twice,
+    from the same key stream: the three outputs."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    outs = []
+    for eager in (True, False, False):
+        m.joint_rbm.reseed(11)
+        with (graphs.launch_by_launch() if eager else
+              contextlib.nullcontext()):
+            outs.append(call(m))
+    torch.cuda.synchronize()
+    return outs
+
+
+def _tree_equal(a, b):
+    from multimodal_idbn_tpu_torch.ops import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def _replays_without_sync(monkeypatch):
+    """Every serving call inside the block (its buffers' refresh, key
+    table, replay and clones; the inputs' copies to the card come before)
+    under ``set_sync_debug_mode("error")``."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    real = graphs.ServingGraphs.call
+
+    def checked(self, *a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.ServingGraphs, "call", checked)
+        yield
+
+
+@pytest.mark.parametrize("bimodal", [False, True])
+def test_serving_calls_replayed_equal_launch_by_launch(dev, monkeypatch,
+                                                       bimodal):
+    """Every serving method of both families: the first call through the
+    cache (capture, replay) and a second (replay) bit-equal to launch by
+    launch from the same key; one graph per call and shape; a replay
+    launches what launch by launch launches and reads nothing on the
+    host."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    m = _small_bimodal(dev) if bimodal else _small_imdbn(dev)
+    m.train_joint(2)
+    for name, call in _serving_calls(m, bimodal).items():
+        eager, first, again = _three_ways(m, call)
+        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
+        m.joint_rbm.reseed(11)
+        before = graphs.launch_counts()
+        with _replays_without_sync(monkeypatch):
+            call(m)
+        replayed = graphs.launches_since(before)
+        m.joint_rbm.reseed(11)
+        before = graphs.launch_counts()
+        with graphs.launch_by_launch():
+            call(m)
+        assert replayed == graphs.launches_since(before), name
+    # one graph per call and shape, replayed at every call after its
+    # capture (the first call's, the second's and the checked one)
+    assert m._serving.graphs and all(
+        g.replays >= 3 for g in m._serving.graphs.values())
+
+
+@pytest.mark.parametrize("how", ["train", "from_payload"])
+def test_serving_graphs_follow_new_weights(dev, tmp_path, how):
+    """A graph never serves old weights: after more training the same
+    graphs serve the new weights (bit-equal to launch by launch, the
+    output changed, no new capture); a model rebuilt from a payload
+    serves what the saved model served."""
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    from multimodal_idbn_tpu_torch.ops import graphs
+    m = _small_imdbn(dev)
+    m.image_idbn.train(1)
+    m.train_joint(9)
+    calls = _serving_calls(m, False)
+    before = {name: _three_ways(m, call)[0] for name, call in calls.items()}
+    if how == "train":
+        m.image_idbn.train(2, start_epoch=1)
+        m.train_joint(10, start_epoch=9)
+        target = m
+    else:
+        path = str(tmp_path / "m.pkl")
+        m.save_model(path)
+        target = iMDBN.from_payload(iMDBN.load_model(path, device=dev))
+        assert "_serving" not in target.__dict__
+    graphs.reset_stats()
+    for name, call in calls.items():
+        eager, first, again = _three_ways(target, call)
+        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
+        if how == "train":
+            assert not _tree_equal(eager, before[name]), name
+        else:
+            assert _tree_equal(eager, before[name]), name
+    if how == "train":     # the same graphs, refreshed
+        assert not graphs.STATS["captures"]

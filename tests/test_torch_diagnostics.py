@@ -62,8 +62,8 @@ def twins(tmp_path_factory):
     and class means in the port's, carried into the JAX package's."""
     train, val, _ = create_dataloaders_uniform(
         batch_size=16, n_samples=80, num_classes=K, side=SIDE, seed=0)
-    tm = iMDBN(LAYERS, JOINT, dict(PARAMS), train, val, device="cpu",
-               num_labels=K, seed=0)
+    tm = iMDBN(LAYERS, JOINT, params=dict(PARAMS), dataloader=train,
+               val_loader=val, device="cpu", num_labels=K, seed=0)
     randomize(tm, np.random.RandomState(3), momentum=False)
     tm.z_class_mean = torch.as_tensor(
         np.random.RandomState(4).rand(K, Dz).astype(np.float32))

@@ -65,8 +65,8 @@ def _stack(dtype=torch.float32, seed=1):
 IDBN_KW = dict(weight_decay=1e-4, sparsity_factor=0.05, cd=2,
                sparsity_flags=(False, True), batch_size=BS)
 IDBN_SETTINGS = {
-    "cd": dict(dtype=torch.float32),
-    "pcd": dict(dtype=torch.float32, pcd=True),
+    "cd": dict(dtype=torch.float32, fast_sampler=True),
+    "pcd": dict(dtype=torch.float32, pcd=True, fast_sampler=True),
     "bf16-sr": dict(dtype=torch.bfloat16, fast_sampler=False),
     "bf16-sr-off": dict(dtype=torch.bfloat16, fast_sampler=False, sr=False),
     "mixed": dict(dtype=torch.float32, fast_sampler=False,
@@ -260,7 +260,7 @@ def test_idbn_block_matches_jax(monkeypatch):
         ts, tsums, tcounts = dbn_train.idbn_epoch_block(
             [torch_state(x) for x in f], 0, torch.as_tensor(data), [0, 1],
             lrs, moms, 1e-4, 0.05, cd=2, sparsity_flags=(False, True),
-            batch_size=BS)
+            batch_size=BS, fast_sampler=True)
     for a, b in zip(ts, js):
         for k, v in state_np(b).items():
             close(state_np(a)[k], v, 1e-5)

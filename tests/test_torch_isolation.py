@@ -221,8 +221,8 @@ cfg = {s: {"enable": True} for s in ("energy", "trajectory", "neighbors",
                                       "convergence")}
 cfg["convergence"]["num_steps"] = 4
 cfg["trajectory"]["num_samples"] = 1
-m = iMDBN([144, 16, 8], 6, params, train, val, device="cpu", num_labels=4,
-          seed=0, wandb_run=run, logging_cfg=cfg)
+m = iMDBN([144, 16, 8], 6, params=params, dataloader=train, val_loader=val,
+          device="cpu", num_labels=4, seed=0, wandb_run=run, logging_cfg=cfg)
 m.image_idbn.arch_dir = sys.argv[1]
 m.image_idbn.train(1, log_every_pca=1, log_every_probe=1)
 m.train_joint(1, log_every_pca=1, log_every_probe=1, log_every=1)

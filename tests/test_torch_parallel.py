@@ -394,13 +394,14 @@ def test_dp_epochs_without_group_are_the_epoch_functions():
                                shuffle=True, **kw)
     b = dbn_train.idbn_epoch(states, 4, data, lr=0.1, mom=0.5,
                              weight_decay=1e-4, sparsity_factor=0.05,
-                             shuffle=True, **kw)
+                             shuffle=True, fast_sampler=True, **kw)
     _equal(a, b)
     a = parallel.dp_idbn_epoch_block(mesh, states, 4, data, [0, 1],
                                      [0.1, 0.1], [0.5, 0.5], 1e-4, 0.05,
                                      n_epochs=2, **kw)
     b = dbn_train.idbn_epoch_block(states, 4, data, [0, 1], [0.1, 0.1],
-                                   [0.5, 0.5], 1e-4, 0.05, n_epochs=2, **kw)
+                                   [0.5, 0.5], 1e-4, 0.05, n_epochs=2,
+                                   fast_sampler=True, **kw)
     _equal(a, b)
 
 
@@ -486,7 +487,7 @@ def test_tp_idbn_epoch_matches_one_device(tp_runs):
     want, want_losses = dbn_train.idbn_epoch(
         states, 9, torch.as_tensor(_data(32, V, 2)), lr=0.1, mom=0.5,
         weight_decay=1e-4, sparsity_factor=0.05, cd=2,
-        sparsity_flags=(False, True), batch_size=16)
+        sparsity_flags=(False, True), batch_size=16, fast_sampler=True)
     got, losses = tp_runs[0]["epoch"]
     for g, w in zip(got, want):
         _close_states(g, w)

@@ -47,7 +47,7 @@ def test_idbn_epoch_two_layers(monkeypatch):
             1e-4, 0.1, shuffle=False, **kw)
         tstates, tloss = tdbn.idbn_epoch(
             [torch_state(f1), torch_state(f2)], 0, t(data), lr=0.1, mom=0.5,
-            weight_decay=1e-4, sparsity_factor=0.1, **kw)
+            weight_decay=1e-4, sparsity_factor=0.1, fast_sampler=True, **kw)
     for js, ts in zip(jstates, tstates):
         assert_states_close(ts, js, 1e-4)
     assert tuple(tloss.shape) == (3, 2)

@@ -117,8 +117,9 @@ def small_loaders(bimodal=False, **kw):
 def small_imdbn(seed=0, loaders=None, **params):
     from multimodal_idbn_tpu_torch.models import iMDBN
     train, val, _ = loaders or small_loaders()
-    return iMDBN(IMG_LAYERS, JOINT_HIDDEN, dict(SMALL_PARAMS, **params),
-                 train, val, device="cpu", num_labels=K, seed=seed)
+    return iMDBN(IMG_LAYERS, JOINT_HIDDEN,
+                 params=dict(SMALL_PARAMS, **params), dataloader=train,
+                 val_loader=val, device="cpu", num_labels=K, seed=seed)
 
 
 def small_bimodal(seed=0, loaders=None, **params):
@@ -154,3 +155,156 @@ def assert_models_equal(a, b):
     assert sorted(fa) == sorted(fb) and fa
     for k in fa:
         np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+# -- the logged smoke runs (test_torch_logging_slice*.py) ---------------------
+
+def run_logged(entry, yaml_path, tmp_path, logging, wandb_on=True):
+    """Run ``entry`` on the smoke YAML with ``logging`` laid over its
+    ``logging:`` section and W&B's ``init`` replaced by one that returns a
+    ``RecorderRun``; returns (summary, the recorder run or None)."""
+    import yaml
+    from multimodal_idbn_tpu_torch.utils.wandb_compat import (RecorderRun,
+                                                              wandb)
+    cfg = yaml.safe_load(open(yaml_path))
+    cfg["paths"]["save_dir"] = str(tmp_path)
+    cfg["wandb"] = {"enable": wandb_on}
+    cfg.setdefault("logging", {}).update(logging)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    runs = []
+    wandb.init = lambda **kw: runs.append(RecorderRun(**kw)) or runs[-1]
+    try:
+        summary = entry.main(["--config", str(path), "--device", "cpu"])
+    finally:
+        del wandb.init
+    return summary, (runs[0] if runs else None)
+
+
+def _blocked_optional():
+    """matplotlib and pandas made unimportable, as on the card."""
+    import sys
+
+    import pytest
+    mp = pytest.MonkeyPatch()
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] in ("matplotlib", "pandas")]:
+        mp.delitem(sys.modules, name)
+    mp.setitem(sys.modules, "matplotlib", None)
+    mp.setitem(sys.modules, "pandas", None)
+    return mp
+
+
+def logged_runs(entry, yaml_path, logging, tmp_path_factory, tag):
+    """{"on": (summary, run), "off": (summary, None), "blocked": (summary,
+    run with matplotlib and pandas unimportable)} of one entry point."""
+    out = {}
+    for mode in ("on", "off", "blocked"):
+        d = tmp_path_factory.mktemp(f"{tag}-{mode}")
+        mp = _blocked_optional() if mode == "blocked" else None
+        try:
+            out[mode] = run_logged(entry, yaml_path, d, logging,
+                                   wandb_on=mode != "off")
+        finally:
+            if mp is not None:
+                mp.undo()
+    return out
+
+
+def check_logging_leaves_training_unchanged(runs):
+    on, off = runs["on"][0]["model"], runs["off"][0]["model"]
+    assert runs["off"][1] is None
+    assert_models_equal(on, off)
+    assert on.joint_metrics_history == off.joint_metrics_history
+
+
+def check_without_matplotlib_and_pandas(runs):
+    """Every numeric key logged with the same values, the only warnings
+    ``*_figure_skipped`` and the confusion counts unchanged."""
+    run, blocked = runs["on"][1], runs["blocked"][1]
+    numeric = run.numeric_keys()
+    assert numeric == blocked.numeric_keys()
+    # figures log an epoch too, and timings vary
+    for k in numeric - {k for k in numeric if k.startswith("perf/")} - {
+            "epoch"}:
+        with_mpl, without = run.values(k), blocked.values(k)
+        assert len(with_mpl) == len(without), k
+        for a, b in zip(with_mpl, without):
+            if isinstance(a, dict):
+                assert a == b, k
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+    warns = [k for k in blocked.keys() if k.startswith("warn/")
+             and k != "warn/idbn_blank_recon"]
+    assert warns and all(k.endswith("_figure_skipped") for k in warns)
+    assert all("matplotlib" in blocked.values(k)[0] for k in warns)
+    tables = [k for k in run.keys() if k.endswith("/confusion_table")]
+    assert tables
+    for k in tables:
+        for with_pd, without in zip(run.values(k), blocked.values(k)):
+            assert with_pd.dataframe is not None and without.dataframe is None
+            assert without.columns[0] == "True"
+            np.testing.assert_array_equal(
+                with_pd.dataframe.values, [row[1:] for row in without.data])
+            assert list(with_pd.dataframe.index) == [row[0] for row in
+                                                     without.data]
+
+
+def check_wandb_enable_is_accepted(entry, yaml_path):
+    import yaml
+    cfg = yaml.safe_load(open(yaml_path))
+    cfg["wandb"] = {"enable": True}
+    entry.check_supported(cfg)
+
+
+# -- crash-safe resume (test_torch_resume*.py) -------------------------------
+
+class InjectedCrash(RuntimeError):
+    pass
+
+
+def crash_after(monkeypatch, phase, next_epoch, *modules):
+    """Let ``save_train_checkpoint`` write the checkpoint of (phase,
+    next_epoch) and then raise, as a kill right after the write would."""
+    import multimodal_idbn_tpu_torch.checkpoint as tck
+    real = tck.save_train_checkpoint
+
+    def crashing(model, path, phase_=None, next_epoch_=None,
+                 loss_history=None, **kw):
+        ph = kw.get("phase", phase_)
+        ne = kw.get("next_epoch", next_epoch_)
+        real(model, path, phase=ph, next_epoch=ne, loss_history=loss_history)
+        if ph == phase and int(ne) == next_epoch:
+            raise InjectedCrash(f"{ph}@{ne}")
+
+    for mod in (tck, *modules):
+        monkeypatch.setattr(mod, "save_train_checkpoint", crashing)
+
+
+def resume_config(tmp_path, yaml_name, name, **training):
+    """A copy of a smoke YAML that checkpoints every 2 epochs into its own
+    directory: (its path, that directory)."""
+    import yaml
+    cfg = yaml.safe_load(open(f"configs/{yaml_name}.yaml"))
+    out = tmp_path / name
+    out.mkdir()
+    cfg["paths"]["save_dir"] = str(out)
+    cfg["training"].update(checkpoint_every=2, **training)
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path, out
+
+
+def payload_arrays(path, load):
+    """{part/field: array} of a saved pickle payload, loaded on the CPU."""
+    payload = load(str(path), device="cpu")
+    out = {}
+    for key in ("image_idbn", "joint_rbm", "mod1_dbn", "mod2_dbn"):
+        if key in payload:
+            out.update({f"{key}/{k}": a
+                        for k, a in rbm_arrays(payload[key]).items()})
+    for i, r in enumerate(payload.get("joint_layers", [])):
+        out.update({f"joint{i}/{k}": a for k, a in rbm_arrays(r).items()})
+    if "z_class_mean" in payload:
+        out["z_class_mean"] = np.asarray(payload["z_class_mean"])
+    return out
