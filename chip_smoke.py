@@ -94,11 +94,18 @@ Phases, each fatal on failure:
    ``warn/idbn_blank_recon``, which the model logs as JAX's does); and the
    numeric keys the same set as the same cut's at small widths on the CPU
    (``cuts.TINY``). Then each diagnostic once more on the trained model,
-   alone, with its seconds and chain / half-step launches, and the device
-   busy ms and device operations of one more, profiled call (the probes'
-   at ``PROBE_PROFILE_STEPS`` steps); ``measure_gibbs_steps_per_sec`` at
-   its defaults, and one ``utils.profiling.trace`` around one joint
-   epoch;
+   alone, launch by launch and replayed from the same key streams: the
+   numbers it logs and the output of every call it makes through the
+   graphs (the probe chunks, the energy, panel and trajectory chains, the
+   bias statistics, the encodes) bit-equal both ways, its kernel launches
+   the same, graph replays only replayed (under
+   ``torch.cuda.set_sync_debug_mode("error")``), with its seconds and the
+   device busy ms and device operations of one more, profiled call both
+   ways (the probes' at ``PROBE_PROFILE_STEPS`` steps); every graph of
+   the model's caches, launches per replay as derived
+   (``derived_replay_launches``); ``measure_gibbs_steps_per_sec`` at its
+   defaults replayed and launch by launch, and one
+   ``utils.profiling.trace`` around one joint epoch;
 11. the variants drive (``cuts.VARIANTS``): flagship-cut through its
    entry point under PCD (params), bf16 storage with stochastic rounding
    left to auto and switched off, mixed precision, ``matmul_precision:
@@ -118,9 +125,12 @@ Phases, each fatal on failure:
    part of their operand (``row0``, and ``col0`` for kernel 1) against
    their plain versions and, with the whole operand's plan, bit-equal to
    that part of one launch on the whole; both cuts through loaders that
-   hide ``materialize()`` (launches as derived, two runs bit-equal, the
-   flagship stopped after a joint checkpoint and run again bit-equal, the
-   last image loss within 10% of phase 4's); flagship-cut with
+   hide ``materialize()`` (launches as derived, one graph replay a batch,
+   two runs bit-equal, the second's replays under the sync check of
+   ``replays_checked``, the flagship stopped after a joint checkpoint and
+   run again bit-equal, a run launch by launch bit-equal with the same
+   launches, the last image loss within 10% of phase 4's; one flagship
+   image epoch per batch timed beside a fused one); flagship-cut with
    ``training.dp_devices: 1`` in a one-rank NCCL group, bit-equal to phase
    4; both cuts with ``dp_devices: 2`` in two processes sharing the card
    over gloo (``chip_smoke.py --dp-rank R STORE OUT``, started after the
@@ -147,20 +157,37 @@ Phases, each fatal on failure:
    same launches. Each cut's joint phase is then run again from the
    recorded inputs, replayed and launch by launch, timed on the host clock
    and profiled (busy ms, idle share), beside PERF.md's launch-by-launch
-   figures; each capture's seconds and graph memory are printed.
+   figures; each capture's seconds and graph memory are printed;
+15. the RBM shell's jitted entries (``forward``, ``visible_probs``,
+   ``backward``, ``free_energy``, ``sample_visible``,
+   ``backward_sample``, ``gibbs_step``, the three conditional chains,
+   ``train_epoch`` and ``train_epoch_clamped``) at the joint widths of
+   both families (532x500 with the 32-wide label group, 2500x1500; B =
+   128): each launch by launch, through the shell's graphs and replayed
+   under the sync check, from the same key stream (and state), bit-equal,
+   launches as derived, one replay a call; after one more ``train_epoch``
+   every entry again bit-equal, changed and without a new capture; each
+   timed both ways; then the three per-batch steps JAX jits
+   (``idbn_batch_step``, ``joint_train_batch_step``,
+   ``bimodal_batch_step``) called directly at full width, each one
+   replay bit-equal to launch by launch.
 
 From phase 4 on, every fused epoch of a training path on the card is one
 replay of a CUDA graph (``ops.graphs``), so phases 4, 8 and 10-13 hold
 the graphed paths (and ``graph_replays``, the replays, beside each
-path's launches); the per-batch loops and the data-parallel runs of phase
-12 run launch by launch, and the one-rank NCCL run is held bit-equal to
-phase 4's replays. Every serving call (encode, decode, the cross and
-sampled calls) on the card is one replay of its graph wherever it is
-called (``serving_replays``), training's own encodes included.
+path's launches); the data-parallel runs of phase 12 run launch by
+launch, and the one-rank NCCL run is held bit-equal to phase 4's
+replays. Every other call the JAX package jits is one replay of its
+graph wherever it is called: the serving calls, the diagnostics' chains,
+the bias statistics and the RBM shell's reads (``serving_replays``), and
+the per-batch steps, the probe chunks and the shell's training entries
+(``step_replays``).
 
 ``python3 chip_smoke.py --phase-14`` runs the build and phase 14 alone;
 ``python3 chip_smoke.py --serving`` the build, phase 4 and the serving
-phases 6, 6b and 7.
+phases 6, 6b and 7; ``python3 chip_smoke.py --replays`` the build, phase
+4, the diagnostics alone both ways (phase 10's), the per-batch drive
+(phase 12 (a)) and phase 15.
 
 The last three lines of stdout are the ``kernels`` JSON, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -284,8 +311,11 @@ def reset_launches():
 
 def read_launches():
     """Launches of each kernel entry since the last reset, and the CUDA
-    graph replays: of epochs (one per epoch on a graphed path) and of
-    serving calls (one per call of a jitted function in JAX)."""
+    graph replays: of epochs (one per epoch on a graphed path), of pure
+    calls (``serving_replays``: one per call of a jitted function in JAX:
+    serving, diagnostics, the RBM shell's reads) and of in-place updates
+    (``step_replays``: a per-batch step, a probe chunk, the shell's
+    training entries)."""
     from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
                                                philox_fill)
     out = dict(half_step.KERNEL.launches_by_entry)
@@ -293,9 +323,11 @@ def read_launches():
     out["philox_fill"] = philox_fill.KERNEL.launches
     replays = graphs.STATS["replays"]
     out["graph_replays"] = sum(n for k, n in replays.items()
-                               if not k.startswith("serve:"))
+                               if not k.startswith(("serve:", "step:")))
     out["serving_replays"] = sum(n for k, n in replays.items()
                                  if k.startswith("serve:"))
+    out["step_replays"] = sum(n for k, n in replays.items()
+                              if k.startswith("step:"))
     return out
 
 
@@ -880,30 +912,40 @@ KERNEL_ENTRIES = ("half_step_sample", "half_step_probs",
 
 @contextlib.contextmanager
 def replays_checked():
-    """Inside the block every replay of a serving graph (a call whose
-    signature was captured before: the buffers' refresh, the key table's
-    copy, the replay and the outputs' clones) runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
-    raises."""
+    """Inside the block every replay of a graph of a model's cache (a
+    pure call or an in-place update whose signature was captured before:
+    the buffers' refresh, the key table's copy, the replay and the
+    outputs' clones) runs under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host synchronisation raises."""
     import torch
     from multimodal_idbn_tpu_torch.ops import graphs
-    real = graphs.ServingGraphs.call
+    real_call, real_update = (graphs.ServingGraphs.call,
+                              graphs.ServingGraphs.update)
 
-    def checked(self, fn, key, *args, **kwargs):
-        leaves, spec = graphs.flatten((args, kwargs))
-        if graphs._signature(fn, leaves, spec) not in self.graphs:
-            return real(self, fn, key, *args, **kwargs)
+    def checked(self, sig, real, *a, **k):
+        if sig not in self.graphs:
+            return real(self, *a, **k)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return real(self, fn, key, *args, **kwargs)
+            return real(self, *a, **k)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    graphs.ServingGraphs.call = checked
+    def call(self, fn, key, *args, **kwargs):
+        return checked(self, self.signature(fn, args, kwargs), real_call,
+                       fn, key, *args, **kwargs)
+
+    def update(self, fn, key, state, *args, **kwargs):
+        return checked(self, self.signature(fn, args, kwargs, state, True),
+                       real_update, fn, key, state, *args, **kwargs)
+
+    graphs.ServingGraphs.call = call
+    graphs.ServingGraphs.update = update
     try:
         yield
     finally:
-        graphs.ServingGraphs.call = real
+        graphs.ServingGraphs.call = real_call
+        graphs.ServingGraphs.update = real_update
 
 
 def serve_three_ways(m, call, reseed):
@@ -1564,38 +1606,87 @@ PROBE_PROFILE_STEPS = 100
 
 
 def time_diagnostics(name: str, model):
-    """Each diagnostic alone on the trained model: seconds on the host
-    clock around one synchronised call as the hooks make it, with that
-    call's kernel launches; then device busy ms and operations of one
-    profiled call (``busy_ms``), the probes' at ``PROBE_PROFILE_STEPS``
-    steps."""
+    """Each diagnostic alone on the trained model, launch by launch and
+    replayed, from the same key streams: the numbers it logs bit-equal
+    both ways, the same kernel launches, graph replays only replayed
+    (every replay under ``replays_checked``); seconds on the host clock
+    around one synchronised call as the hooks make it, then device busy
+    ms and operations of one more, profiled call (``busy_ms``; the
+    probes' at ``PROBE_PROFILE_STEPS`` steps) and the share of that
+    call's wall the device was busy (``busy_share``), both ways. Then every
+    graph of the model's caches that this PR derives, launches per replay
+    as derived. Returns ({diagnostic: row}, launches of the replayed
+    calls of all diagnostics)."""
+    from multimodal_idbn_tpu_torch.ops import graphs
     from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun
     run = RecorderRun()
     short = diagnostic_calls(name, model, run, PROBE_PROFILE_STEPS)
+    streams = stream_states(model)
     rows = {}
+    total = dict.fromkeys(KERNEL_ENTRIES + ("serving_replays",
+                                            "step_replays"), 0)
     for diag, call in diagnostic_calls(name, model, run).items():
-        reset_launches()
-        _, wall, _ = timed_call(call)
-        launches = read_launches()
-        busy, ops, missing = busy_ms(short[diag])
-        half = sum(v for k, v in launches.items()
-                   if k.startswith("half_step"))
-        rows[diag] = dict(seconds=wall / 1e3, busy_ms=busy, operations=ops,
-                          missing_records=missing,
-                          chain=launches["chain_run"], half_step=half)
-        profiled = (f"device busy {busy:.3f} ms in {ops} device operations "
-                    f"({missing} kernel records missing)")
-        if "probes" in diag:
-            profiled += f" at {PROBE_PROFILE_STEPS} probe steps"
-        log(f"[diagnostics {name}] {diag}: {wall / 1e3:.3f} s; {profiled}; "
-            f"chain / half-step launches {launches['chain_run']} / {half}")
+        row, logged = {}, {}
+        for way in ("launch by launch", "replayed"):
+            eager = way == "launch by launch"
+            if not eager:       # any graph the logged run did not capture
+                call()
+                short[diag]()
+            restore_streams(model, streams)
+            run.logged.clear()
+            reset_launches()
+            with (graphs.launch_by_launch() if eager
+                  else replays_checked()), recorded_calls() as outs:
+                _, wall, _ = timed_call(call)
+            launches = read_launches()
+            logged[way] = (logged_numbers(run), outs)
+            with (graphs.launch_by_launch() if eager
+                  else contextlib.nullcontext()):
+                _, short_wall, _ = timed_call(short[diag])
+                busy, ops, missing = busy_ms(short[diag])
+            row[way] = dict(
+                seconds=round(wall / 1e3, 4), busy_ms=round(busy, 4),
+                busy_share=round(busy / short_wall, 4),
+                operations=ops, missing_records=missing,
+                **{k: launches[k] for k in KERNEL_ENTRIES
+                   + ("serving_replays", "step_replays") if launches[k]})
+        eager, replayed = row["launch by launch"], row["replayed"]
+        (nums, outs), (nums_e, outs_e) = (logged["replayed"],
+                                          logged["launch by launch"])
+        if not numbers_equal(nums, nums_e):
+            raise AssertionError(f"{name} {diag}: the numbers logged "
+                                 f"replayed differ from launch by launch")
+        if len(outs) != len(outs_e) or not all(
+                _trees_equal(a, b) for a, b in zip(outs, outs_e)):
+            raise AssertionError(f"{name} {diag}: the outputs of its "
+                                 f"{len(outs)} replayed calls differ from "
+                                 f"launch by launch ({len(outs_e)} calls)")
+        replays = [x.get("serving_replays", 0) + x.get("step_replays", 0)
+                   for x in (eager, replayed)]
+        if {k: eager.get(k, 0) for k in KERNEL_ENTRIES} != \
+                {k: replayed.get(k, 0) for k in KERNEL_ENTRIES} or \
+                replays[0] or not replays[1]:
+            raise AssertionError(f"{name} {diag}: launches {replayed} "
+                                 f"replayed, {eager} launch by launch")
+        for k in total:
+            total[k] += replayed.get(k, 0)
+        rows[diag] = row
+        log(f"[diagnostics {name}] {diag}: {len(nums)} numeric keys and "
+            f"the outputs of {len(outs)} calls bit-equal both ways; replayed "
+            f"{json.dumps(replayed)}; launch by launch {json.dumps(eager)}"
+            + (f" (busy at {PROBE_PROFILE_STEPS} probe steps)"
+               if "probes" in diag else ""))
+    restore_streams(model, streams)
+    check_derivations(f"diagnostics {name}",
+                      rbm_owners(model) + [graphs.SHARED])
     model.wandb_run = None
-    return rows
+    return rows, total
 
 
 def run_diagnostics(dev, workdir: Path, ref_states):
     """Phase 10. ``ref_states``: {cut: phase 4's final states}."""
     from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.ops import graphs
     from multimodal_idbn_tpu_torch.utils.profiling import (
         measure_gibbs_steps_per_sec, trace)
     t_phase = time.perf_counter()
@@ -1609,6 +1700,9 @@ def run_diagnostics(dev, workdir: Path, ref_states):
         summary = cuts.run_logged(name, d, "cuda")
         wall = time.perf_counter() - t0
         launches[name] = read_launches()
+        log_captures(f"diagnostics {name}", [
+            c for c in graphs.STATS["captures"]
+            if c["name"].startswith(("serve:", "step:"))])
         log(f"[diagnostics {name}] logged run: {wall:.1f} s (phase seconds "
             f"{json.dumps(summary['seconds'])}), {len(summary['run'].logged)}"
             f" log calls; launches {json.dumps(launches[name])}")
@@ -1621,7 +1715,8 @@ def run_diagnostics(dev, workdir: Path, ref_states):
         check_diagnostics_run(
             name, summary["run"], model, ref_states[name],
             {k for k in cpu.numeric_keys() if not k.startswith("warn/")})
-        time_diagnostics(name, model)
+        _, launches[f"diagnostics-alone {name}"] = time_diagnostics(name,
+                                                                   model)
         if name == "flagship-cut":
             # one joint epoch more, traced
             tdir = d / "trace"
@@ -1634,8 +1729,11 @@ def run_diagnostics(dev, workdir: Path, ref_states):
                 f"{files[0].stat().st_size / 2**20:.1f} MiB")
         del summary
     g = measure_gibbs_steps_per_sec(device=dev)
+    with graphs.launch_by_launch():
+        g_eager = measure_gibbs_steps_per_sec(device=dev)
     log(f"[diagnostics] measure_gibbs_steps_per_sec (532x500, B=128, 500 "
-        f"steps, one chain launch): {json.dumps(g)}")
+        f"steps, one chain launch): replayed {json.dumps(g)}; launch by "
+        f"launch {json.dumps(g_eager)}")
     log(f"[diagnostics] phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2240,22 +2338,71 @@ def reference_runs(name: str, workdir: Path):
     return out
 
 
+def per_batch_replays(name: str, model) -> int:
+    """The step replays of a per-batch run, derived: one per batch of
+    every per-batch phase (the image iDBN and the joint; MOD1, MOD2 and
+    the joint), the remainder batch included."""
+    p = model.params
+    loader = model.dataloader
+    nb = -(-len(loader.dataset) // loader.batch_size)
+    phases = (("EPOCHS_IMG", "EPOCHS_JOINT") if name == "flagship-cut"
+              else ("EPOCHS_MOD1", "EPOCHS_MOD2", "EPOCHS_JOINT"))
+    return nb * sum(int(p[k]) for k in phases)
+
+
+def time_image_epochs(model) -> dict:
+    """Seconds of one flagship image epoch (StepTimer, synchronised; the
+    median of epochs 2 and 3 of a 3-epoch ``train``, after the first
+    epoch's captures): per batch (one replay a batch) and fused (one
+    replay an epoch), and the host's time to draw one epoch of batches
+    from the loader alone."""
+    import statistics
+    idbn = model.image_idbn
+    loader = idbn.dataloader
+    t0 = time.perf_counter()
+    for _ in loader:
+        pass
+    draw = time.perf_counter() - t0
+    row = {}
+    for way, fused in (("per batch", False), ("fused", True)):
+        if fused:
+            idbn.dataloader = loader.inner
+        idbn.train(3, fused=fused)
+        row[way] = round(statistics.median(idbn.epoch_timer.durations[1:]),
+                         5)
+    idbn.dataloader = loader
+    row["host draw of one epoch's batches"] = round(draw, 5)
+    return row
+
+
 def run_per_batch(workdir: Path, phase4):
     """Phase 12 (a): both cuts through loaders without ``materialize()``.
-    flagship-cut three times: with checkpoints every 2 epochs, again (the
-    repeat), and stopped after its joint checkpoint of epoch 4 and run
-    again (the resume); bimodal-cut twice. Returns {path: launches}."""
+    flagship-cut four times: with checkpoints every 2 epochs, again (the
+    repeat), stopped after its joint checkpoint of epoch 4 and run again
+    (the resume), and launch by launch; bimodal-cut three times: twice
+    and launch by launch. Run b's replays run under ``replays_checked``.
+    Each per-batch batch is one replay (derived:
+    ``per_batch_replays``); the launch-by-launch run makes no replay,
+    launches what run a launches and ends bit-equal to it. On flagship-cut
+    one image epoch per batch is timed beside a fused one
+    (``time_image_epochs``). Returns {path: launches}."""
     from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.ops import graphs
     by_path = {}
     over = {"training": {"checkpoint_every": 2}}
-    for name, runs in (("flagship-cut", ("a", "b", "resumed")),
-                       ("bimodal-cut", ("a", "b"))):
+    for name, runs in (("flagship-cut", ("a", "b", "resumed", "lbl")),
+                       ("bimodal-cut", ("a", "b", "lbl"))):
         out = {}
         for tag in runs:
             d = workdir / f"per-batch-{name}-{tag}"
             d.mkdir(exist_ok=True)
             t0 = time.perf_counter()
-            with per_batch_loaders():
+            # run b's replays (every batch after its shape's first) under
+            # the sync check
+            with per_batch_loaders(), (graphs.launch_by_launch()
+                                       if tag == "lbl" else
+                                       replays_checked() if tag == "b"
+                                       else contextlib.nullcontext()):
                 if tag == "resumed":
                     try:
                         with interrupt_after("joint", 4):
@@ -2274,9 +2421,29 @@ def run_per_batch(workdir: Path, phase4):
             if tag == "a":
                 want = per_batch_launches(name, model)
                 check_launches(f"per-batch {name}", launches, want)
+                if launches["step_replays"] != per_batch_replays(name,
+                                                                 model):
+                    raise AssertionError(
+                        f"per-batch {name}: {launches['step_replays']} step "
+                        f"replays, derived one a batch: "
+                        f"{per_batch_replays(name, model)}")
+                check_derivations(f"per-batch {name}", rbm_owners(model))
+                log_captures(f"per-batch {name}", [
+                    c for c in graphs.STATS["captures"]
+                    if c["name"].startswith("step:")])
                 by_path[f"per-batch {name}"] = launches
                 check_states(*cut_states(name, model))
+                if name == "flagship-cut":
+                    log(f"[per-batch] flagship-cut one image epoch, seconds: "
+                        f"{json.dumps(time_image_epochs(model))}")
             else:
+                if tag == "lbl" and (
+                        launches["step_replays"]
+                        or {k: launches[k] for k in KERNEL_ENTRIES}
+                        != {k: by_path[f"per-batch {name}"][k]
+                            for k in KERNEL_ENTRIES}):
+                    raise AssertionError(f"per-batch {name}: launch by "
+                                         f"launch launched {launches}")
                 a = out["a"][0]
                 if sorted(a) != sorted(out[tag][0]) or not all(
                         torch_equal(a[k], out[tag][0][k]) for k in a):
@@ -2291,7 +2458,8 @@ def run_per_batch(workdir: Path, phase4):
         log(f"[per-batch] {name}: last {loss_key} {got:.6f}, fused (phase "
             f"4) {want:.6f}; runs a and b bit-equal"
             + ("; the resumed run bit-equal to run a"
-               if name == "flagship-cut" else ""))
+               if name == "flagship-cut" else "")
+            + "; one replay a batch, bit-equal to launch by launch")
         if not abs(got - want) <= PER_BATCH_LOSS_RTOL * abs(want):
             raise AssertionError(f"per-batch {name}: last {loss_key} {got} "
                                  f"not within 10% of the fused {want}")
@@ -2894,6 +3062,413 @@ def run_phase14(dev, workdir: Path):
     return fill_row, by_path
 
 
+# ---------------------------------------------------------------------------
+# The rest of what the JAX package jits: derivations shared by phases 10, 12
+# and 15, and phase 15, the RBM shell
+# ---------------------------------------------------------------------------
+
+def derived_replay_launches(g):
+    """Kernel launches of one replay of graph ``g`` of a model's cache,
+    derived from the code (None where this PR derives nothing: the
+    serving calls of phases 6 and 6b). A Bernoulli draw is one
+    ``philox_fill``, a softmax group's categorical draw one more; a
+    mean-field or noisy chain one ``chain_run`` after its initial draw;
+    CD-k through the half-step kernel 1 + 2k half-steps (groupless fp32),
+    else 1 + k(2 + G) fills in plain torch."""
+    st = g.statics
+    G = len(st.get("groups") or ())
+    sh, sv = int(st.get("sample_h", False)), int(st.get("sample_v", False))
+
+    def cd(kw):
+        if kw["groups"]:
+            return {"philox_fill": 1 + kw["cd"] * (2 + len(kw["groups"]))}
+        return {"half_step_sample": 1 + 2 * kw["cd"]}
+
+    def clamped(kw):
+        n = kw["cd"] * (int(kw["sample_h"])
+                        + int(kw["sample_v"]) * (1 + len(kw["groups"])))
+        return ({"chain_run": 1, "philox_fill": 1 + n}
+                if kw["use_noisy_init"] else None)
+
+    def add(*parts):
+        out = {}
+        for p in parts:
+            for k, n in p.items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    name = g.name.split(":", 1)[1].lstrip("_")
+    if name in ("probe_chunk", "class_free_energies", "img2txt_chain",
+                "joint_bias_stats", "hidden_probs", "visible_probs",
+                "visible_logits", "free_energy", "dbn_represent",
+                "dbn_decode", "dbn_reconstruct"):
+        return {}
+    if name in ("traj_chain", "mod2_to_mod1_body"):
+        return {"philox_fill": st["steps"]}
+    if name == "img2txt_panel_chain":
+        return {"philox_fill": 1 + st["steps"] * (sh + sv * (1 + G))}
+    if name == "txt2img_panel_chain":
+        return {"philox_fill": st["steps"] * (sh + sv * (1 + G))}
+    if name in ("sample_visible", "backward_sample"):
+        return {"philox_fill": 1 + G}
+    if name == "gibbs_step":
+        return {"philox_fill": sh + sv * (1 + G)}
+    if name == "conditional_gibbs":
+        if not sh and not sv:
+            return {"chain_run": 1, "philox_fill": 1}
+        return {"philox_fill": 1 + st["n_steps"] * (sh + sv * (1 + G))}
+    if name == "conditional_gibbs_annealed":
+        n, e = st["n_steps"], st["sample_v_every"]
+        hot = max(0, min(n, st["sample_h_until"]))
+        v_draws = sum(1 for t in range(hot) if e > 0 and t % e == 0)
+        return {"philox_fill": 1 + hot + v_draws * (1 + G)}
+    if name == "noisy_meanfield_annealed":
+        return {"chain_run": 1, "philox_fill": 1}
+    if name == "cd_update":
+        return cd(st)
+    if name == "clamped_cd_update":
+        return clamped(st)
+    if name == "batch_step":
+        return add(*(cd(kw) for kw in st["layers"]))
+    if name == "joint_batch_step":
+        clamp = clamped(dict(st["clamp"]))
+        parts = [clamp, clamp] if st["warmup"] else (
+            [cd(st["train"]), clamp] + [clamp] * int(st["zclamp"]))
+        if st["metrics"]:      # the round trip: two mean-field chains
+            parts.append({"chain_run": 2, "philox_fill": 2})
+        return add(*parts)
+    if name == "bimodal_batch_step":
+        # the clamps' noisy inits; the fills are held to launch by launch
+        return {"chain_run": 4 if st["warmup"] else 2, "philox_fill": None}
+    return None
+
+
+def check_derivations(tag: str, owners) -> dict:
+    """Every graph of the owners' caches whose launches this PR derives:
+    its launches per replay as derived. Returns {graph name: launches per
+    replay} of the graphs checked."""
+    seen = {}
+    for owner in owners:
+        cache = owner.__dict__.get("_serving")
+        for g in (cache.graphs.values() if cache else ()):
+            want = derived_replay_launches(g)
+            if want is None:
+                continue
+            got = _port_launches(g.launches_per_replay)
+            # a kernel left out of ``want`` launches 0 times; one given as
+            # None is not derived (held to launch by launch by the caller)
+            if any(want.get(k, 0) is not None and n != want.get(k, 0)
+                   for k, n in dict(dict.fromkeys(want, 0), **got).items()):
+                raise AssertionError(f"{tag}: {g.name} launches {got} per "
+                                     f"replay, derived {want}")
+            seen[g.name] = {k: n for k, n in got.items() if n}
+    log(f"[{tag}] launches per replay as derived: {json.dumps(seen)}")
+    return seen
+
+
+def rbm_owners(model):
+    """A model, its iDBNs and every RBM shell it holds: the owners of its
+    graphs."""
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    parts = [model] + [getattr(model, a) for a in
+                       ("image_idbn", "mod1_dbn", "mod2_dbn")
+                       if hasattr(model, a)]
+    return parts + list(_collect_rbms(model).values())
+
+
+def stream_states(model):
+    """The key streams of every RBM shell of a model, to restore."""
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    return {n: r._gen.get_state() for n, r in _collect_rbms(model).items()}
+
+
+def restore_streams(model, states) -> None:
+    from multimodal_idbn_tpu_torch.checkpoint import _collect_rbms
+    for n, r in _collect_rbms(model).items():
+        r._gen.set_state(states[n])
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Inside the block the output of every call through ``graphs.serve``
+    and ``graphs.update`` (replayed or launch by launch) is kept, cloned,
+    in the list the block gets."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import graphs
+    outs = []
+    real_serve, real_update = graphs.serve, graphs.update
+
+    def serve(*a, **k):
+        out = real_serve(*a, **k)
+        outs.append(graphs.map_tree(torch.clone, out))
+        return out
+
+    def update(*a, **k):
+        out = real_update(*a, **k)
+        outs.append(graphs.map_tree(torch.clone, out))
+        return out
+
+    graphs.serve, graphs.update = serve, update
+    try:
+        yield outs
+    finally:
+        graphs.serve, graphs.update = real_serve, real_update
+
+
+def logged_numbers(run) -> dict:
+    """{key: values} of every numeric key a run logged, timings aside."""
+    return {k: run.values(k) for k in run.numeric_keys()
+            if not k.startswith("perf/") and k != "epoch"}
+
+
+def numbers_equal(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(numbers_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(numbers_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b or (a != a and b != b)
+
+
+SHELL_WIDTHS = (("532x500", 532, 500, ((500, 532),), 500),
+                ("2500x1500", 2500, 1500, (), 1500))
+SHELL_B = 128
+SHELL_SEED = 515
+
+
+def shell_calls(r, Dz: int):
+    """{entry: (call, derived launches of one call)} of every jitted entry
+    of the shell ``r`` at ``SHELL_B`` rows: the clamp known on the first
+    ``Dz`` coordinates (the image latent of the flagship joint, MOD1's of
+    the bimodal one), each chain at its default steps, CD-1."""
+    import torch
+    g = torch.Generator().manual_seed(SHELL_SEED)
+    V, H, G = r.num_visible, r.num_hidden, len(r.softmax_groups)
+    dev = r.device
+    v = torch.rand((SHELL_B, V), generator=g).to(dev)
+    h = torch.rand((SHELL_B, H), generator=g).to(dev)
+    km = torch.cat([torch.ones(SHELL_B, Dz), torch.zeros(SHELL_B, V - Dz)],
+                   1).to(dev)
+    fast = not G
+    return {
+        "forward": (lambda: r.forward(v), {}),
+        "visible_probs": (lambda: r.visible_probs(h), {}),
+        "backward": (lambda: r.backward(h, return_logits=True), {}),
+        "free_energy": (lambda: r.free_energy(v), {}),
+        "sample_visible": (lambda: r.sample_visible(v),
+                           {"philox_fill": 1 + G}),
+        "backward_sample": (lambda: r.backward_sample(h),
+                            {"philox_fill": 1 + G}),
+        "gibbs_step": (lambda: r.gibbs_step(v), {"philox_fill": 2 + G}),
+        "conditional_gibbs": (lambda: r.conditional_gibbs(v, km),
+                              {"chain_run": 1, "philox_fill": 1}),
+        "conditional_gibbs_annealed": (
+            lambda: r.conditional_gibbs_annealed(v, km),
+            {"philox_fill": 1 + 20}),
+        "noisy_meanfield_annealed": (
+            lambda: r.noisy_meanfield_annealed(v, km),
+            {"chain_run": 1, "philox_fill": 1}),
+        "train_epoch": (lambda: r.train_epoch(v, 3, 10, CD=1),
+                        {"half_step_sample": 3} if fast
+                        else {"philox_fill": 1 + (2 + G)}),
+        "train_epoch_clamped": (
+            lambda: r.train_epoch_clamped(v, km, 3, 10, CD=1),
+            {"chain_run": 1, "philox_fill": 2}),
+    }
+
+
+def check_public_batch_steps(dev) -> dict:
+    """Phase 15 (b): the three per-batch steps the JAX package jits,
+    called directly at full width (B = 128): ``dbn_train.idbn_batch_step``
+    on the flagship image stack, ``imdbn_ops.joint_train_batch_step`` on
+    the flagship joint with that stack's decode, and
+    ``bimodal_ops.bimodal_batch_step`` on the bimodal joint DBN with both
+    modality stacks. Each launch by launch, through its graph (a capture,
+    then a replay) and replayed under the sync check, from the same
+    inputs: outputs bit-equal, launches the same, one replay a call.
+    Returns the launches of one replayed call of each."""
+    import torch
+    from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train,
+                                               graphs, imdbn_ops, rbm_ops,
+                                               rng)
+    g = torch.Generator().manual_seed(SHELL_SEED)
+
+    def states(i, widths):
+        return [rbm_ops.init_rbm_state(rng.fold_in(SHELL_SEED, 10 * i + j),
+                                       v, h, device=dev)
+                for j, (v, h) in enumerate(zip(widths, widths[1:]))]
+
+    def rand(*shape, p=None):
+        t = torch.rand(shape, generator=g)
+        return (t < p).float().to(dev) if p else t.to(dev)
+
+    B = SHELL_B
+    img, mod1, mod2 = (states(1, [10000, 1500, 500]),
+                       states(2, [10000, 1500, 1500]),
+                       states(3, [1568, 500, 500, 1000]))
+    joint, bjoint = states(4, [532, 500])[0], states(5, [2500, 1500, 500])
+    x, v2 = rand(B, 10000, p=0.3), rand(B, 1568, p=0.3)
+    y = torch.eye(32, device=dev)[torch.arange(B, device=dev) % 32]
+    calls = {
+        "idbn_batch_step": lambda: dbn_train.idbn_batch_step(
+            img, 11, x, 0.1, 0.5, 2e-4, 0.05, cd=1,
+            sparsity_flags=(False, False), fast_sampler=True),
+        "joint_train_batch_step": lambda: imdbn_ops.joint_train_batch_step(
+            joint, img, 12, rand(B, 500), y, x, 0, 0.04, 0.5, 2e-4, None,
+            warmup=False, joint_cd=1, aux_cond_steps=10, Dz=500, steps=50,
+            groups=((500, 532),)),
+        "bimodal_batch_step": lambda: bimodal_ops.bimodal_batch_step(
+            bjoint, mod1, mod2, 13, rand(B, 1500), rand(B, 1000), x, v2,
+            0.04, 0.5, 2e-4, warmup=False, joint_cd=1, aux_cond_steps=10,
+            Dz1=1500, steps=30),
+    }
+    out = {}
+    for name, call in calls.items():
+        runs = []
+        for way in ("launch by launch", "first call", "replay"):
+            g.manual_seed(SHELL_SEED + 1)
+            reset_launches()
+            with (graphs.launch_by_launch() if way == "launch by launch"
+                  else replays_checked() if way == "replay"
+                  else contextlib.nullcontext()):
+                res = _clone_tree(call())
+            torch.cuda.synchronize()
+            runs.append((res, read_launches()))
+        (eager, le), (first, lf), (again, lr) = runs
+        if not (_trees_equal(first, eager) and _trees_equal(again, eager)):
+            raise AssertionError(f"{name}: replayed is not bit-equal to "
+                                 f"launch by launch")
+        kernels = [{k: x.get(k, 0) for k in KERNEL_ENTRIES}
+                   for x in (le, lf, lr)]
+        if kernels[0] != kernels[1] or kernels[0] != kernels[2] or \
+                lr["serving_replays"] != 1 or le["serving_replays"]:
+            raise AssertionError(f"{name}: launches {le} launch by launch, "
+                                 f"{lf} first, {lr} replayed")
+        out[name] = {k: n for k, n in lr.items() if n}
+    log(f"[phase15] the per-batch steps called directly, one replay each, "
+        f"bit-equal to launch by launch: {json.dumps(out)}")
+    return out
+
+
+def run_phase15(dev):
+    """Phase 15: the RBM shell's jitted entries at the joint widths of
+    both families. Each entry three ways from the same key stream (and,
+    for the training entries, the same state): launch by launch, its
+    first call through the shell's graphs (a capture, then a replay) and
+    a replay under ``replays_checked``; outputs (and new states)
+    bit-equal, kernel launches the same three ways and as derived, one
+    replay per call. Then one more ``train_epoch`` and every entry again:
+    bit-equal to launch by launch, changed, no new capture. Each entry
+    timed replayed and launch by launch (median wall of 5 calls). Returns
+    {path: launches of one replayed call of every entry}."""
+    import statistics
+    import torch
+    from multimodal_idbn_tpu_torch.models import RBM
+    from multimodal_idbn_tpu_torch.ops import graphs
+    t_phase = time.perf_counter()
+    by_path = {}
+    for tag, V, H, groups, Dz in SHELL_WIDTHS:
+        r = RBM(V, H, 0.05, 2e-4, 0.5, dynamic_lr=True,
+                softmax_groups=list(groups) or None, seed=SHELL_SEED,
+                device=dev)
+        calls = shell_calls(r, Dz)
+        state0 = graphs.map_tree(torch.clone, r.state)
+        total = dict.fromkeys(KERNEL_ENTRIES + ("serving_replays",
+                                                "step_replays"), 0)
+        before, timing, caps_all = {}, {}, []
+        for entry, (call, want) in calls.items():
+            train = entry.startswith("train")
+            runs = []
+            for way in ("launch by launch", "first call", "replay"):
+                r.reseed(SHELL_SEED)
+                if train:
+                    r.state = graphs.map_tree(torch.clone, state0)
+                reset_launches()
+                with (graphs.launch_by_launch() if way == "launch by launch"
+                      else replays_checked() if way == "replay"
+                      else contextlib.nullcontext()):
+                    out = call()
+                    if train:
+                        out = (out, graphs.map_tree(torch.clone, r.state))
+                torch.cuda.synchronize()
+                if way == "first call":
+                    caps_all += graphs.STATS["captures"]
+                runs.append((out, read_launches(),
+                             len(graphs.STATS["captures"])))
+            (eager, le, _), (first, lf, _), (again, lr, caps) = runs
+            if not (_trees_equal(first, eager) and _trees_equal(again,
+                                                                eager)):
+                raise AssertionError(f"shell {tag} {entry}: replayed is not "
+                                     f"bit-equal to launch by launch")
+            kernels = {k: le.get(k, 0) for k in KERNEL_ENTRIES}
+            derived = dict(dict.fromkeys(KERNEL_ENTRIES, 0), **want)
+            replays = lr["serving_replays"] + lr["step_replays"]
+            if any({k: x.get(k, 0) for k in KERNEL_ENTRIES} != kernels
+                   for x in (lf, lr)) or kernels != derived or \
+                    replays != 1 or caps or \
+                    le["serving_replays"] + le["step_replays"]:
+                raise AssertionError(
+                    f"shell {tag} {entry}: launches {kernels} (first call "
+                    f"{lf}, replay {lr}), derived {derived}; replays "
+                    f"{replays}; captures in the replay run {caps}")
+            for k in total:
+                total[k] += lr.get(k, 0)
+            if not train:
+                before[entry] = eager
+            times = {}
+            for way in ("replayed", "launch by launch"):
+                with (graphs.launch_by_launch() if way == "launch by launch"
+                      else contextlib.nullcontext()):
+                    times[way] = round(statistics.median(
+                        timed_call(call)[1] for _ in range(5)), 4)
+            timing[entry] = times
+        r.state = graphs.map_tree(torch.clone, state0)
+        r.reseed(SHELL_SEED)
+        r.train_epoch(torch.rand((SHELL_B, V), generator=torch.Generator()
+                                 .manual_seed(1)).to(dev), 4, 10, CD=1)
+        graphs.reset_stats()
+        for entry, (call, _) in calls.items():
+            if entry not in before:
+                continue
+            outs = []
+            for way in ("launch by launch", "replay"):
+                r.reseed(SHELL_SEED)
+                with (graphs.launch_by_launch() if way == "launch by launch"
+                      else replays_checked()):
+                    outs.append(call())
+            if not _trees_equal(outs[1], outs[0]):
+                raise AssertionError(f"shell {tag} {entry}: after one more "
+                                     f"epoch, replayed is not bit-equal to "
+                                     f"launch by launch")
+            if entry != "sample_visible" and _trees_equal(outs[0],
+                                                          before[entry]):
+                raise AssertionError(f"shell {tag} {entry}: the output did "
+                                     f"not change after one more epoch")
+        if graphs.STATS["captures"]:
+            raise AssertionError(f"shell {tag}: new captures after one more "
+                                 f"epoch: {graphs.STATS['captures']}")
+        check_derivations(f"phase15 {tag}", [r])
+        log_captures(f"phase15 {tag}", caps_all)
+        log(f"[phase15] shell {tag} (groups {list(groups)}, B={SHELL_B}): "
+            f"every entry bit-equal three ways, one replay a call, launches "
+            f"as derived; after one more train_epoch bit-equal, changed, no "
+            f"capture; launches of one call of each {json.dumps(total)}; "
+            f"median wall ms replayed / launch by launch "
+            f"{json.dumps(timing)}")
+        by_path[f"rbm-shell {tag}"] = total
+        del r, calls
+    steps = check_public_batch_steps(dev)
+    by_path["batch-steps direct"] = {
+        k: sum(row.get(k, 0) for row in steps.values())
+        for k in KERNEL_ENTRIES + ("serving_replays", "step_replays")}
+    log(f"[phase15] {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2953,7 +3528,8 @@ def main() -> int:
             by_path["retry-finetune-drive"] = run_retry_finetune(dev, tmp)
             diag = run_diagnostics(dev, tmp, trained)
             for name, counts in diag.items():
-                by_path[f"diagnostics-drive {name}"] = counts
+                by_path[name if name.startswith("diagnostics-alone")
+                        else f"diagnostics-drive {name}"] = counts
             variants, pcd_row = run_variants(dev, tmp)
             by_path.update(variants)
             phase12, offset_rows = run_phase12(dev, tmp, phase4)
@@ -2961,6 +3537,7 @@ def main() -> int:
             by_path["flagship-full"] = run_phase13(tmp)
             fill_row, phase14 = run_phase14(dev, tmp)
             by_path.update(phase14)
+            by_path.update(run_phase15(dev))
     except Exception:
         traceback.print_exc()
         return 1
@@ -2971,7 +3548,9 @@ def main() -> int:
             graph_replays_by_path={p: counts.get("graph_replays", 0)
                                    for p, counts in by_path.items()},
             serving_replays_by_path={p: counts.get("serving_replays", 0)
-                                     for p, counts in by_path.items()})
+                                     for p, counts in by_path.items()},
+            step_replays_by_path={p: counts.get("step_replays", 0)
+                                  for p, counts in by_path.items()})
 
     kernels = [
         dict(name="half_step_sample", route="cuda",
@@ -3070,7 +3649,43 @@ def serving_main() -> int:
     return 0
 
 
+def replays_main() -> int:
+    """``chip_smoke.py --replays``: the build, both cuts (phase 4), the
+    diagnostics alone both ways (phase 10's, on the cuts trained with
+    logging), the per-batch drive (phase 12 (a)) and phase 15 (no result
+    line)."""
+    import torch
+    from multimodal_idbn_tpu_torch import cuts, resolve_device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device("cuda")
+        build_kernels()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            phase4 = {}
+            for name in ("flagship-cut", "bimodal-cut"):
+                launches, s = run_path(name, tmp)
+                phase4[name] = (launches, {
+                    k: s[k] for k in ("image_loss", "mod1_loss", "seconds")
+                    if k in s}, state_copy(s["model"]))
+                (tmp / f"{name}-logged").mkdir()
+                model = cuts.run_logged(name, tmp / f"{name}-logged",
+                                        "cuda")["model"]
+                time_diagnostics(name, model)
+                del model, s
+            run_per_batch(tmp, phase4)
+            run_phase15(dev)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replays"]:
+        sys.exit(replays_main())
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase-14"]:

@@ -71,7 +71,8 @@ from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
 from multimodal_idbn_tpu_torch.models.rbm import (RBM, param_compute_dtype,
                                                   param_dtype, param_sr)
-from multimodal_idbn_tpu_torch.ops import dbn_train, graphs, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import (dbn_train, fast_cd, graphs, rbm_ops,
+                                           rng)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
@@ -136,6 +137,22 @@ def check_train_args(start_epoch: int, epochs: int, checkpoint_every: int,
         raise ValueError(f"start_epoch {start_epoch} outside [0, {epochs}]")
     if checkpoint_every and not checkpoint_path:
         raise ValueError("checkpoint_every needs a checkpoint_path")
+
+
+def _batch_step(states, v, hyper, *, key, layers):
+    """Every layer's ``RBM.train_epoch`` on one batch, in order, each fed
+    the post-update p(h|v) of the layer below (``RBM.forward``): layer
+    i's update takes ``key[i]`` (drawn from its shell's stream),
+    ``hyper[2i]`` / ``hyper[2i + 1]`` (lr, momentum) and ``layers[i]``.
+    Returns (states, losses[L])."""
+    new, losses = [], []
+    for i, (st, kw) in enumerate(zip(states, layers)):
+        st, loss = fast_cd.cd_update(st, key[i], v, lr=hyper[2 * i],
+                                     mom=hyper[2 * i + 1], **kw)
+        v = rbm_ops.hidden_probs(st, v)
+        new.append(st)
+        losses.append(loss)
+    return new, torch.stack(losses)
 
 
 class iDBN:
@@ -317,18 +334,34 @@ class iDBN:
 
     def _train_epoch_batched(self, epoch: int, epochs: int) -> float:
         """One epoch over the loader's batches, every layer updated on
-        every batch by ``RBM.train_epoch`` and fed the post-update
-        activations of the layer below; returns the mean of all (batch,
-        layer) losses (JAX models/idbn.py:433-442)."""
+        every batch as ``RBM.train_epoch`` updates it (its own key stream
+        and schedule) and fed the post-update activations of the layer
+        below; returns the mean of all (batch, layer) losses (JAX
+        models/idbn.py:433-442). A batch is one call of ``_batch_step``,
+        one graph replay on the card; the losses stay on the device until
+        the epoch's one host read."""
+        hyper = graphs.hyper(self.device, *(
+            x for r in self.layers for x in (
+                effective_lr(r.lr, epoch, r.dynamic_lr),
+                effective_momentum(r.momentum, r.final_momentum, epoch))))
+        layers = tuple(dict(groups=r._groups(), sr=r.sr,
+                            weight_decay=r.weight_decay, cd=int(self.cd_k),
+                            sparsity=r.sparsity,
+                            sparsity_factor=r.sparsity_factor)
+                       for r in self.layers)
         losses = []
         for img, _ in self.dataloader:
             v = as_tensor(img, self.device)
             v = v.reshape(v.shape[0], -1)
-            for rbm in self.layers:
-                losses.append(float(rbm.train_epoch(v, epoch, epochs,
-                                                    CD=self.cd_k)))
-                v = rbm.forward(v)
-        return float(np.mean(losses)) if losses else 0.0
+            states, loss = graphs.update(
+                self, self.device, _batch_step,
+                tuple(r._next_key() for r in self.layers), self.states(), v,
+                hyper, layers=layers)
+            self._set_states(states)
+            losses.append(loss)
+        if not losses:
+            return 0.0
+        return float(np.mean(torch.cat(losses).tolist()))
 
     def _save_train_checkpoint(self, path, next_epoch: int,
                                phase: str = "image") -> None:

@@ -66,7 +66,8 @@ from multimodal_idbn_tpu_torch.models.idbn import (iDBN, check_train_args,
 from multimodal_idbn_tpu_torch.models.rbm import (RBM,
                                                   _warn_compute_dtype_joint,
                                                   param_dtype, param_sr)
-from multimodal_idbn_tpu_torch.ops import graphs, imdbn_ops, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import (dbn_train, fast_cd, graphs,
+                                           imdbn_ops, rbm_ops, rng)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
 from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
@@ -126,6 +127,54 @@ def finetune_last_layer(dbn: iDBN, loader, epochs: int, lr_scale: float,
                 last.train_epoch(v, ep, epochs, CD=use_cd)
     finally:
         last.lr = old_lr
+
+
+def _joint_batch_step(joint, idbn_weights, img, y, hyper, z_class_mean,
+                      z_affine, mu_k, *, key, warmup: bool, zclamp: bool,
+                      metrics: bool, Dz: int, K: int, train: dict,
+                      clamp: dict, cross: dict):
+    """One batch of the per-batch joint loop, as the shell calls run it:
+    the image latents (``represent``); in warm-up two y-clamped
+    ``train_epoch_clamped``, else ``train_epoch`` (its free-CD loss), one
+    y-clamped and, with ``zclamp``, one z-clamped ``train_epoch_clamped``;
+    then with ``metrics`` the round trip (``_cross_reconstruct``) and its
+    metric sums. The keys of ``key`` are taken in that order, as the
+    shell calls draw them from the joint RBM's stream. Returns (joint,
+    (free-CD loss or None, CrossMetrics or None))."""
+    keys = iter(key)
+    z_img = dbn_train.dbn_represent(idbn_weights, img, len(idbn_weights))
+    B, dev = z_img.shape[0], z_img.device
+    zeros_z = torch.zeros((B, Dz), device=dev)
+    zeros_k = torch.zeros((B, K), device=dev)
+    v_known = torch.cat([zeros_z, y], dim=1)
+    km = torch.cat([zeros_z, torch.ones((B, K), device=dev)], dim=1)
+    lr, mom = hyper[0], hyper[1]
+
+    def clamped(st, vk, mask, reclamp):
+        return rbm_ops.clamped_cd_update(
+            st, next(keys), vk, mask, lr=lr, mom=mom, mu_k=mu_k,
+            reclamp_negative=reclamp, **clamp)[0]
+
+    cd_loss = None
+    if warmup:
+        for _ in range(2):
+            joint = clamped(joint, v_known, km, True)
+    else:
+        joint, cd_loss = fast_cd.cd_update(
+            joint, next(keys), torch.cat([z_img, y], dim=1), lr=lr, mom=mom,
+            **train)
+        joint = clamped(joint, v_known, km, False)
+        if zclamp:
+            joint = clamped(joint, torch.cat([z_img, zeros_k], dim=1),
+                            1.0 - km, False)
+    m = None
+    if metrics:
+        img_from_txt, p_y = imdbn_ops.cross_reconstruct(
+            rbm_ops.weights_only(joint), idbn_weights, key=next(keys),
+            z_img=z_img, y_onehot=y, z_class_mean=z_class_mean,
+            z_affine=z_affine, **cross)
+        m = imdbn_ops.cross_metrics_batch(img_from_txt, p_y, img, y)
+    return joint, (cd_loss, m)
 
 
 class iMDBN:
@@ -294,8 +343,9 @@ class iMDBN:
         Z, Y = Z[:limit], Y[:limit]
         if Z.shape[0] == 0:
             return
-        z_bias, y_bias, self.z_class_mean = imdbn_ops.joint_bias_stats(
-            Z, Y, num_classes=self.num_labels)
+        z_bias, y_bias, self.z_class_mean = graphs.serve(
+            self, self.device, imdbn_ops.joint_bias_stats, None, Z, Y,
+            num_classes=self.num_labels)
         vb = self.joint_rbm.vis_bias.clone()
         vb[:self.Dz_img] = z_bias
         vb[self.Dz_img:self.Dz_img + self.num_labels] = y_bias
@@ -481,47 +531,59 @@ class iMDBN:
         materialize (JAX models/imdbn.py:700-760): each batch's latents,
         then the joint RBM's own updates (``train_epoch``, and
         ``train_epoch_clamped`` with its noisy init on the chain kernel)
-        and the cross-modal round trip, keyed from its stream. Returns
-        (free-CD losses, metric sums, pixels per image)."""
-        Dz, K = self.Dz_img, self.num_labels
+        and the cross-modal round trip, keyed from its stream, in the
+        order the shell calls draw them. A batch is one call of
+        ``_joint_batch_step``, one graph replay on the card; its losses
+        and metric sums stay on the device until the epoch's one host
+        read. Returns (free-CD losses, metric sums, pixels per image)."""
         jr = self.joint_rbm
-        clamp = dict(CD=1, cond_init_steps=aux_cond_steps, sample_h=False,
-                     sample_v=False, aux_lr_mult=0.3, use_noisy_init=True)
-        cd_losses = []
-        tot = {"n": 0.0, "top1": 0.0, "top3": 0.0, "ce_sum": 0.0,
-               "mse_sum": 0.0}
+        mu_k, eta0 = jr._mu_pull_args()
+        statics = dict(
+            warmup=bool(warmup), Dz=self.Dz_img, K=self.num_labels,
+            train=dict(groups=jr._groups(), sr=jr.sr,
+                       weight_decay=jr.weight_decay, cd=int(self.joint_cd),
+                       sparsity=jr.sparsity,
+                       sparsity_factor=jr.sparsity_factor),
+            clamp=dict(weight_decay=jr.weight_decay, cd=1,
+                       cond_init_steps=int(aux_cond_steps), sample_h=False,
+                       sample_v=False, aux_lr_mult=0.3, use_noisy_init=True,
+                       eta0=eta0, groups=jr._groups(), sr=jr.sr),
+            cross=dict(steps=int(self.cross_steps), Dz=self.Dz_img,
+                       groups=self._joint_groups(),
+                       use_free_energy=not self.reference_best_of_k_bug,
+                       direction="both"))
+        hyper = graphs.hyper(
+            self.device, effective_lr(jr.lr, epoch, jr.dynamic_lr),
+            effective_momentum(jr.momentum, jr.final_momentum, epoch))
+        outs = []
         npix = None
         for b_idx, (img, y) in enumerate(self.dataloader):
             img = as_tensor(img, self.device)
             img = img.reshape(img.shape[0], -1)
             y = as_tensor(y, self.device)
-            z_img = self.image_idbn.represent(img)
-            B = z_img.shape[0]
-            zeros_z = torch.zeros((B, Dz), device=self.device)
-            zeros_k = torch.zeros((B, K), device=self.device)
-            v_known = torch.cat([zeros_z, y], dim=1)
-            km = torch.cat([zeros_z, torch.ones((B, K),
-                                                device=self.device)], dim=1)
-            if warmup:
-                for _ in range(2):
-                    jr.train_epoch_clamped(v_known, km, epoch, epochs,
-                                           **clamp)
-            else:
-                cd_losses.append(float(jr.train_epoch(
-                    torch.cat([z_img, y], dim=1), epoch, epochs,
-                    CD=self.joint_cd)))
-                jr.train_epoch_clamped(v_known, km, epoch, epochs,
-                                       reclamp_negative=False, **clamp)
-                if b_idx % ZCLAMP_EVERY == 0:
-                    jr.train_epoch_clamped(
-                        torch.cat([z_img, zeros_k], dim=1), 1.0 - km, epoch,
-                        epochs, reclamp_negative=False, **clamp)
-            if metrics_every <= 1 or b_idx % metrics_every == 0:
-                img_from_txt, p_y = self._cross_reconstruct(z_img, y)
-                m = imdbn_ops.cross_metrics_batch(img_from_txt, p_y, img, y)
+            zclamp = not warmup and b_idx % ZCLAMP_EVERY == 0
+            metrics = metrics_every <= 1 or b_idx % metrics_every == 0
+            n_keys = 2 + int(zclamp) + int(metrics)
+            jr.state, out = graphs.update(
+                self, self.device, _joint_batch_step,
+                tuple(jr._next_key() for _ in range(n_keys)), jr.state,
+                self.image_idbn._weights(), img, y, hyper,
+                self.z_class_mean, self._z_affine(), mu_k, zclamp=zclamp,
+                metrics=metrics, **statics)
+            outs.append(out)
+            npix = img.shape[1]
+        leaves, spec = graphs.flatten(outs)
+        outs = graphs.unflatten(spec, torch.stack(leaves).tolist()
+                                if leaves else [])
+        cd_losses = []
+        tot = {"n": 0.0, "top1": 0.0, "top3": 0.0, "ce_sum": 0.0,
+               "mse_sum": 0.0}
+        for cd_loss, m in outs:
+            if cd_loss is not None:
+                cd_losses.append(float(cd_loss))
+            if m is not None:
                 for k, v in m._asdict().items():
                     tot[k] += float(v)
-            npix = img.shape[1]
         return cd_losses, tot, npix
 
     def train_joint(self, epochs: int, log_every_pca: int = 25,

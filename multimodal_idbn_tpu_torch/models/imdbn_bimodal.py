@@ -148,13 +148,38 @@ def log_bimodal_joint_linear_probe(model, epoch, n_bins=5, test_size=0.2,
     return results
 
 
+def _bimodal_batch_step(joint, mod1_weights, mod2_weights, v1, v2, hyper, *,
+                        key, weight_decay, **statics):
+    """One batch of the per-batch loop: the latents of both modalities
+    (``represent``), then ``bimodal_ops.bimodal_batch_step``'s body at
+    ``hyper`` = (lr, momentum). Returns (joint, (CD loss, metric
+    sums))."""
+    z1 = dbn_train.dbn_represent(mod1_weights, v1, len(mod1_weights))
+    z2 = dbn_train.dbn_represent(mod2_weights, v2, len(mod2_weights))
+    joint, cd_loss, m = bimodal_ops._bimodal_train_batch(
+        joint, mod1_weights, mod2_weights, key, z1, z2, v1, v2, hyper[0],
+        hyper[1], weight_decay, **statics)
+    return joint, (cd_loss, m)
+
+
 def _mod2_to_mod1_chain(model, z2: torch.Tensor, steps: int):
     """MOD2→MOD1 chain with sampled h on joint layer 0; returns the
     per-step (h_prob, z1) trajectories [steps+1, ·] as host numpy, the
     init included (JAX imdbn_bimodal.py:130-160). A plain torch loop on
-    the model's device, its draws keyed by joint layer 0's stream."""
-    joint = model.joint_rbm.state
-    Dz1 = model.Dz_mod1
+    the model's device (``_mod2_to_mod1_body``; one graph replay on the
+    card, as JAX runs its scan as one loop), its draws keyed by joint
+    layer 0's stream."""
+    hs, zs = graphs.serve(model, z2.device, _mod2_to_mod1_body,
+                          model.joint_rbm._next_key(),
+                          rbm_ops.weights_only(model.joint_rbm.state), z2,
+                          steps=int(steps), Dz1=model.Dz_mod1)
+    return to_numpy(hs), to_numpy(zs)
+
+
+def _mod2_to_mod1_body(joint, z2: torch.Tensor, *, key, steps: int,
+                       Dz1: int):
+    """(h_prob [steps+1, H], z1 [steps+1, Dz1]) of sample 0 of the
+    MOD2→MOD1 chain from ``z2``, the init included."""
     B, dev = z2.shape[0], z2.device
     v_known = torch.cat([torch.zeros((B, Dz1), device=dev), z2], dim=1)
     km = torch.cat([torch.zeros((B, Dz1), device=dev),
@@ -162,7 +187,6 @@ def _mod2_to_mod1_chain(model, z2: torch.Tensor, steps: int):
     h0 = rbm_ops.hidden_probs(joint, v_known)
     v = clamp_mask(rbm_ops.visible_probs(joint, h0), v_known, km)
     hs, zs = [h0[0]], [v[0, :Dz1]]
-    key = model.joint_rbm._next_key()
     for t in range(int(steps)):
         h_prob = rbm_ops.hidden_probs(joint, v)
         h = sample_bernoulli(rng.fold_in(key, t), h_prob)
@@ -170,7 +194,7 @@ def _mod2_to_mod1_chain(model, z2: torch.Tensor, steps: int):
                        v_known, km)
         hs.append(h_prob[0])
         zs.append(v[0, :Dz1])
-    return to_numpy(torch.stack(hs)), to_numpy(torch.stack(zs))
+    return torch.stack(hs), torch.stack(zs)
 
 
 def _fetch_bimodal_sample(model, sample_idx: int):
@@ -663,21 +687,31 @@ class iMDBN_BiModal:
         """The per-batch loop for loaders that cannot materialize (JAX
         models/imdbn_bimodal.py:828-861): each (mod1, mod2) batch's
         latents, then ``bimodal_ops.bimodal_batch_step`` keyed from joint
-        layer 0's stream. Returns (CD-loss sum, CD batches, metric sums)."""
+        layer 0's stream. A batch is one call of ``_bimodal_batch_step``,
+        one graph replay on the card; its loss and metric sums stay on the
+        device until the epoch's one host read. Returns (CD-loss sum, CD
+        batches, metric sums)."""
         jr = self.joint_rbm
-        cd_sum, count = 0.0, 0
-        tot = {"n": 0.0, "mse_mod1": 0.0, "mse_mod2": 0.0}
+        hyper = graphs.hyper(self.device, lr, mom)
+        outs = []
         for b_idx, (mod1, mod2) in enumerate(self.dataloader):
             v1, v2 = (as_tensor(m, self.device) for m in (mod1, mod2))
             v1, v2 = v1.reshape(v1.shape[0], -1), v2.reshape(v2.shape[0], -1)
-            z1, z2 = self._latents(v1, v2)
-            joint, cd_loss, m = bimodal_ops.bimodal_batch_step(
-                self._joint_states(), self.mod1_dbn.states(),
-                self.mod2_dbn.states(), jr._next_key(), z1, z2, v1, v2, lr,
-                mom, jr.weight_decay,
+            joint, out = graphs.update(
+                self, self.device, _bimodal_batch_step, jr._next_key(),
+                self._joint_states(), self.mod1_dbn._weights(),
+                self.mod2_dbn._weights(), v1, v2, hyper,
+                weight_decay=jr.weight_decay,
                 compute_metrics=(metrics_every <= 1
                                  or b_idx % metrics_every == 0), **statics)
             self._set_joint_states(joint)
+            outs.append(out)
+        leaves, spec = graphs.flatten(outs)
+        outs = graphs.unflatten(spec, torch.stack(leaves).tolist()
+                                if leaves else [])
+        cd_sum, count = 0.0, 0
+        tot = {"n": 0.0, "mse_mod1": 0.0, "mse_mod2": 0.0}
+        for cd_loss, m in outs:
             if not statics["warmup"]:
                 cd_sum += float(cd_loss)
                 count += 1

@@ -16,6 +16,18 @@ and the parsing of the precision keys of a params dict (``param_dtype``,
 ``param_compute_dtype``, ``param_sr``, ``_warn_compute_dtype_joint``,
 :49-120), mapped to torch dtypes. A shell takes ``dtype=`` (its storage
 dtype) and ``sr=`` (the stochastic-rounding override).
+
+The JAX shell calls each of its entries through a jitted function
+(models/rbm.py:136-157). Here each entry is one replay of a CUDA graph on
+the card, one graph per entry and signature (``ops.graphs``: the shell's
+cache, ``self._serving``, dropped from pickles): ``forward``,
+``visible_probs``, ``backward``, ``sample_visible``, ``backward_sample``,
+``gibbs_step``, ``free_energy`` and the conditional chains read the
+weights; ``train_epoch`` and ``train_epoch_clamped`` update the state in
+place (``graphs.update``), their learning rate and momentum read from a
+device tensor (``graphs.hyper``). The key stream advances as launch by
+launch: one key drawn on the host per drawing call. On the CPU every
+entry runs launch by launch.
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ import torch
 from multimodal_idbn_tpu_torch import convert
 from multimodal_idbn_tpu_torch.device import (DeviceLike, as_tensor,
                                               resolve_device)
-from multimodal_idbn_tpu_torch.ops import fast_cd, rbm_ops, rng, sampling
+from multimodal_idbn_tpu_torch.ops import (fast_cd, graphs, rbm_ops, rng,
+                                           sampling)
 from multimodal_idbn_tpu_torch.ops.rbm_ops import RBMState
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
@@ -122,6 +135,53 @@ def _warn_compute_dtype_joint(params: dict, family: str) -> None:
               f"applies to the modality iDBN stacks only; the joint "
               f"layers train at the storage dtype "
               f"({_dtype_name(param_dtype(params))}).")
+
+
+# ---------------------------------------------------------------------------
+# The shell's calls as ``ops.graphs`` replays them: weights first, the key
+# by keyword, schedule values from ``graphs.hyper``
+# ---------------------------------------------------------------------------
+
+def _sample_visible(v_prob, *, key, groups):
+    return sampling.sample_visible(key, v_prob, groups)
+
+
+def _backward_sample(weights, h, *, key, groups):
+    return sampling.sample_visible(
+        key, rbm_ops.visible_probs(weights, h, groups=groups), groups)
+
+
+def _gibbs_step(weights, v, *, key, **kw):
+    return rbm_ops.gibbs_step(weights, key, v, **kw)
+
+
+def _cd_update(state, data, hyper, *, key, **kw):
+    """(new state, loss) of ``fast_cd.cd_update`` at ``hyper`` = (lr,
+    mom)."""
+    return fast_cd.cd_update(state, key, data, lr=hyper[0], mom=hyper[1],
+                             **kw)
+
+
+def _clamped_cd_update(state, v_known, known_mask, hyper, mu_k, *, key,
+                       **kw):
+    return rbm_ops.clamped_cd_update(state, key, v_known, known_mask,
+                                     lr=hyper[0], mom=hyper[1], mu_k=mu_k,
+                                     **kw)
+
+
+def _conditional(chain):
+    """A conditional chain of ``rbm_ops`` with its key by keyword."""
+    def call(weights, v_known, known_mask, *, key, **kw):
+        return chain(weights, key, v_known, known_mask, **kw)
+
+    call.__name__ = chain.__name__
+    return call
+
+
+_conditional_gibbs = _conditional(rbm_ops.conditional_gibbs)
+_conditional_gibbs_annealed = _conditional(
+    rbm_ops.conditional_gibbs_annealed)
+_noisy_meanfield_annealed = _conditional(rbm_ops.noisy_meanfield_annealed)
 
 
 class RBM:
@@ -253,45 +313,60 @@ class RBM:
 
     # -- conditionals -----------------------------------------------------
 
+    def _serve(self, fn, key, *args, **kwargs):
+        """``fn`` on the shell's weights (one replay on the card)."""
+        return graphs.serve(self, self.device, fn, key,
+                            rbm_ops.weights_only(self.state), *args,
+                            **kwargs)
+
     def forward(self, v, T: float = 1.0) -> torch.Tensor:
         """p(h|v) with temperature (JAX models/rbm.py:296-298)."""
-        return rbm_ops.hidden_probs(self.state, self._as(v), T)
+        return self._serve(rbm_ops.hidden_probs, None, self._as(v), T)
 
     __call__ = forward
 
     def visible_probs(self, h, T: float = 1.0) -> torch.Tensor:
         """p(v|h) with softmax groups (JAX models/rbm.py:306-309)."""
-        return rbm_ops.visible_probs(self.state, self._as(h), T,
-                                     groups=self._groups())
+        return self._serve(rbm_ops.visible_probs, None, self._as(h), T,
+                           groups=self._groups())
 
     def sample_visible(self, v_prob) -> torch.Tensor:
         """Sample v ~ p(v|h) respecting softmax groups
         (JAX models/rbm.py:311-314)."""
-        return sampling.sample_visible(self._next_key(), self._as(v_prob),
-                                       self._groups())
+        return graphs.serve(self, self.device, _sample_visible,
+                            self._next_key(), self._as(v_prob),
+                            groups=self._groups())
 
     def backward(self, h, return_logits: bool = False) -> torch.Tensor:
         """p(v|h) with softmax groups, or its logits
         (JAX models/rbm.py:316-320)."""
         if return_logits:
-            return rbm_ops.visible_logits(self.state, self._as(h))
+            return self._serve(rbm_ops.visible_logits, None, self._as(h))
         return self.visible_probs(h)
 
     def backward_sample(self, h) -> torch.Tensor:
-        return self.sample_visible(self.visible_probs(h))
+        """A sample of p(v|h) (one call: the probabilities and the draw)."""
+        return self._serve(_backward_sample, self._next_key(), self._as(h),
+                           groups=self._groups())
 
     def gibbs_step(self, v, sample_h: bool = True, sample_v: bool = True):
         """One v→h→v' step; returns (v_next, v_prob, h, h_prob)
         (JAX models/rbm.py:325-330)."""
-        return rbm_ops.gibbs_step(self.state, self._next_key(), self._as(v),
-                                  sample_h=sample_h, sample_v=sample_v,
-                                  groups=self._groups())
+        return self._serve(_gibbs_step, self._next_key(), self._as(v),
+                           sample_h=sample_h, sample_v=sample_v,
+                           groups=self._groups())
 
     def free_energy(self, v) -> torch.Tensor:
         """F(v) = −v·b_v − Σ softplus(b_h + vW) (JAX models/rbm.py:332-340)."""
-        return rbm_ops.free_energy(self.state, self._as(v))
+        return self._serve(rbm_ops.free_energy, None, self._as(v))
 
     # -- training ---------------------------------------------------------
+
+    def _hyper(self, epoch: int):
+        """(lr, momentum) of ``epoch`` for a replayed update."""
+        return graphs.hyper(
+            self.device, effective_lr(self.lr, epoch, self.dynamic_lr),
+            effective_momentum(self.momentum, self.final_momentum, epoch))
 
     def train_epoch(self, data, epoch: int, max_epochs: int,
                     CD: int = 1) -> torch.Tensor:
@@ -300,12 +375,10 @@ class RBM:
         fused half-step kernel (``ops.fast_cd``); a softmax group or bf16
         storage takes ``rbm_ops.cd_update``, chosen before the call."""
         del max_epochs
-        lr = effective_lr(self.lr, epoch, self.dynamic_lr)
-        mom = effective_momentum(self.momentum, self.final_momentum, epoch)
-        self.state, loss = fast_cd.cd_update(
-            self.state, self._next_key(), self._as(data),
-            groups=self._groups(), sr=self.sr, lr=lr, mom=mom,
-            weight_decay=self.weight_decay, cd=int(CD),
+        self.state, loss = graphs.update(
+            self, self.device, _cd_update, self._next_key(), self.state,
+            self._as(data), self._hyper(epoch), groups=self._groups(),
+            sr=self.sr, weight_decay=self.weight_decay, cd=int(CD),
             sparsity=self.sparsity, sparsity_factor=self.sparsity_factor)
         return loss
 
@@ -320,17 +393,15 @@ class RBM:
         (JAX models/rbm.py:367-388)."""
         del max_epochs
         mu_k, eta0 = self._mu_pull_args()
-        self.state, loss = rbm_ops.clamped_cd_update(
-            self.state, self._next_key(), self._as(v_known),
-            self._as(known_mask),
-            lr=effective_lr(self.lr, epoch, self.dynamic_lr),
-            mom=effective_momentum(self.momentum, self.final_momentum,
-                                   epoch),
-            weight_decay=self.weight_decay, cd=int(CD),
-            cond_init_steps=int(cond_init_steps), sample_h=sample_h,
-            sample_v=sample_v, reclamp_negative=reclamp_negative,
-            aux_lr_mult=aux_lr_mult, use_noisy_init=use_noisy_init,
-            mu_k=mu_k, eta0=eta0, groups=self._groups(), sr=self.sr)
+        self.state, loss = graphs.update(
+            self, self.device, _clamped_cd_update, self._next_key(),
+            self.state, self._as(v_known), self._as(known_mask),
+            self._hyper(epoch), mu_k, weight_decay=self.weight_decay,
+            cd=int(CD), cond_init_steps=int(cond_init_steps),
+            sample_h=sample_h, sample_v=sample_v,
+            reclamp_negative=reclamp_negative, aux_lr_mult=aux_lr_mult,
+            use_noisy_init=use_noisy_init, eta0=eta0, groups=self._groups(),
+            sr=self.sr)
         return loss
 
     # -- conditional inference ---------------------------------------------
@@ -347,8 +418,8 @@ class RBM:
                           sample_v: bool = False) -> torch.Tensor:
         """Conditional Gibbs chain (JAX models/rbm.py:392-413); the
         mean-field case runs the chain kernel on the card."""
-        return rbm_ops.conditional_gibbs(
-            self.state, self._next_key(), self._as(v_known),
+        return self._serve(
+            _conditional_gibbs, self._next_key(), self._as(v_known),
             self._as(known_mask), n_steps=int(n_steps), sample_h=sample_h,
             sample_v=sample_v, groups=self._groups())
 
@@ -359,10 +430,10 @@ class RBM:
                                    final_meanfield: bool = True
                                    ) -> torch.Tensor:
         """Annealed conditional Gibbs (JAX models/rbm.py:423-434)."""
-        return rbm_ops.conditional_gibbs_annealed(
-            self.state, self._next_key(), self._as(v_known),
-            self._as(known_mask), n_steps=int(n_steps), T0=T0, T1=T1,
-            sample_h_until=int(sample_h_until),
+        return self._serve(
+            _conditional_gibbs_annealed, self._next_key(),
+            self._as(v_known), self._as(known_mask), n_steps=int(n_steps),
+            T0=T0, T1=T1, sample_h_until=int(sample_h_until),
             sample_v_every=int(sample_v_every),
             final_meanfield=final_meanfield, groups=self._groups())
 
@@ -376,8 +447,8 @@ class RBM:
         ``self._mu_pull`` ({"mu_k": [B,Dz], "eta0": η}), as the reference
         API (JAX models/rbm.py:436-466)."""
         mu_k, eta0 = self._mu_pull_args()
-        return rbm_ops.noisy_meanfield_annealed(
-            self.state, self._next_key(), self._as(v_known),
+        return self._serve(
+            _noisy_meanfield_annealed, self._next_key(), self._as(v_known),
             self._as(known_mask), n_steps=int(n_steps), T0=T0, T1=T1,
             sigma0=float(sigma0), hot_frac=float(hot_frac),
             sharpen_last=int(sharpen_last), T_cold_plus=T_cold_plus,
@@ -395,6 +466,7 @@ class RBM:
         d["_gen"] = self._gen.get_state().numpy()
         d["device"] = "cpu"
         d["_mu_pull"] = None
+        d.pop("_serving", None)  # graphs live with their process
         return d
 
     def __setstate__(self, d):

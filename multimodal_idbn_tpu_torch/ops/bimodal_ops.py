@@ -111,10 +111,39 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
                        Dz1: int, steps: int, compute_metrics: bool = True,
                        sr: Optional[bool] = None
                        ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
-    """One bimodal joint batch (``_bimodal_train_batch`` and its jitted
-    twin ``bimodal_batch_step``, bimodal_ops.py:80-146, :307-316).
-    Returns (joint states, layer-0 CD loss (0 in warm-up), metric sums).
-    ``sr`` reaches every joint update, free and clamped (:105-134)."""
+    """``_bimodal_train_batch`` as its jitted twin (bimodal_ops.py:307-316):
+    on a CUDA device one graph replay (``graphs.serve``, the graphs of
+    ``graphs.SHARED``; lr and momentum read from ``graphs.hyper``),
+    launch by launch elsewhere."""
+    dev = z1.device
+    return graphs.serve(
+        graphs.SHARED, dev, _bimodal_step_at, key, joint, mod1_states,
+        mod2_states, z1, z2, v1, v2, graphs.hyper(dev, lr, mom),
+        weight_decay, warmup=warmup, joint_cd=joint_cd,
+        aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
+        compute_metrics=compute_metrics, sr=sr)
+
+
+def _bimodal_step_at(joint, mod1_states, mod2_states, z1, z2, v1, v2, hyper,
+                     weight_decay, *, key, **statics):
+    return _bimodal_train_batch(joint, mod1_states, mod2_states, key, z1,
+                                z2, v1, v2, hyper[0], hyper[1], weight_decay,
+                                **statics)
+
+
+def _bimodal_train_batch(joint: Sequence[rbm_ops.RBMState],
+                         mod1_states: Sequence[rbm_ops.RBMState],
+                         mod2_states: Sequence[rbm_ops.RBMState], key,
+                         z1: torch.Tensor, z2: torch.Tensor,
+                         v1: torch.Tensor, v2: torch.Tensor, lr, mom,
+                         weight_decay, *, warmup: bool, joint_cd: int,
+                         aux_cond_steps: int, Dz1: int, steps: int,
+                         compute_metrics: bool = True,
+                         sr: Optional[bool] = None
+                         ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
+    """One bimodal joint batch (bimodal_ops.py:80-146). Returns (joint
+    states, layer-0 CD loss (0 in warm-up), metric sums). ``sr`` reaches
+    every joint update, free and clamped (:105-134)."""
     km1, vk1, vk2 = _clamps(z1, z2)
     keys = [rng.fold_in(key, i) for i in range(8)]
     layers = list(joint)
@@ -188,7 +217,7 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
     for b in range(nb):
         sl = slice(b * batch_size, (b + 1) * batch_size)
         with shard.rows_of(mesh, batch_size) as rows:
-            joint, cd_loss, m = bimodal_batch_step(
+            joint, cd_loss, m = _bimodal_train_batch(
                 joint, mod1_states, mod2_states,
                 rng.fold_in(rng.fold_in(key, 0), b), Z1[sl][rows],
                 Z2[sl][rows], V1[sl][rows], V2[sl][rows], lr, mom,
@@ -201,7 +230,7 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
     n_batches = nb
     if n > nb * batch_size:
         sl = slice(nb * batch_size, n)
-        joint, cd_loss, m = bimodal_batch_step(
+        joint, cd_loss, m = _bimodal_train_batch(
             joint, mod1_states, mod2_states, rng.fold_in(key, 1), Z1[sl],
             Z2[sl], V1[sl], V2[sl], lr, mom, weight_decay,
             compute_metrics=every == 1, **statics)

@@ -70,6 +70,32 @@ def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
                     compute_dtype: Optional[torch.dtype] = None,
                     sr: Optional[bool] = None, fast_sampler: bool = False
                     ) -> Tuple[States, torch.Tensor]:
+    """All-layers CD update on one batch, as JAX jits it
+    (dbn_train.py:364-385): on a CUDA device one graph replay
+    (``graphs.serve``, the graphs of ``graphs.SHARED``; lr and momentum
+    read from ``graphs.hyper``), launch by launch elsewhere. Returns
+    (states, losses[L]). The epochs run its body, ``_idbn_batch_step``."""
+    dev = batch.device
+    return graphs.serve(
+        graphs.SHARED, dev, _idbn_step_at, key, states, batch,
+        graphs.hyper(dev, lr, mom), weight_decay, sparsity_factor, cd=cd,
+        sparsity_flags=tuple(sparsity_flags), compute_dtype=compute_dtype,
+        sr=sr, fast_sampler=fast_sampler)
+
+
+def _idbn_step_at(states, batch, hyper, weight_decay, sparsity_factor, *,
+                  key, **statics):
+    return _idbn_batch_step(states, key, batch, hyper[0], hyper[1],
+                            weight_decay, sparsity_factor, **statics)
+
+
+def _idbn_batch_step(states: Sequence[rbm_ops.RBMState], key,
+                     batch: torch.Tensor, lr, mom, weight_decay,
+                     sparsity_factor, *, cd: int,
+                     sparsity_flags: Sequence[bool],
+                     compute_dtype: Optional[torch.dtype] = None,
+                     sr: Optional[bool] = None, fast_sampler: bool = False
+                     ) -> Tuple[States, torch.Tensor]:
     """All-layers CD update on one batch (dbn_train.py:366-385); returns
     (states, losses[L])."""
     v = batch.to(compute_dtype or states[0].w.dtype)
@@ -106,7 +132,7 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
     for b in range(nb):
         batch = data[b * batch_size:(b + 1) * batch_size]
         with shard.rows_of(mesh, batch_size) as rows:
-            states, lb = idbn_batch_step(
+            states, lb = _idbn_batch_step(
                 states, rng.fold_in(key, b), batch[rows], lr=lr, mom=mom,
                 weight_decay=weight_decay, sparsity_factor=sparsity_factor,
                 cd=cd, sparsity_flags=sparsity_flags,
@@ -143,7 +169,7 @@ def idbn_epoch_body(consts, state, perm, lr, mom, *, batch_size: int,
     loss_sum = losses.sum()
     rem = n - (n // batch_size) * batch_size
     if rem:
-        states, rl = idbn_batch_step(states, rng.fold_in(key, 987),
+        states, rl = _idbn_batch_step(states, rng.fold_in(key, 987),
                                      data_p[n - rem:], **kw)
         loss_sum = loss_sum + rl.sum()
     return dict(states=states, chains=chains), (loss_sum,)

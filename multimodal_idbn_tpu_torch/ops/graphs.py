@@ -67,6 +67,24 @@ on (a model's weights are held once, not once per graph), and a call
 whose arguments would feed one buffer two different tensors raises.
 Outputs are cloned after each replay, so two calls never share memory.
 
+Calls that update a state in place. The JAX package also jits calls that
+return a new state: the per-batch steps (ops/dbn_train.py:364,
+ops/imdbn_ops.py:441, ops/bimodal_ops.py:304), the RBM shell's training
+entries (models/rbm.py:144-150) and the probe's ``while_loop``
+(utils/probe_utils.py:226). ``update`` (``ServingGraphs.update``) is the
+runner's pattern in a cache: the graph writes the new state into the
+buffers of the state it was given and returns those buffers as the state,
+their version counters moved, so the caller holds its state in the graph's
+buffers from call to call (nothing is copied when it hands them back, a
+state from elsewhere is copied in) and the cache's other graphs (the same
+model's serving calls) read the same buffers. Keys: a call may take one
+key, or a tuple of keys (one per RBM shell it draws from, each from that
+shell's stream): the body then gets ``rng.root_keys(n)`` and the table is
+filled from the n values. Schedule values that change from call to call
+(a learning rate, a momentum) reach a graph as a device tensor
+(``hyper``), not as a constant of its capture. ``SHARED`` holds the
+graphs of calls that belong to no model (the probes).
+
 Launch counts stay counts of launches that ran on the device:
 ``CudaLibrary.launch`` counts host calls, so the launches of a capture
 (which runs nothing) are taken back off the counts and added again at
@@ -349,15 +367,25 @@ class _Buffers:
         return ref() is t and version is not None and \
             _version(t) == version
 
-    def slot(self, t: torch.Tensor) -> int:
-        """The buffer of ``t``: one already holding ``t`` as it is, or a
-        new copy of it."""
+    def slot(self, t: torch.Tensor, taken=()) -> int:
+        """The buffer of ``t``: one already holding ``t`` as it is (and
+        not in ``taken``), or a new copy of it."""
         for i in range(len(self.bufs)):
-            if self._same(i, t):
+            if i not in taken and self._same(i, t):
                 return i
         self.bufs.append(t.clone())
         self.src.append((weakref.ref(t), _version(t)))
         return len(self.bufs) - 1
+
+    def written(self, i: int) -> torch.Tensor:
+        """Buffer ``i`` after a replay wrote it: its version moved, as an
+        in-place update moves it, and it is recorded as its own source,
+        so that it is not copied into itself when it feeds the next
+        call."""
+        buf = self.bufs[i]
+        increment_version(buf)
+        self.src[i] = (weakref.ref(buf), _version(buf))
+        return buf
 
     def load(self, slots: List[int], leaves: List[torch.Tensor]) -> None:
         """Copy into each slot the tensor that now feeds it, unless it
@@ -373,14 +401,35 @@ class _Buffers:
 
 
 class _CallGraph:
-    """One serving call at one signature: its buffer slots, key table,
-    graph and outputs."""
+    """One call at one signature: its buffer slots (the state's first,
+    for an update), key table, graph and outputs."""
 
-    def __init__(self, name: str, slots: List[int], spec):
+    def __init__(self, name: str, slots: List[int], spec, n_keys,
+                 n_state: Optional[int] = None, state_spec=None):
         self.name = name
         self.slots = slots
         self.spec = spec
+        self.n_keys = n_keys
+        self.n_state = n_state       # None: a pure call
+        self.state_spec = state_spec
         self.replays = 0
+
+
+def _statics(kwargs: dict) -> dict:
+    """The keyword arguments of a call that hold no tensor: what fixes
+    its graph beside the shapes (steps, flags), kept with the graph."""
+    return {k: v for k, v in kwargs.items() if not flatten(v)[0]}
+
+
+def _n_keys(key) -> Optional[int]:
+    """None (no key), 0 (one key) or the number of a tuple's roots."""
+    if key is None:
+        return None
+    return len(key) if isinstance(key, (tuple, list)) else 0
+
+
+def _body_key(n_keys: int):
+    return rng.Key() if n_keys == 0 else rng.root_keys(n_keys)
 
 
 class ServingGraphs:
@@ -398,25 +447,55 @@ class ServingGraphs:
         self.graphs: Dict[tuple, _CallGraph] = {}
         self.buffers = _Buffers()
 
-    def _run(self, g: _CallGraph, fn, table: Optional[rng.KeyTable]):
-        args, kwargs = unflatten(g.spec, [self.buffers.bufs[i]
-                                          for i in g.slots])
+    def _run(self, g: _CallGraph, fn, table: Optional[rng.KeyTable],
+             write_state: bool = False):
+        tree = unflatten(g.spec, [self.buffers.bufs[i] for i in g.slots])
+        if g.n_state is None:
+            args, kwargs = tree
+        else:
+            state, args, kwargs = tree
+            args = (state, *args)
         if table is None:
-            return fn(*args, **kwargs)
-        with rng.key_table(table):
-            return fn(*args, key=rng.Key(), **kwargs)
+            out = fn(*args, **kwargs)
+        else:
+            with rng.key_table(table):
+                out = fn(*args, key=_body_key(g.n_keys), **kwargs)
+        if g.n_state is None:
+            return out
+        new, outs = out
+        if write_state:
+            leaves, spec = flatten(new)
+            if spec != g.state_spec:
+                raise RuntimeError(f"{g.name}: the call returned a state "
+                                   f"of another structure")
+            for i, t in zip(g.slots[:g.n_state], leaves):
+                buf = self.buffers.bufs[i]
+                if t is not buf:
+                    buf.copy_(t)
+        return outs
 
-    def _capture(self, name: str, fn, key: Optional[int], leaves, spec
+    def _capture(self, name: str, fn, key, leaves, spec,
+                 n_state: Optional[int] = None, state_spec=None
                  ) -> _CallGraph:
         dev = self.device
-        g = _CallGraph(name, [self.buffers.slot(t) for t in leaves], spec)
+        taken: set = set()
+        slots = []
+        for j, t in enumerate(leaves):
+            # every state leaf gets a buffer of its own: the graph writes
+            # each one
+            i = self.buffers.slot(t, taken if n_state and j < n_state
+                                  else ())
+            if n_state and j < n_state:
+                taken.add(i)
+            slots.append(i)
+        g = _CallGraph(name, slots, spec, _n_keys(key), n_state, state_spec)
         self.buffers.load(g.slots, leaves)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = launch_counts()
         warm = None if key is None else rng.KeyTable(root=key)
         with torch.cuda.stream(side):
-            self._run(g, fn, warm)                 # the warm-up
+            self._run(g, fn, warm)       # the warm-up; the state unwritten
         torch.cuda.current_stream(dev).wait_stream(side)
         warm_launches = launches_since(before)
         add_launches(warm_launches, -1)
@@ -432,7 +511,7 @@ class ServingGraphs:
         before = launch_counts()
         table = None if key is None else rng.KeyTable(g.keys, g.paths)
         with torch.cuda.graph(graph, stream=side):
-            g.outs = self._run(g, fn, table)
+            g.outs = self._run(g, fn, table, write_state=True)
         g.launches_per_replay = launches_since(before)
         add_launches(g.launches_per_replay, -1)
         g.graph = graph
@@ -444,23 +523,63 @@ class ServingGraphs:
                       in g.launches_per_replay.items()}))
         return g
 
-    def call(self, fn, key: Optional[int], *args, **kwargs):
-        leaves, spec = flatten((args, kwargs))
-        sig = _signature(fn, leaves, spec)
-        name = f"serve:{fn.__name__}"
-        g = self.graphs.get(sig)
-        if g is None:
-            g = self.graphs[sig] = self._capture(name, fn, key, leaves, spec)
-        else:
-            self.buffers.load(g.slots, leaves)
+    def _replay(self, g: _CallGraph, key) -> None:
+        if _n_keys(key) != g.n_keys:
+            raise ValueError(f"{g.name}: called with keys {key!r}, captured "
+                             f"with {g.n_keys} (None: no key, 0: one)")
         if g.paths:
             g.keys.copy_(torch.tensor(rng.key_values(key, g.paths),
                                       dtype=torch.int64), non_blocking=True)
         g.graph.replay()
         add_launches(g.launches_per_replay)
         g.replays += 1
-        STATS["replays"][name] += 1
+        STATS["replays"][g.name] += 1
+
+    @staticmethod
+    def signature(fn, args, kwargs, state=None, update: bool = False
+                  ) -> tuple:
+        """The key of a call's graph: ``fn``, the structure, shapes,
+        dtypes and devices of its tensors and its other arguments; an
+        update's is another than a pure call's."""
+        tree = (state, args, kwargs) if update else (args, kwargs)
+        sig = _signature(fn, *flatten(tree))
+        return ("update",) + sig if update else sig
+
+    def call(self, fn, key, *args, **kwargs):
+        """``fn(*args, key=key, **kwargs)``, replayed."""
+        leaves, spec = flatten((args, kwargs))
+        sig = self.signature(fn, args, kwargs)
+        g = self.graphs.get(sig)
+        if g is None:
+            g = self.graphs[sig] = self._capture(f"serve:{fn.__name__}", fn,
+                                                 key, leaves, spec)
+            g.statics = _statics(kwargs)
+        else:
+            self.buffers.load(g.slots, leaves)
+        self._replay(g, key)
         return map_tree(torch.clone, g.outs)
+
+    def update(self, fn, key, state, *args, **kwargs):
+        """``fn(state, *args, key=key, **kwargs)``, which returns (new
+        state, outputs), replayed with the state updated in place: the
+        graph writes the new state into the state's buffers and returns
+        them as the state, their versions moved (``_Buffers.written``).
+        A caller that hands them back at its next call has nothing
+        copied; one that hands other tensors has them copied in."""
+        state_leaves, state_spec = flatten(state)
+        leaves, spec = flatten((state, args, kwargs))
+        sig = self.signature(fn, args, kwargs, state, update=True)
+        g = self.graphs.get(sig)
+        if g is None:
+            g = self.graphs[sig] = self._capture(
+                f"step:{fn.__name__}", fn, key, leaves, spec,
+                len(state_leaves), state_spec)
+            g.statics = _statics(kwargs)
+        else:
+            self.buffers.load(g.slots, leaves)
+        self._replay(g, key)
+        new = [self.buffers.written(i) for i in g.slots[:g.n_state]]
+        return unflatten(g.state_spec, new), map_tree(torch.clone, g.outs)
 
 
 class _Eager:
@@ -484,17 +603,73 @@ def launch_by_launch():
         _EAGER.on = prev
 
 
-def serve(owner, device, fn, key: Optional[int], *args, **kwargs):
-    """``fn(*args, key=key, **kwargs)`` (no ``key`` when None) for a
-    model ``owner`` on ``device``: launch by launch on the CPU (and inside
-    ``launch_by_launch``), through the owner's ``ServingGraphs`` (made at
-    first use, kept as ``owner._serving``) on a CUDA device."""
+def _cache(owner, device) -> Optional[ServingGraphs]:
+    """The owner's ``ServingGraphs`` on a CUDA device (made at first use,
+    kept as ``owner._serving``); None on the CPU and inside
+    ``launch_by_launch``."""
     device = torch.device(device)
     if device.type != "cuda" or _EAGER.on:
-        if key is None:
-            return fn(*args, **kwargs)
-        return fn(*args, key=key, **kwargs)
+        return None
+    if device.index is None:      # "cuda" and "cuda:0" are one cache
+        device = torch.device("cuda", torch.cuda.current_device())
     cache = owner.__dict__.get("_serving")
     if cache is None or cache.device != device:
         cache = owner._serving = ServingGraphs(device)
-    return cache.call(fn, key, *args, **kwargs)
+    return cache
+
+
+def serve(owner, device, fn, key, *args, **kwargs):
+    """``fn(*args, key=key, **kwargs)`` (no ``key`` when None; a tuple of
+    keys reaches ``fn`` as a tuple) for a model ``owner`` on ``device``:
+    launch by launch on the CPU (and inside ``launch_by_launch``), one
+    replay of the owner's graph of this signature on a CUDA device."""
+    cache = _cache(owner, device)
+    if cache is not None:
+        return cache.call(fn, key, *args, **kwargs)
+    if key is None:
+        return fn(*args, **kwargs)
+    return fn(*args, key=key, **kwargs)
+
+
+def update(owner, device, fn, key, state, *args, **kwargs):
+    """(new state, outputs) of ``fn(state, *args, key=key, **kwargs)``
+    for ``owner`` on ``device``: launch by launch on the CPU (and inside
+    ``launch_by_launch``); on a CUDA device one replay that updates the
+    state in its buffers (``ServingGraphs.update``)."""
+    cache = _cache(owner, device)
+    if cache is not None:
+        return cache.update(fn, key, state, *args, **kwargs)
+    if key is None:
+        return fn(state, *args, **kwargs)
+    return fn(state, *args, key=key, **kwargs)
+
+
+class Owner:
+    """Holds the graphs of calls that belong to no model (``SHARED``:
+    the probes, a bare state's diagnostics), as a model holds its own."""
+
+
+SHARED = Owner()
+
+_HYPER: Dict[tuple, torch.Tensor] = {}
+
+
+def hyper(device, *values: float):
+    """Schedule values (learning rates, momenta) for a replayed call: on
+    a CUDA device one float64 tensor, made once per (device, values) and
+    kept, so a graph reads them from its buffer (a float would be a
+    constant of the capture, and a new signature at every new value) and
+    a call with the values of the last one copies nothing; on the CPU the
+    floats themselves. A 0-d float64 operand rounds as the float does
+    (the epoch runners' ``lr`` and ``mom``)."""
+    device = torch.device(device)
+    values = tuple(float(v) for v in values)
+    if device.type != "cuda":
+        return values
+    k = (device, values)
+    t = _HYPER.get(k)
+    if t is None:
+        if len(_HYPER) >= 256:
+            _HYPER.pop(next(iter(_HYPER)))
+        t = _HYPER[k] = torch.tensor(values, dtype=torch.float64).to(device)
+    return t

@@ -238,13 +238,26 @@ def joint_train_batch_step(joint: rbm_ops.RBMState,
                            compute_metrics: bool = True,
                            sr: Optional[bool] = None):
     """``_joint_train_batch`` with JAX's defaults: the single-batch jitted
-    variant (imdbn_ops.py:440-459)."""
-    return _joint_train_batch(
-        joint, idbn_states, key, zb, yb, imgb, b_idx, lr, mom, weight_decay,
-        z_class_mean, warmup=warmup, joint_cd=joint_cd,
-        aux_cond_steps=aux_cond_steps, Dz=Dz, steps=steps, groups=groups,
-        use_free_energy=use_free_energy, zclamp_every=zclamp_every,
-        compute_metrics=compute_metrics, sr=sr)
+    variant (imdbn_ops.py:440-459). On a CUDA device one graph replay
+    (``graphs.serve``, the graphs of ``graphs.SHARED``; lr and momentum
+    read from ``graphs.hyper``; the batch index reaches the graph only as
+    whether the z-clamp runs), launch by launch elsewhere."""
+    dev = zb.device
+    zclamp_every = int(zclamp_every)
+    return graphs.serve(
+        graphs.SHARED, dev, _joint_step_at, key, joint, idbn_states, zb, yb,
+        imgb, graphs.hyper(dev, lr, mom), weight_decay, z_class_mean,
+        b_idx=0 if int(b_idx) % zclamp_every == 0 else 1, warmup=warmup,
+        joint_cd=joint_cd, aux_cond_steps=aux_cond_steps, Dz=Dz,
+        steps=steps, groups=groups, use_free_energy=use_free_energy,
+        zclamp_every=zclamp_every, compute_metrics=compute_metrics, sr=sr)
+
+
+def _joint_step_at(joint, idbn_states, zb, yb, imgb, hyper, weight_decay,
+                   z_class_mean, *, key, b_idx, **statics):
+    return _joint_train_batch(joint, idbn_states, key, zb, yb, imgb, b_idx,
+                              hyper[0], hyper[1], weight_decay, z_class_mean,
+                              **statics)
 
 
 def joint_epoch(joint: rbm_ops.RBMState,

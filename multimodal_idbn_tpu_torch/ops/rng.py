@@ -124,7 +124,7 @@ class KeyTable:
 
     def __init__(self, keys: Optional[torch.Tensor] = None,
                  expected: Optional[Sequence[Tuple[int, ...]]] = None, *,
-                 root: Optional[int] = None):
+                 root: Optional[Union[int, Sequence[int]]] = None):
         if (keys is None) == (root is None):
             raise ValueError("a key table is by value (root) or read from "
                              "a tensor (keys), not both")
@@ -133,8 +133,13 @@ class KeyTable:
         self.keys = keys
         self.expected = None if expected is None else list(expected)
         self.paths: List[Tuple[int, ...]] = []
-        self._memo: Dict[Tuple[int, ...], int] = (
-            {} if root is None else {(): int(root) & _M64})
+        if root is None:
+            self._memo: Dict[Tuple[int, ...], int] = {}
+        elif isinstance(root, (tuple, list)):
+            # several roots (``root_keys``): root i is the path (i,)
+            self._memo = {(i,): int(r) & _M64 for i, r in enumerate(root)}
+        else:
+            self._memo = {(): int(root) & _M64}
 
     def index(self, key: Key) -> int:
         i = len(self.paths)
@@ -155,10 +160,17 @@ class KeyTable:
         return memo[path]
 
 
-def key_values(root: int, paths: Sequence[Tuple[int, ...]]) -> List[int]:
-    """The values of ``paths`` from the epoch key ``root``, in order, as
-    int64 (the two's complement of each 64-bit key), for a key table's
-    tensor."""
+def root_keys(n: int) -> Tuple[Key, ...]:
+    """The ``Key`` of each of ``n`` independent roots, for a body that
+    takes several keys (a table made with ``root`` a sequence of n ints:
+    one key for each RBM shell a call draws from)."""
+    return tuple(Key((i,)) for i in range(n))
+
+
+def key_values(root, paths: Sequence[Tuple[int, ...]]) -> List[int]:
+    """The values of ``paths`` from the epoch key ``root`` (or the roots
+    of ``root_keys``), in order, as int64 (the two's complement of each
+    64-bit key), for a key table's tensor."""
     table = KeyTable(root=root)
     out = [table.value(Key(tuple(p))) for p in paths]
     return [v - (1 << 64) if v >> 63 else v for v in out]
@@ -240,13 +252,10 @@ STREAM_BITS = 3      # of ``random_bits16``
 
 def _mulhilo(a: torch.Tensor, m: int):
     """(hi, lo) 32-bit words of ``a * m`` for 32-bit ``a`` (int64 tensor)
-    and constant ``m``, in 16-bit halves so no int64 product overflows."""
-    a_lo, a_hi = a & 0xFFFF, a >> 16
-    m_lo, m_hi = m & 0xFFFF, m >> 16
-    mid = a_lo * m_hi + a_hi * m_lo
-    low = a_lo * m_lo + ((mid & 0xFFFF) << 16)
-    hi = a_hi * m_hi + (mid >> 16) + (low >> 32)
-    return hi & _M32, low & _M32
+    and constant ``m``: one int64 product, which wraps modulo 2^64 and so
+    holds the 64 bits of the unsigned product."""
+    p = a * m
+    return (p >> 32) & _M32, p & _M32
 
 
 def philox4x32(counter: Sequence[torch.Tensor], key):

@@ -805,6 +805,27 @@ def run_pools(flagship: Sequence[int], bimodal: Sequence[int], outdir: str,
     return pools
 
 
+def same_seeds(files: Sequence[str]) -> dict:
+    """{seed: verdict} of the seeds two pool files share: the digest of
+    every trained state and every metric equal (the seconds aside), and
+    the launches. ``equal`` is True when every shared seed is."""
+    a, b = (json.loads(Path(f).read_text()) for f in files)
+    recs = [d.get("ours") or d.get("seeds") for d in (a, b)]
+    out = {}
+    for seed in sorted(set(recs[0]) & set(recs[1]), key=int):
+        ra, rb = ({k: v for k, v in r[seed].items() if not k.endswith("_s")}
+                  for r in recs)
+        out[seed] = {
+            "digest": a["digests"][seed] == b["digests"][seed],
+            "metrics": ra == rb,
+            "launches": a["launches"][seed] == b["launches"][seed],
+            "differing": sorted(k for k in set(ra) | set(rb)
+                                if ra.get(k) != rb.get(k))}
+    return {"seeds": out, "equal": bool(out) and all(
+        v["digest"] and v["metrics"] and v["launches"]
+        for v in out.values())}
+
+
 def parse_args(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(
         prog="python -m multimodal_idbn_tpu_torch.quality",
@@ -829,6 +850,10 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("kind", choices=["flagship", "bimodal"])
     p.add_argument("files", nargs="+")
     p.add_argument("--out", default=None)
+    p = sub.add_parser("same", help="are the seeds two pool files share "
+                                    "bit-equal (digests, metrics, "
+                                    "launches)?")
+    p.add_argument("files", nargs=2)
     return ap.parse_args(argv)
 
 
@@ -836,6 +861,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     if args.cmd == "pools":
         return run_pools(args.flagship, args.bimodal, args.outdir, args.jobs)
+    if args.cmd == "same":
+        res = same_seeds(args.files)
+        print(json.dumps(res))
+        if not res["equal"]:
+            raise SystemExit(1)
+        return res
     if args.cmd == "compare":
         cmp = comparison(args.kind, args.files)
         print(comparison_table(cmp))

@@ -9,7 +9,10 @@ As in JAX, each panel's chains run batched over the whole panel for a
 fixed number of steps and the convergence criteria are evaluated post-hoc
 on the recorded trajectories. The chains are plain torch loops on the
 model's device that keep every step (the chain kernel returns only the
-final state), copied to the host once per chain. Draws come from
+final state), copied to the host once per chain; on the card each panel
+chain is one graph replay (``ops.graphs``, the model's graphs), as JAX
+jits ``_img2txt_panel_chain`` and ``_txt2img_panel_chain`` (:56, :88).
+Draws come from
 ``ops.rng`` / ``ops.sampling`` keyed by the joint RBM's own stream, so the
 deterministic sampler modes pin them in the tests. Numbers first: every
 summary and statistic is logged before the figures.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch.device import as_tensor, to_numpy
-from multimodal_idbn_tpu_torch.ops import dbn_train, rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import dbn_train, graphs, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
                                                     sample_bernoulli,
                                                     sample_visible)
@@ -183,8 +186,9 @@ def trace_img2txt_cross_batch(model, imgs, lbls=None, max_steps=70,
     post-hoc convergence. Returns a list of reference-schema dicts."""
     z = model.image_idbn.represent(imgs)
     Dz = getattr(model, "Dz_img", z.shape[1])
-    y0, ys = _img2txt_panel_chain(
-        model.joint_rbm.state, model.joint_rbm._next_key(), z,
+    y0, ys = graphs.serve(
+        model, z.device, _img2txt_panel_chain, model.joint_rbm._next_key(),
+        rbm_ops.weights_only(model.joint_rbm.state), z=z,
         steps=int(max_steps), groups=_groups(model.joint_rbm),
         sample_h=sample_h, sample_v=sample_v, Dz=Dz)
     y0, ys = to_numpy(y0), to_numpy(ys)                      # ys [steps, B, K]
@@ -273,9 +277,11 @@ def trace_txt2img_cross_batch(model, imgs, lbls, max_steps=70,
         v_known = torch.cat([torch.zeros((B, Dz), device=dev), y], dim=1)
         h0 = rbm_ops.hidden_probs(state, v_known)
         z_init = rbm_ops.visible_probs(state, h0, groups=groups)[:, :Dz]
-    dzs, mses, z_final = _txt2img_panel_chain(
-        state, model.image_idbn.states(), model.joint_rbm._next_key(), y,
-        img_gt, z_init, steps=int(max_steps), groups=groups,
+    dzs, mses, z_final = graphs.serve(
+        model, dev, _txt2img_panel_chain, model.joint_rbm._next_key(),
+        rbm_ops.weights_only(state), model.image_idbn._weights(),
+        y_onehot=y, img_gt=img_gt, z_init=z_init, steps=int(max_steps),
+        groups=groups,
         sample_h=sample_h, sample_v=sample_v, Dz=Dz,
         ema_beta=float(ema_beta))
     dzs, mses = to_numpy(dzs), to_numpy(mses)

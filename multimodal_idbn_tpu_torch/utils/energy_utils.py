@@ -5,7 +5,9 @@ per-class free energies F_k(z) broadcast over K, the deterministic
 "mean-field lite" IMG→TXT step, fixed-validation-case caching, and the
 logging helpers. The fixed-length trace is a plain torch loop on the
 model's device that keeps every step (JAX's ``lax.scan``; the chain kernel
-returns only the final state), copied to the host once; the convergence
+returns only the final state), copied to the host once; on the card it
+and the class free energies are one graph replay each (``ops.graphs``,
+the model's graphs), as JAX jits them (:39, :115); the convergence
 criterion is then evaluated post-hoc on the trajectory, as in JAX.
 Numbers first: the case summary is logged before its two figures.
 """
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch.device import as_tensor, to_numpy
-from multimodal_idbn_tpu_torch.ops import rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import graphs, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.sampling import (
     sample_bernoulli, sample_categorical_onehot)
 from multimodal_idbn_tpu_torch.utils.wandb_compat import pyplot, wandb
@@ -41,9 +43,19 @@ def rbm_free_energy(rbm, v) -> torch.Tensor:
 def class_free_energies(joint_rbm, z_img_top, K: int, Dz: int
                         ) -> torch.Tensor:
     """F_k(z) = F([z, e_k]) for all classes, broadcast over K without a
-    B×K visible blowup (JAX energy_utils.py:39-57)."""
+    B×K visible blowup (JAX energy_utils.py:39-57); one graph replay on
+    the card, in the shell's graphs (``graphs.SHARED`` for a bare
+    state)."""
     state = _state_of(joint_rbm)
-    z = as_tensor(z_img_top, state.w.device)
+    dev = state.w.device
+    owner = joint_rbm if hasattr(joint_rbm, "state") else graphs.SHARED
+    return graphs.serve(owner, dev, _class_free_energies, None,
+                        rbm_ops.weights_only(state),
+                        as_tensor(z_img_top, dev), K=int(K), Dz=int(Dz))
+
+
+def _class_free_energies(state: rbm_ops.RBMState, z: torch.Tensor, *,
+                         K: int, Dz: int) -> torch.Tensor:
     Wz, Wy = state.w[:Dz, :], state.w[Dz:Dz + K, :]
     bz, by = state.vb[:Dz], state.vb[Dz:Dz + K]
     z_bz = (z * bz[None, :]).sum(dim=1, keepdim=True)          # [B, 1]
@@ -136,8 +148,10 @@ def trace_single_img2txt(model, img, lbl_onehot=None, steps: int = 30,
     top2 = np.sort(Fk)[:2]
     margin_energy = float(top2[1] - top2[0])
 
-    ys = to_numpy(_img2txt_chain(_state_of(joint), z, Dz=Dz, K=K,
-                                 steps=int(steps)))[:, 0, :]   # [steps, K]
+    ys = to_numpy(graphs.serve(
+        model, z.device, _img2txt_chain, None,
+        rbm_ops.weights_only(_state_of(joint)), z, Dz=Dz, K=K,
+        steps=int(steps)))[:, 0, :]                            # [steps, K]
 
     gt = (int(np.argmax(to_numpy(lbl_onehot), axis=1)[0])
           if lbl_onehot is not None else None)

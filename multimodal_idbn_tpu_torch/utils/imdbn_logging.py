@@ -7,7 +7,9 @@ the joint auto-reconstruction metrics.
 
 The trajectory chain is a plain torch loop on the model's device that
 keeps every step's latent (JAX's ``lax.scan``), its Bernoulli draws keyed
-by the joint RBM's own stream through ``ops.sampling``. The 2-D panel's
+by the joint RBM's own stream through ``ops.sampling``; on the card it is
+one graph replay (``ops.graphs``, the model's graphs), as JAX jits it
+(:79). The 2-D panel's
 end point is the full training-path reconstruction ``_cross_reconstruct``
 (the chain kernel on the card). Encoding runs on the device; the banks and
 the PCA projections are host NumPy, as in JAX, so neighbour indices equal
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch.device import as_tensor, to_numpy
-from multimodal_idbn_tpu_torch.ops import rbm_ops, rng
+from multimodal_idbn_tpu_torch.ops import graphs, rbm_ops, rng
 from multimodal_idbn_tpu_torch.ops.sampling import (apply_softmax_groups,
                                                     clamp_mask,
                                                     sample_bernoulli)
@@ -103,9 +105,11 @@ def _run_traj(model, y_i, steps: int) -> np.ndarray:
     """z trajectory [steps+1, Dz] including the init point, host numpy."""
     v_cur, v_known, km = _init_txt2img_state(model, y_i)
     groups = tuple(tuple(g) for g in model.joint_rbm.softmax_groups)
-    zs = _traj_chain(model.joint_rbm.state, model.joint_rbm._next_key(),
-                     v_cur, v_known, km, steps=int(steps), groups=groups,
-                     Dz=model.Dz_img)
+    zs = graphs.serve(model, v_cur.device, _traj_chain,
+                      model.joint_rbm._next_key(),
+                      rbm_ops.weights_only(model.joint_rbm.state),
+                      v_cur=v_cur, v_known=v_known, km=km, steps=int(steps),
+                      groups=groups, Dz=model.Dz_img)
     z0 = to_numpy(v_cur[:, :model.Dz_img])
     return np.concatenate([z0, to_numpy(zs)[:, 0, :]], axis=0)
 

@@ -13,7 +13,10 @@ condition (``step < max_steps and no_improve < patience``): once it is
 false the state freezes exactly, and the host reads the condition only
 every ``check_every`` steps to leave the loop early. The result is the
 same whatever ``check_every`` is, with one host sync per ``check_every``
-steps instead of one per step. The gradient is the closed form of the
+steps instead of one per step. On the card a chunk of ``check_every``
+steps is one graph replay (``ops.graphs.update``, the graphs of
+``graphs.SHARED``): captured once per probe shape and setting, the state
+updated in its buffers from chunk to chunk. The gradient is the closed form of the
 softmax cross entropy's, ``Xᵀ(softmax(XW + b) − onehot(y)) / n``.
 
 The initial weights: JAX draws them from threefry, which the port cannot
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from multimodal_idbn_tpu_torch.device import as_tensor, to_numpy
+from multimodal_idbn_tpu_torch.ops import graphs
 from multimodal_idbn_tpu_torch.utils.wandb_compat import (has_pandas, pyplot,
                                                           wandb)
 
@@ -198,39 +202,30 @@ def default_probe_init(D: int, n_classes: int) -> Tuple[torch.Tensor,
     return W0, b0
 
 
-def fit_linear_probe(Xtr: torch.Tensor, ytr: torch.Tensor,
-                     Xva: torch.Tensor, yva: torch.Tensor, W0: torch.Tensor,
-                     b0: torch.Tensor, *, max_steps: int = 1000,
-                     lr: float = 1e-2, weight_decay: float = 0.0,
-                     patience: int = 20, min_delta: float = 0.0,
-                     check_every: int = 25, b1: float = 0.9,
-                     b2: float = 0.999, eps: float = 1e-8
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The best (W, b) by validation loss of the full-batch AdamW probe
-    (JAX probe_utils.py:199-228), on the device of ``Xtr``."""
-    dev = Xtr.device
-    n_classes = W0.shape[1]
-    W, b = W0.to(dev).clone(), b0.to(dev).clone()
-    mW, vW = torch.zeros_like(W), torch.zeros_like(W)
-    mb, vb = torch.zeros_like(b), torch.zeros_like(b)
-    best_W, best_b = W.clone(), b.clone()
-    best_loss = torch.tensor(float("inf"), device=dev)
-    no_improve = torch.zeros((), dtype=torch.int64, device=dev)
+def _probe_chunk(state: dict, Xtr, onehot, Xva, yva, bc, *, steps: int,
+                 max_steps: int, lr: float, weight_decay: float,
+                 patience: int, min_delta: float, b1: float, b2: float,
+                 eps: float) -> Tuple[dict, tuple]:
+    """``steps`` masked AdamW steps of the probe from ``state`` (W, b,
+    their moments, the best (W, b) and loss, the patience counter and the
+    step, all on the device): a step runs while ``step < max_steps and
+    no_improve < patience``, and once that is false the state is frozen.
+    ``bc`` [2, ≥ max_steps] holds the bias corrections 1 − β^t of each
+    step, read at the device's step counter. Returns (state, ())."""
+    W, b, mW, vW, mb, vb = (state[k] for k in ("W", "b", "mW", "vW", "mb",
+                                                "vb"))
+    best_W, best_b, best_loss = state["best_W"], state["best_b"], \
+        state["best_loss"]
+    no_improve, step = state["no_improve"], state["step"]
     zero = torch.zeros_like(no_improve)
-    onehot = torch.nn.functional.one_hot(ytr, n_classes).to(W.dtype)
     n = Xtr.shape[0]
-    # bias corrections in fp32, as JAX takes a float32 power (CPU scalars)
-    b1_32, b2_32 = (torch.tensor(x, dtype=torch.float32) for x in (b1, b2))
-    for step in range(int(max_steps)):
-        active = no_improve < patience
-        if step % check_every == 0 and not bool(active):
-            break
-        # the VJP of log_softmax as autodiff takes it: g − softmax·Σg
-        g_out = onehot * (-1.0 / n)
+    # the VJP of log_softmax as autodiff takes it: g − softmax·Σg
+    g_out = onehot * (-1.0 / n)
+    for _ in range(int(steps)):
+        active = (no_improve < patience) & (step < max_steps)
         logp = torch.log_softmax(Xtr @ W + b, dim=1)
         g_logits = g_out - torch.exp(logp) * g_out.sum(dim=1, keepdim=True)
-        t = torch.tensor(step + 1, dtype=torch.float32)
-        bc1, bc2 = 1 - b1_32 ** t, 1 - b2_32 ** t
+        bc1, bc2 = bc.index_select(1, step.reshape(1)).reshape(2).unbind(0)
         new = []
         for p, m, v, g in ((W, mW, vW, Xtr.T @ g_logits),
                            (b, mb, vb, g_logits.sum(0))):
@@ -251,7 +246,58 @@ def fit_linear_probe(Xtr: torch.Tensor, ytr: torch.Tensor,
                      ((W_n, W), (mW_n, mW), (vW_n, vW)))
         b, mb, vb = (torch.where(active, a, o) for a, o in
                      ((b_n, b), (mb_n, mb), (vb_n, vb)))
-    return best_W, best_b
+        step = step + 1
+    return dict(W=W, b=b, mW=mW, vW=vW, mb=mb, vb=vb, best_W=best_W,
+                best_b=best_b, best_loss=best_loss, no_improve=no_improve,
+                step=step), ()
+
+
+def fit_linear_probe(Xtr: torch.Tensor, ytr: torch.Tensor,
+                     Xva: torch.Tensor, yva: torch.Tensor, W0: torch.Tensor,
+                     b0: torch.Tensor, *, max_steps: int = 1000,
+                     lr: float = 1e-2, weight_decay: float = 0.0,
+                     patience: int = 20, min_delta: float = 0.0,
+                     check_every: int = 25, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best (W, b) by validation loss of the full-batch AdamW probe
+    (JAX probe_utils.py:199-228), on the device of ``Xtr``: chunks of
+    ``check_every`` steps (``_probe_chunk``; one graph replay each on the
+    card, captured once per shape and setting), the loop's condition read
+    on the host before each chunk."""
+    dev = Xtr.device
+    n_classes = W0.shape[1]
+    max_steps = int(max_steps)
+    chunk = max(1, min(int(check_every), max_steps))
+    n_chunks = -(-max_steps // chunk)
+    W, b = W0.to(dev).clone(), b0.to(dev).clone()
+    state = dict(W=W, b=b, mW=torch.zeros_like(W), vW=torch.zeros_like(W),
+                 mb=torch.zeros_like(b), vb=torch.zeros_like(b),
+                 best_W=W.clone(), best_b=b.clone(),
+                 best_loss=torch.tensor(float("inf"), device=dev),
+                 no_improve=torch.zeros((), dtype=torch.int64, device=dev),
+                 step=torch.zeros((), dtype=torch.int64, device=dev))
+    onehot = torch.nn.functional.one_hot(ytr, n_classes).to(W.dtype)
+    # bias corrections in fp32, as JAX takes a float32 power (CPU scalars),
+    # one per step of every chunk
+    b1_32, b2_32 = (torch.tensor(x, dtype=torch.float32) for x in (b1, b2))
+    ts = [torch.tensor(t + 1, dtype=torch.float32)
+          for t in range(n_chunks * chunk)]
+    bc = torch.stack([torch.stack([1 - b1_32 ** t for t in ts]),
+                      torch.stack([1 - b2_32 ** t for t in ts])]
+                     ) if ts else torch.ones((2, 1))
+    bc = bc.to(dev)
+    statics = dict(steps=chunk, max_steps=max_steps, lr=float(lr),
+                   weight_decay=float(weight_decay), patience=int(patience),
+                   min_delta=float(min_delta), b1=float(b1), b2=float(b2),
+                   eps=float(eps))
+    for _ in range(n_chunks):
+        if not bool(state["no_improve"] < patience):
+            break
+        state, _ = graphs.update(graphs.SHARED, dev, _probe_chunk, None,
+                                 state, Xtr, onehot, Xva, yva, bc,
+                                 **statics)
+    return state["best_W"].clone(), state["best_b"].clone()
 
 
 def train_linear_classifier(X_train, y_train, X_val, y_val, device=None,

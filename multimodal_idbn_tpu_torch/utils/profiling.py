@@ -11,7 +11,9 @@ Port of multimodal_idbn_tpu/utils/profiling.py:26-153:
   work it enqueued;
 - :func:`measure_gibbs_steps_per_sec` — clamped mean-field chain steps per
   second at the flagship joint RBM's shape, through the port's
-  ``conditional_gibbs`` (the chain kernel on the card).
+  ``conditional_gibbs`` (the chain kernel on the card), each timed call
+  one replay of a graph captured by the untimed warm-up call, as JAX
+  times its jitted chain (:134).
 """
 
 from __future__ import annotations
@@ -133,8 +135,8 @@ def measure_gibbs_steps_per_sec(num_visible: int = 532,
     """Clamped mean-field chain throughput with all state on the device
     (defaults = the flagship joint RBM: 500+32 visibles, softmax label
     group; the z block clamped). One ``conditional_gibbs`` call is one
-    chain-kernel launch on the card; the time is the median of three
-    synchronised calls on the host clock.
+    chain-kernel launch on the card, in one graph replay; the time is the
+    median of three synchronised calls on the host clock.
 
     Returns {"chain_steps_per_sec", "cell_updates_per_sec", "elapsed_s"}
     where a chain step is one full v→h→v mean-field iteration over the
@@ -151,10 +153,14 @@ def measure_gibbs_steps_per_sec(num_visible: int = 532,
     km[:, :Dz] = 1.0
     groups = tuple(tuple(g) for g in groups)
 
+    from multimodal_idbn_tpu_torch.ops import graphs
+    owner = graphs.Owner()           # its graph goes with this call
+
     def run(key):
-        return rbm_ops.conditional_gibbs(state, key, v_known, km,
-                                         n_steps=n_steps, sample_h=False,
-                                         sample_v=False, groups=groups)
+        return graphs.serve(owner, dev, rbm_ops.conditional_gibbs, key,
+                            state, v_known=v_known, known_mask=km,
+                            n_steps=n_steps, sample_h=False, sample_v=False,
+                            groups=groups)
 
     if warmup:
         run(rng.fold_in(seed, 1))

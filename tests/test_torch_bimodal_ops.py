@@ -32,6 +32,7 @@ from multimodal_idbn_tpu_torch.ops import half_step, rbm_ops, rng
 
 from torch_parity import (assert_states_close, both_deterministic, close,
                           jax_state, np_state, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 KEY = jax.random.key(0)
 B, D1, D2, Dz1, Dz2 = 6, 20, 18, 12, 8

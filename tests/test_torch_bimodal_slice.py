@@ -22,6 +22,7 @@ from multimodal_idbn_tpu_torch.models import iMDBN_BiModal
 
 from torch_parity import (both_deterministic, close, jax_state, np_state,
                           state_np, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 SMOKE_YAML = "configs/smoke_bimodal.yaml"
 SIDE, K = 12, 4

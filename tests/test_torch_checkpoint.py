@@ -39,6 +39,7 @@ from torch_parity import (BIMODAL_JOINT, IMG_LAYERS, JOINT_HIDDEN, K,
                           assert_models_equal, jax_state, randomize,
                           rbm_arrays, small_bimodal, small_imdbn,
                           small_loaders, state_np, t)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

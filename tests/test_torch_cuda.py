@@ -846,9 +846,11 @@ def test_serving_calls_replayed_equal_launch_by_launch(dev, monkeypatch,
             call(m)
         assert replayed == graphs.launches_since(before), name
     # one graph per call and shape, replayed at every call after its
-    # capture (the first call's, the second's and the checked one)
-    assert m._serving.graphs and all(
-        g.replays >= 3 for g in m._serving.graphs.values())
+    # capture (the first call's, the second's and the checked one); the
+    # cache also holds the bias statistics that training ran once
+    serving = [g for g in m._serving.graphs.values()
+               if g.name != "serve:joint_bias_stats"]
+    assert serving and all(g.replays >= 3 for g in serving)
 
 
 @pytest.mark.parametrize("how", ["train", "from_payload"])
@@ -883,3 +885,318 @@ def test_serving_graphs_follow_new_weights(dev, tmp_path, how):
             assert _tree_equal(eager, before[name]), name
     if how == "train":     # the same graphs, refreshed
         assert not graphs.STATS["captures"]
+
+
+# -- the rest of what the JAX package jits, as graph replays --------------------
+
+@contextlib.contextmanager
+def _updates_without_sync(monkeypatch):
+    """Every serving call and in-place update inside the block that
+    replays a graph captured before it under
+    ``set_sync_debug_mode("error")``."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    real = graphs.ServingGraphs._replay
+
+    def checked(self, g, key):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, g, key)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.ServingGraphs, "_replay", checked)
+        yield
+
+
+def _shell(dev, groups):
+    from multimodal_idbn_tpu_torch.models import RBM
+    return RBM(40 + 8, 24, 0.1, 1e-4, 0.5, dynamic_lr=True,
+               softmax_groups=[(40, 48)] if groups else None, seed=3,
+               device=dev)
+
+
+def _shell_calls(r):
+    """name -> call of every jitted entry of the shell."""
+    g = torch.Generator().manual_seed(4)
+    v = torch.rand((6, 48), generator=g).to(r.device)
+    h = torch.rand((6, 24), generator=g).to(r.device)
+    km = torch.cat([torch.ones(6, 40), torch.zeros(6, 8)], 1).to(r.device)
+    return {
+        "forward": lambda: r.forward(v),
+        "visible_probs": lambda: r.visible_probs(h),
+        "backward logits": lambda: r.backward(h, return_logits=True),
+        "sample_visible": lambda: r.sample_visible(v),
+        "backward_sample": lambda: r.backward_sample(h),
+        "gibbs_step": lambda: r.gibbs_step(v),
+        "free_energy": lambda: r.free_energy(v),
+        "conditional_gibbs mean-field": lambda: r.conditional_gibbs(v, km,
+                                                                    5),
+        "conditional_gibbs sampled": lambda: r.conditional_gibbs(
+            v, km, 5, sample_h=True, sample_v=True),
+        "conditional_gibbs_annealed": lambda: r.conditional_gibbs_annealed(
+            v, km, 6, sample_h_until=3, sample_v_every=2),
+        "noisy_meanfield_annealed": lambda: r.noisy_meanfield_annealed(
+            v, 1.0 - km, 8),
+    }
+
+
+@pytest.mark.parametrize("groups", [True, False])
+def test_rbm_shell_entries_replayed_equal_launch_by_launch(dev, monkeypatch,
+                                                           groups):
+    """Each jitted entry of the shell: launch by launch, its first call
+    through the shell's graphs and a replay under the sync check, from
+    the same key stream, bit-equal; one replay per call; after one more
+    ``train_epoch`` (itself one replay) the same graphs serve the new
+    weights: bit-equal to launch by launch, changed, no new capture."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    r = _shell(dev, groups)
+    calls = _shell_calls(r)
+
+    def three_ways(call):
+        outs = []
+        for way in ("eager", "first", "replay"):
+            r.reseed(11)
+            with (graphs.launch_by_launch() if way == "eager" else
+                  _updates_without_sync(monkeypatch) if way == "replay"
+                  else contextlib.nullcontext()):
+                outs.append(call())
+        return outs
+
+    before = {}
+    for name, call in calls.items():
+        eager, first, again = three_ways(call)
+        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
+        before[name] = eager
+    assert all(g.replays == 2 for g in r._serving.graphs.values())
+    data = torch.rand((6, 48), generator=torch.Generator().manual_seed(5))
+    twin = _shell(dev, groups)
+    twin.state = r.state
+    r.reseed(12)
+    twin.reseed(12)
+    loss = r.train_epoch(data.to(dev), 0, 2, CD=2)
+    with graphs.launch_by_launch():
+        loss_eager = twin.train_epoch(data.to(dev), 0, 2, CD=2)
+    assert torch.equal(loss, loss_eager)
+    for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m"):
+        assert torch.equal(getattr(r.state, f), getattr(twin.state, f)), f
+    graphs.reset_stats()
+    for name, call in calls.items():
+        eager, first, again = three_ways(call)
+        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
+        if name != "sample_visible":         # reads no weight
+            assert not _tree_equal(eager, before[name]), name
+    assert not graphs.STATS["captures"]
+
+
+def test_probe_replays_one_graph_per_chunk(dev, monkeypatch):
+    """The probe on the card: one replay per chunk of ``check_every``
+    steps, bit-equal (W, b) to launch by launch and to chunks of another
+    length, the chunk replays free of host synchronisation."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    from multimodal_idbn_tpu_torch.utils import probe_utils as tpu
+    g = torch.Generator().manual_seed(1)
+    X = torch.randn((120, 32), generator=g)
+    y = (X @ torch.randn((32, 5), generator=g)).argmax(1)
+    args = [t.to(dev) for t in (X[:90], y[:90], X[90:], y[90:])] + [
+        0.1 * torch.randn((32, 5), generator=g), torch.zeros(5)]
+    calls = []
+    real = graphs.update
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(graphs, "update", counting)
+    graphs.reset_stats()
+    with _updates_without_sync(monkeypatch):
+        W, b = tpu.fit_linear_probe(*args, max_steps=400, lr=5e-2,
+                                    patience=20, check_every=25)
+    assert graphs.STATS["replays"]["step:_probe_chunk"] == len(calls) >= 2
+    with graphs.launch_by_launch():
+        W1, b1 = tpu.fit_linear_probe(*args, max_steps=400, lr=5e-2,
+                                      patience=20, check_every=1)
+    assert torch.equal(W, W1) and torch.equal(b, b1)
+    W7, b7 = tpu.fit_linear_probe(*args, max_steps=400, lr=5e-2,
+                                  patience=20, check_every=7)
+    assert torch.equal(W, W7) and torch.equal(b, b7)
+
+
+@pytest.mark.parametrize("family", ["image", "joint", "bimodal"])
+def test_per_batch_steps_replayed_equal_launch_by_launch(dev, monkeypatch,
+                                                         family):
+    """The per-batch loops (a loader iterated batch by batch): one replay
+    per batch, the model bit-equal to the same loop launch by launch; the
+    serving graphs captured before serve the weights the batches wrote
+    in place (bit-equal to launch by launch, changed, no new capture)."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    make = _small_bimodal if family == "bimodal" else _small_imdbn
+    models = []
+    for eager in (False, True):
+        m = make(dev)
+        if family == "joint":
+            m.image_idbn.train(1)
+        with (graphs.launch_by_launch() if eager
+              else contextlib.nullcontext()):
+            serve = _serving_calls(m, family == "bimodal")
+            before = {n: c(m) for n, c in serve.items()}
+            graphs.reset_stats()
+            if family == "image":
+                m.image_idbn.train(2, fused=False)
+            else:
+                m.train_joint(9, fused=False)
+            replays = dict(graphs.STATS["replays"])
+            after = {n: c(m) for n, c in serve.items()}
+        models.append((m, replays, before, after))
+    (m, replays, before, after), (e, eager_replays, _, eager_after) = models
+    assert not any(k.startswith("step:") for k in eager_replays)
+    nb = len(m.dataloader)
+    step = {"image": "step:_batch_step", "joint": "step:_joint_batch_step",
+            "bimodal": "step:_bimodal_batch_step"}[family]
+    assert replays[step] == nb * (2 if family == "image" else 9)
+    if family == "image":
+        assert m.image_idbn.loss_history == e.image_idbn.loss_history
+    else:
+        assert m.joint_metrics_history == e.joint_metrics_history
+    parts = ([*m.image_idbn.layers, m.joint_rbm] if family != "bimodal"
+             else list(m.joint_layers))
+    twins = ([*e.image_idbn.layers, e.joint_rbm] if family != "bimodal"
+             else list(e.joint_layers))
+    for a, b in zip(parts, twins):
+        for f in ("w", "hb", "vb", "w_m", "hb_m", "vb_m"):
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    for name in after:
+        assert _tree_equal(after[name], eager_after[name]), name
+        if family == "joint" and name.startswith(("reconstruct", "decode")):
+            continue                   # the image iDBN alone: not trained
+        assert not _tree_equal(after[name], before[name]), name
+
+
+def _deep_equal(a, b) -> bool:
+    """Equality of nested dicts, lists and tuples of tensors, arrays and
+    numbers, bit for bit."""
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_deep_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_deep_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return a == b
+
+
+def test_diagnostic_chains_replayed_equal_launch_by_launch(dev):
+    """The energy trace (class free energies and the IMG→TXT chain), both
+    panel chains, the trajectory chain, the bimodal trajectory, the bias
+    statistics and the chain throughput probe: each replayed from the
+    same key stream bit-equal to launch by launch, each one replay."""
+    import numpy as np
+    from multimodal_idbn_tpu_torch.models import imdbn_bimodal
+    from multimodal_idbn_tpu_torch.ops import graphs
+    from multimodal_idbn_tpu_torch.utils import conditional_steps as tcs
+    from multimodal_idbn_tpu_torch.utils import energy_utils as teu
+    from multimodal_idbn_tpu_torch.utils import imdbn_logging as til
+    from multimodal_idbn_tpu_torch.utils import profiling
+    m = _small_imdbn(dev)
+    m.train_joint(2)
+    b = _small_bimodal(dev)
+    b.train_joint(1)
+    img, lbl = teu.pick_fixed_val_case(m)
+    imgs, lbls = tcs.build_or_get_fixed_val_panel(m, per_class=2)
+    y = np.eye(4, dtype=np.float32)[[1]]
+    z2 = b.mod2_dbn.represent(next(iter(b.val_loader))[1][:1])
+    X, Y, Z = m._materialized_train()
+    calls = {
+        "energy trace": (lambda: teu.trace_single_img2txt(m, img, lbl,
+                                                          steps=12),
+                         ("serve:_class_free_energies",
+                          "serve:_img2txt_chain")),
+        "img2txt panel": (lambda: tcs.trace_img2txt_cross_batch(
+            m, imgs, lbls, max_steps=12), ("serve:_img2txt_panel_chain",)),
+        "txt2img panel": (lambda: tcs.trace_txt2img_cross_batch(
+            m, imgs, lbls, max_steps=9)[1], ("serve:_txt2img_panel_chain",)),
+        "trajectory": (lambda: til._run_traj(m, y, 6),
+                       ("serve:_traj_chain",)),
+        "bimodal trajectory": (lambda: imdbn_bimodal._mod2_to_mod1_chain(
+            b, z2, 6), ("serve:_mod2_to_mod1_body",)),
+        "bias stats": (lambda: m.init_joint_bias_from_data(
+            _cached=(X, Y, Z)) or (m.z_class_mean, m.joint_rbm.vis_bias),
+            ("serve:joint_bias_stats",)),
+    }
+    for name, (call, graphs_used) in calls.items():
+        outs = []
+        for eager in (True, False, False):
+            for model in (m, b):
+                model.joint_rbm.reseed(7)
+            graphs.reset_stats()
+            with (graphs.launch_by_launch() if eager
+                  else contextlib.nullcontext()):
+                outs.append(call())
+            if not eager:
+                for gname in graphs_used:
+                    assert graphs.STATS["replays"][gname] == 1, (name, gname)
+        for out in outs[1:]:
+            assert _deep_equal(out, outs[0]), name
+    fast = profiling.measure_gibbs_steps_per_sec(
+        num_visible=48, num_hidden=24, batch_size=16, n_steps=20,
+        groups=((40, 48),), device=dev)
+    with graphs.launch_by_launch():
+        slow = profiling.measure_gibbs_steps_per_sec(
+            num_visible=48, num_hidden=24, batch_size=16, n_steps=20,
+            groups=((40, 48),), device=dev)
+    assert fast["chain_steps_per_sec"] > 0 and slow["chain_steps_per_sec"] > 0
+
+
+@pytest.mark.parametrize("step", ["idbn", "joint", "bimodal"])
+def test_public_batch_steps_replayed_equal_launch_by_launch(dev, step):
+    """The per-batch steps JAX jits, called directly on the card: each call
+    one replay of a graph of ``graphs.SHARED`` (a new lr another input,
+    not another graph), bit-equal to launch by launch."""
+    from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train,
+                                               graphs, imdbn_ops, rbm_ops)
+    g = torch.Generator().manual_seed(9)
+
+    def states(widths, seed):
+        return [rbm_ops.init_rbm_state(seed + i, v, h, device=dev)
+                for i, (v, h) in enumerate(zip(widths, widths[1:]))]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g).to(dev)
+
+    img = states([60, 24, 12], 1)
+    x = (rand(9, 60) < 0.4).float()
+    y = torch.eye(4, device=dev)[torch.arange(9, device=dev) % 4]
+    if step == "idbn":
+        def call(lr):
+            return dbn_train.idbn_batch_step(
+                img, 5, x, lr, 0.5, 1e-4, 0.05, cd=2,
+                sparsity_flags=(False, True), fast_sampler=True)
+    elif step == "joint":
+        joint = states([16, 10], 3)[0]
+        z = rand(9, 12)
+
+        def call(lr):
+            return imdbn_ops.joint_train_batch_step(
+                joint, img, 6, z, y, x, 3, lr, 0.5, 1e-4, None,
+                warmup=False, joint_cd=1, aux_cond_steps=2, Dz=12, steps=4,
+                groups=((12, 16),))
+    else:
+        bj, m2 = states([20, 10, 6], 4), states([30, 8], 6)
+        z1, z2, v2 = rand(9, 12), rand(9, 8), (rand(9, 30) < 0.4).float()
+
+        def call(lr):
+            return bimodal_ops.bimodal_batch_step(
+                bj, img, m2, 7, z1, z2, x, v2, lr, 0.5, 1e-4, warmup=False,
+                joint_cd=1, aux_cond_steps=2, Dz1=12, steps=3)
+    graphs.reset_stats()
+    outs = [call(0.1), call(0.1), call(0.05)]
+    assert sum(graphs.STATS["replays"].values()) == 3
+    assert len(graphs.STATS["captures"]) == 1
+    with graphs.launch_by_launch():
+        eager = [call(0.1), call(0.05)]
+    assert _tree_equal(outs[0], eager[0]) and _tree_equal(outs[1], eager[0])
+    assert _tree_equal(outs[2], eager[1])

@@ -42,6 +42,7 @@ from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun
 
 from torch_parity import (SMALL_PARAMS, both_deterministic, jax_state,
                           randomize, state_np)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 K, SIDE = 4, 12
@@ -185,7 +186,8 @@ def _jax_probe_best(Xtr, ytr, Xva, yva, W0, b0, max_steps, lr, patience):
 
 
 @pytest.mark.parametrize("max_steps,patience,check_every", [
-    (300, 20, 25), (300, 20, 1), (1000, 3, 1000), (50, 0, 25)])
+    (300, 20, 25), (300, 20, 1), (1000, 3, 1000), (50, 0, 25), (300, 20, 7),
+    (300, 20, 300)])
 def test_linear_probe_matches_jax(max_steps, patience, check_every):
     rs = np.random.RandomState(max_steps + patience)
     X = rs.randn(120, 8).astype(np.float32)

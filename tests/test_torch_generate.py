@@ -20,6 +20,7 @@ from multimodal_idbn_tpu_torch import generate
 from torch_parity import (IMG_LAYERS, JOINT_HIDDEN, K, SMALL_PARAMS,
                           both_deterministic, jax_state, randomize,
                           small_imdbn, state_np, t)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -33,6 +33,7 @@ from multimodal_idbn_tpu_torch.ops import schedules as tsched
 from torch_parity import (IMG_LAYERS, JOINT_HIDDEN, K, SMALL_PARAMS,
                           both_deterministic, close, jax_state, np_state,
                           randomize, small_imdbn, state_np, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 Dz, H, D, B = 32, 24, 64, 6

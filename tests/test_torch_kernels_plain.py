@@ -31,6 +31,7 @@ from multimodal_idbn_tpu_torch.ops import rng  # noqa: E402
 
 from torch_parity import (assert_states_close, both_deterministic,  # noqa
                           close, jax_state, np_state, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 Dz, K, H, B = 24, 4, 16, 8
 V = Dz + K

@@ -23,6 +23,7 @@ from multimodal_idbn_tpu_torch.utils.wandb_compat import RecorderRun, wandb
 from torch_parity import (check_logging_leaves_training_unchanged,
                           check_wandb_enable_is_accepted,
                           check_without_matplotlib_and_pandas, logged_runs)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 YAML = "configs/smoke_multimodal.yaml"
 MULTIMODAL_LOGGING = {

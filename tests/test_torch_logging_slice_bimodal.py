@@ -12,6 +12,7 @@ from multimodal_idbn_tpu_torch import train_bimodal
 from torch_parity import (check_logging_leaves_training_unchanged,
                           check_wandb_enable_is_accepted,
                           check_without_matplotlib_and_pandas, logged_runs)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 YAML = "configs/smoke_bimodal.yaml"
 BIMODAL_LOGGING = {

@@ -24,6 +24,7 @@ from multimodal_idbn_tpu_torch.ops import schedules as tsched
 
 from torch_parity import (assert_states_close, both_deterministic, close,
                           jax_state, np_state, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 Dz, K, H, B = 20, 5, 12, 8
 V = Dz + K

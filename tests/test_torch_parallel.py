@@ -30,6 +30,7 @@ from multimodal_idbn_tpu_torch.parallel import mesh2d as tmesh
 
 from torch_parity import (SMALL_PARAMS, rbm_arrays, small_bimodal,
                           small_imdbn)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 1e-5, 1e-4
 CD_KW = dict(lr=0.1, mom=0.5, weight_decay=1e-4, cd=2)
@@ -80,6 +81,7 @@ def _model_results(im, bi):
 # ---------------------------------------------------------------------------
 
 def _init(rank, world, store):
+    torch.set_num_threads(1)     # as the test workers run
     parallel.initialize_distributed(f"file://{store}", world, rank,
                                     backend="gloo")
 

@@ -25,6 +25,7 @@ from multimodal_idbn_tpu_torch.models import iDBN, iMDBN, iMDBN_BiModal
 from torch_parity import (SMALL_PARAMS, assert_models_equal,
                           both_deterministic, close, jax_state, np_state,
                           rbm_arrays, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 N, D, D2, K, BS = 44, 64, 48, 4, 16   # two batches of 16 and 12 rows

@@ -28,6 +28,7 @@ from multimodal_idbn_tpu_torch.ops import imdbn_ops as timdbn
 
 from torch_parity import (assert_states_close, both_deterministic, close,
                           jax_state, np_state, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 Dz, K, Hj, D, B = 12, 4, 10, 20, 6
 V = Dz + K

@@ -50,6 +50,7 @@ from torch_parity import (FIELDS, IMG_LAYERS, SMALL_PARAMS,
                           both_deterministic, close, jax_state, np_state,
                           small_bimodal, small_imdbn, small_loaders,
                           state_np, t, torch_state)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 V, H, B = 24, 16, 8
 GROUPS = ((18, 24),)

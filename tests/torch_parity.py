@@ -9,6 +9,7 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multimodal_idbn_tpu.ops import rbm_ops as jrbm
@@ -16,6 +17,18 @@ from multimodal_idbn_tpu_torch import convert
 from multimodal_idbn_tpu_torch.ops import rng as trng
 
 FIELDS = convert.FIELDS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's intra-op threads pinned to one for the tests of a module
+    that imports this fixture, and restored after them: the suite runs six
+    workers on a few cores, where every worker's thread pool would compete
+    for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_state(rs: np.random.RandomState, V: int, H: int, momentum=False):
@@ -308,3 +321,57 @@ def payload_arrays(path, load):
     if "z_class_mean" in payload:
         out["z_class_mean"] = np.asarray(payload["z_class_mean"])
     return out
+
+
+def check_train_multimodal_crash_and_rerun(tmp_path, monkeypatch, capsys,
+                                           phase, stop, message):
+    """``train_multimodal`` crashed right after the checkpoint of (phase,
+    stop), refused with a changed learning rate, then run again: it
+    resumes with ``message`` and ends bit-equal to an uninterrupted run,
+    its pickle too."""
+    import yaml
+
+    from multimodal_idbn_tpu_torch import train_multimodal
+    from multimodal_idbn_tpu_torch.models import iMDBN
+    crash_cfg, crash_dir = resume_config(tmp_path, "smoke_multimodal", "crash")
+    clean_cfg, clean_dir = resume_config(tmp_path, "smoke_multimodal", "clean")
+    crash_after(monkeypatch, phase, stop)
+    with pytest.raises(InjectedCrash):
+        train_multimodal.main(["--config", str(crash_cfg), "--device", "cpu"])
+    monkeypatch.undo()
+    ckpts = crash_dir / "checkpoints"
+    assert (ckpts / f"{phase}.ckpt.npz").exists()
+    assert (ckpts / "image.ckpt.npz").exists()  # the marker, or the phase
+    assert not (crash_dir / "imdbn_smoke.pkl").exists()
+
+    # a changed learning rate refuses to resume, with the JAX package's text
+    cfg = yaml.safe_load(crash_cfg.read_text())
+    cfg["training"]["learning_rate"] = 0.2
+    edited = tmp_path / "edited.yaml"
+    edited.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(ValueError, match=(
+            r"was written by a run with different training configuration "
+            r"\(LEARNING_RATE: checkpoint=0.1 run=0.2\)")):
+        train_multimodal.main(["--config", str(edited), "--device", "cpu"])
+
+    capsys.readouterr()
+    resumed = train_multimodal.main(["--config", str(crash_cfg),
+                                     "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert message in out and "Saved multimodal model" in out
+    if phase == "joint":
+        assert "Training image iDBN" not in out
+    assert not any(ckpts.iterdir())  # gone after the completed run
+
+    clean = train_multimodal.main(["--config", str(clean_cfg),
+                                   "--device", "cpu"])
+    assert_models_equal(resumed["model"], clean["model"])
+    if phase == "image":  # a joint checkpoint carries no image loss curve
+        assert resumed["image_loss"] == clean["image_loss"]
+    assert resumed["model"].joint_metrics_history == \
+        clean["model"].joint_metrics_history
+    a = payload_arrays(crash_dir / "imdbn_smoke.pkl", iMDBN.load_model)
+    b = payload_arrays(clean_dir / "imdbn_smoke.pkl", iMDBN.load_model)
+    assert sorted(a) == sorted(b) and len(a) == 19
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
