@@ -75,7 +75,7 @@ from multimodal_idbn_tpu_torch.ops import (dbn_train, fast_cd, graphs, rbm_ops,
                                            rng)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
-from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
+from multimodal_idbn_tpu_torch.utils.profiling import StepTimer, span
 
 
 def val_features(val_loader, plain_dataset: bool = False) -> Optional[dict]:
@@ -330,7 +330,8 @@ class iDBN:
             states, sums, counts = dbn_train.idbn_epoch_block(
                 self.states(), *args, mesh=self.mesh, **kw)
         self._set_states(states)
-        return float(sums[0]) / max(1, counts[0])
+        with span("epoch.read"):
+            return float(sums[0]) / max(1, counts[0])
 
     def _train_epoch_batched(self, epoch: int, epochs: int) -> float:
         """One epoch over the loader's batches, every layer updated on

@@ -47,6 +47,7 @@ launch.
 from __future__ import annotations
 
 import datetime
+import functools
 import pickle
 from typing import Any, Dict, List, Optional
 
@@ -70,7 +71,7 @@ from multimodal_idbn_tpu_torch.ops import (dbn_train, fast_cd, graphs,
                                            imdbn_ops, rbm_ops, rng)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
-from multimodal_idbn_tpu_torch.utils.profiling import StepTimer
+from multimodal_idbn_tpu_torch.utils.profiling import StepTimer, span
 
 # Hard-coded in the reference (JAX models/imdbn.py:30-31).
 WARMUP_Y_EPOCHS = 8
@@ -398,8 +399,15 @@ class iMDBN:
         """IMG→TXT + TXT→IMG round trip; returns (decoded images,
         p(y|img)), the half ``direction`` skips being None
         (JAX models/imdbn.py:342-366)."""
-        return graphs.serve(
-            self, self.device, imdbn_ops.cross_reconstruct,
+        return self._cross_call(z_img, y_onehot, steps, direction)()
+
+    def _cross_call(self, z_img, y_onehot, steps: Optional[int] = None,
+                    direction: str = "both"):
+        """The serving call of ``_cross_reconstruct`` with its arguments
+        made (the inputs on the device, the key drawn, the weights
+        gathered), to be called."""
+        return functools.partial(
+            graphs.serve, self, self.device, imdbn_ops.cross_reconstruct,
             self.joint_rbm._next_key(),
             rbm_ops.weights_only(self.joint_rbm.state),
             self.image_idbn._weights(),
@@ -415,9 +423,12 @@ class iMDBN:
         """Label posterior p(y|img) [B, K] for raw images [B, D] or
         [B, H, W]: the IMG→TXT half (mean-field conditional Gibbs with the
         z block clamped; one chain-kernel launch on the card)."""
-        z = self.image_idbn.represent(images)
-        y0 = torch.zeros((z.shape[0], self.num_labels), device=self.device)
-        return self._cross_reconstruct(z, y0, direction="img2txt")[1]
+        with span("serve.inputs"):
+            z = self.image_idbn.represent(images)
+            y0 = torch.zeros((z.shape[0], self.num_labels),
+                             device=self.device)
+            call = self._cross_call(z, y0, direction="img2txt")
+        return call()[1]
 
     def _labels_to_onehot(self, labels) -> np.ndarray:
         """Integer class ids [B] or one-hot [B, K] -> validated one-hot
@@ -442,9 +453,11 @@ class iMDBN:
         """Decoded images [B, D] from integer class ids [B] or one-hot
         labels [B, K]: the TXT→IMG half (noisy mean-field annealing with
         μ-pull, one chain-kernel launch, decoded through the image iDBN)."""
-        y = self._labels_to_onehot(labels)
-        z0 = torch.zeros((y.shape[0], self.Dz_img), device=self.device)
-        return self._cross_reconstruct(z0, y, direction="txt2img")[0]
+        with span("serve.inputs"):
+            y = self._labels_to_onehot(labels)
+            z0 = torch.zeros((y.shape[0], self.Dz_img), device=self.device)
+            call = self._cross_call(z0, y, direction="txt2img")
+        return call()[0]
 
     def sample_txt2img(self, labels, gibbs_steps: Optional[int] = None,
                        seed: Optional[int] = None) -> torch.Tensor:
@@ -453,16 +466,19 @@ class iMDBN:
         ancestral-sampled decode (``imdbn_ops.sample_txt2img``). Returns
         pixel probabilities [B, D] of the sampled configuration; ``seed``
         fixes the draw (JAX models/imdbn.py:411-439)."""
-        y = as_tensor(self._labels_to_onehot(labels), self.device)
-        steps = int(self.cross_steps if gibbs_steps is None else gibbs_steps)
-        key = rng.fold_in(seed, 0) if seed is not None \
-            else self.joint_rbm._next_key()
-        return graphs.serve(
-            self, self.device, imdbn_ops.sample_txt2img, key,
-            rbm_ops.weights_only(self.joint_rbm.state),
-            self.image_idbn._weights(), y_onehot=y, steps=steps,
-            Dz=self.Dz_img, groups=self._joint_groups(),
-            z_affine=self._z_affine())[0]
+        with span("serve.inputs"):
+            y = as_tensor(self._labels_to_onehot(labels), self.device)
+            steps = int(self.cross_steps if gibbs_steps is None
+                        else gibbs_steps)
+            key = rng.fold_in(seed, 0) if seed is not None \
+                else self.joint_rbm._next_key()
+            call = functools.partial(
+                graphs.serve, self, self.device, imdbn_ops.sample_txt2img,
+                key, rbm_ops.weights_only(self.joint_rbm.state),
+                self.image_idbn._weights(), y_onehot=y, steps=steps,
+                Dz=self.Dz_img, groups=self._joint_groups(),
+                z_affine=self._z_affine())
+        return call()[0]
 
     def represent(self, batch) -> torch.Tensor:
         """Joint hidden activations for (images, one-hot labels)
@@ -505,10 +521,11 @@ class iMDBN:
             jr.weight_decay, self.z_class_mean, runner=runners[warmup],
             **statics)
         jr.state = joint
-        self._set_last_metrics(
-            epoch, {k: float(v) for k, v in totals[0]._asdict().items()},
-            X.shape[1])
-        return [float(c) for c in cd_losses[0]]
+        with span("epoch.read"):
+            tot = {k: float(v) for k, v in totals[0]._asdict().items()}
+            losses = [float(c) for c in cd_losses[0]]
+        self._set_last_metrics(epoch, tot, X.shape[1])
+        return losses
 
     def _set_last_metrics(self, epoch: int, tot: dict, npix: int) -> None:
         """``last_metrics`` from an epoch's metric sums, appended to

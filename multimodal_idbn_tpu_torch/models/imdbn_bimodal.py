@@ -41,6 +41,7 @@ likewise. On the CPU they run launch by launch.
 from __future__ import annotations
 
 import datetime
+import functools
 import pickle
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -66,6 +67,7 @@ from multimodal_idbn_tpu_torch.ops.sampling import (clamp_mask,
                                                     sample_bernoulli)
 from multimodal_idbn_tpu_torch.ops.schedules import (effective_lr,
                                                      effective_momentum)
+from multimodal_idbn_tpu_torch.utils.profiling import span
 from multimodal_idbn_tpu_torch.utils.wandb_compat import pyplot, wandb
 
 # Hard-coded in the reference (JAX models/imdbn_bimodal.py:30).
@@ -509,8 +511,16 @@ class iMDBN_BiModal:
                            direction: str = "both"):
         """Cross-reconstruction through joint layer 0; returns
         (mod1_from_mod2, mod2_from_mod1) (JAX :548-560)."""
-        return graphs.serve(
-            self, self.device, bimodal_ops.bimodal_cross_reconstruct,
+        return self._cross_call(z_mod1, z_mod2, steps, direction)()
+
+    def _cross_call(self, z_mod1, z_mod2, steps: Optional[int] = None,
+                    direction: str = "both"):
+        """The serving call of ``_cross_reconstruct`` with its arguments
+        made (the inputs on the device, the key drawn, the weights
+        gathered), to be called."""
+        return functools.partial(
+            graphs.serve, self, self.device,
+            bimodal_ops.bimodal_cross_reconstruct,
             self.joint_rbm._next_key(),
             rbm_ops.weights_only(self.joint_rbm.state),
             self.mod1_dbn._weights(), self.mod2_dbn._weights(),
@@ -521,15 +531,21 @@ class iMDBN_BiModal:
 
     def mod1_to_mod2(self, mod1_images) -> torch.Tensor:
         """Decoded modality-2 images from raw modality-1 images."""
-        z1 = self.mod1_dbn.represent(mod1_images)
-        z2 = torch.zeros((z1.shape[0], self.Dz_mod2), device=self.device)
-        return self._cross_reconstruct(z1, z2, direction="1to2")[1]
+        with span("serve.inputs"):
+            z1 = self.mod1_dbn.represent(mod1_images)
+            z2 = torch.zeros((z1.shape[0], self.Dz_mod2),
+                             device=self.device)
+            call = self._cross_call(z1, z2, direction="1to2")
+        return call()[1]
 
     def mod2_to_mod1(self, mod2_images) -> torch.Tensor:
         """Decoded modality-1 images from raw modality-2 images."""
-        z2 = self.mod2_dbn.represent(mod2_images)
-        z1 = torch.zeros((z2.shape[0], self.Dz_mod1), device=self.device)
-        return self._cross_reconstruct(z1, z2, direction="2to1")[0]
+        with span("serve.inputs"):
+            z2 = self.mod2_dbn.represent(mod2_images)
+            z1 = torch.zeros((z2.shape[0], self.Dz_mod1),
+                             device=self.device)
+            call = self._cross_call(z1, z2, direction="2to1")
+        return call()[0]
 
     def sample_mod1_to_mod2(self, mod1_images,
                             gibbs_steps: Optional[int] = None,
@@ -546,20 +562,25 @@ class iMDBN_BiModal:
         return self._sample_cross(mod2_images, "2to1", gibbs_steps, seed)
 
     def _sample_cross(self, images, direction, gibbs_steps, seed):
-        if direction == "1to2":
-            z1 = self.mod1_dbn.represent(images)
-            z2 = torch.zeros((z1.shape[0], self.Dz_mod2), device=self.device)
-        else:
-            z2 = self.mod2_dbn.represent(images)
-            z1 = torch.zeros((z2.shape[0], self.Dz_mod1), device=self.device)
-        steps = int(self.cross_steps if gibbs_steps is None else gibbs_steps)
-        key = rng.fold_in(seed, 0) if seed is not None \
-            else self.joint_rbm._next_key()
-        return graphs.serve(
-            self, self.device, bimodal_ops.sample_cross, key,
-            rbm_ops.weights_only(self.joint_rbm.state),
-            self.mod1_dbn._weights(), self.mod2_dbn._weights(), z1=z1,
-            z2=z2, steps=steps, Dz1=self.Dz_mod1, direction=direction)
+        with span("serve.inputs"):
+            if direction == "1to2":
+                z1 = self.mod1_dbn.represent(images)
+                z2 = torch.zeros((z1.shape[0], self.Dz_mod2),
+                                 device=self.device)
+            else:
+                z2 = self.mod2_dbn.represent(images)
+                z1 = torch.zeros((z2.shape[0], self.Dz_mod1),
+                                 device=self.device)
+            steps = int(self.cross_steps if gibbs_steps is None
+                        else gibbs_steps)
+            key = rng.fold_in(seed, 0) if seed is not None \
+                else self.joint_rbm._next_key()
+            call = functools.partial(
+                graphs.serve, self, self.device, bimodal_ops.sample_cross,
+                key, rbm_ops.weights_only(self.joint_rbm.state),
+                self.mod1_dbn._weights(), self.mod2_dbn._weights(), z1=z1,
+                z2=z2, steps=steps, Dz1=self.Dz_mod1, direction=direction)
+        return call()
 
     def represent(self, batch) -> torch.Tensor:
         """Joint representation through all joint layers (JAX :616-625)."""
@@ -656,8 +677,9 @@ class iMDBN_BiModal:
                             runner=runners[warmup], **statics)
                     self._set_joint_states(joint)
                     cd_sum, cd_count = sums[0], counts[0]
-                    tot = {k: float(v)
-                           for k, v in totals[0]._asdict().items()}
+                    with span("epoch.read"):
+                        tot = {k: float(v)
+                               for k, v in totals[0]._asdict().items()}
                 else:
                     cd_sum, cd_count, tot = self._train_joint_epoch_batched(
                         lr, mom, metrics_every, statics)

@@ -90,8 +90,16 @@ Launch counts stay counts of launches that ran on the device:
 (which runs nothing) are taken back off the counts and added again at
 every replay, and the warm-up's are moved to ``STATS["warmup_launches"]``
 (work done once per capture, as a compile). ``STATS`` also holds the
-replays of each runner and serving call, and each capture's seconds and
-graph memory.
+replays of each runner and serving call, the key values the host computed
+for them (``keys``: the length of the key table at each replay), and each
+capture's seconds and graph memory.
+
+Host spans (``utils.profiling.span``, recorded under ``torch.profiler``):
+an epoch is ``runner.permutation``, ``runner.keys``, ``runner.load`` and
+``runner.replay`` (the first one ``runner.capture`` too), a serving call
+``serve.load`` and ``serve.replay``, inside which a keyed call's
+``serve.keys`` (the first at a signature ``serve.capture`` too). None
+opens inside a captured body.
 """
 
 from __future__ import annotations
@@ -107,14 +115,16 @@ import torch
 from torch.autograd.graph import increment_version
 
 from multimodal_idbn_tpu_torch.ops import _cuda, rng
+from multimodal_idbn_tpu_torch.utils.profiling import span
 
 STATS: Dict[str, Any] = {}
 
 
 def reset_stats() -> None:
-    """Zero the replay counts and forget the capture records."""
+    """Zero the replay and key counts and forget the capture records."""
     STATS.clear()
-    STATS.update(replays=Counter(), captures=[], warmup_launches=Counter())
+    STATS.update(replays=Counter(), keys=Counter(), captures=[],
+                 warmup_launches=Counter())
 
 
 reset_stats()
@@ -234,7 +244,8 @@ class EpochRunner:
         """(new state, outputs) of the epoch whose key is ``key``
         (``fold_in(block key, epoch)``), at learning rate ``lr`` and
         momentum ``mom``."""
-        perm = rng.permutation(key, self.n_rows)
+        with span("runner.permutation"):
+            perm = rng.permutation(key, self.n_rows)
         hyper = torch.tensor([float(lr), float(mom)], dtype=torch.float64)
         if self.graphed:
             return self._replay(state, key, perm, hyper)
@@ -264,10 +275,10 @@ class EpochRunner:
                 buf.copy_(t)
         return outs
 
-    def _load(self, state, key: Optional[int], perm, hyper) -> None:
+    def _fill(self, state, perm, hyper) -> None:
         """Copy the state (unless it is the buffers already), and the
-        epoch's permutation, schedule values and, when the paths are
-        known, keys into the static buffers."""
+        epoch's permutation and schedule values into the static
+        buffers."""
         leaves, spec = flatten(state)
         if spec != self._spec:
             raise ValueError(f"{self.name}: a state of another structure")
@@ -276,18 +287,27 @@ class EpochRunner:
                 buf.copy_(t)
         self._perm.copy_(perm, non_blocking=True)
         self._hyper.copy_(hyper, non_blocking=True)
-        if key is not None:
+
+    def _load(self, state, key: int, perm, hyper) -> None:
+        """The epoch's keys, then its state, permutation and schedule
+        values, into the static buffers."""
+        with span("runner.keys"):
             self._keys.copy_(torch.tensor(rng.key_values(key, self._paths),
                                           dtype=torch.int64),
                              non_blocking=True)
+        STATS["keys"][self.name] += len(self._paths)
+        with span("runner.load"):
+            self._fill(state, perm, hyper)
 
     def _capture(self, state, key: int, perm, hyper) -> None:
+        """The warm-up on a side stream, then the capture; the buffers are
+        loaded for the first replay afterwards (``_load``)."""
         dev = self.device
         leaves, self._spec = flatten(state)
         self._bufs = [t.clone() for t in leaves]
         self._perm = torch.empty(self.n_rows, dtype=torch.int64, device=dev)
         self._hyper = torch.empty(2, dtype=torch.float64, device=dev)
-        self._load(state, None, perm, hyper)
+        self._fill(state, perm, hyper)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = launch_counts()
@@ -300,9 +320,8 @@ class EpochRunner:
         STATS["warmup_launches"].update(
             {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
         self._paths = warm.paths
-        self._keys = torch.empty(len(self._paths), dtype=torch.int64,
-                                 device=dev)
-        self._load(state, key, perm, hyper)
+        self._keys = torch.tensor(rng.key_values(key, self._paths),
+                                  dtype=torch.int64).to(dev)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()      # what stays reserved is the graph's
         reserved = torch.cuda.memory_reserved(dev)
@@ -323,20 +342,21 @@ class EpochRunner:
 
     def _replay(self, state, key: int, perm, hyper):
         if self._graph is None:
-            self._capture(state, key, perm, hyper)
-        else:
-            self._load(state, key, perm, hyper)
-        self._graph.replay()
-        # the replay wrote the state buffers behind torch's back: move
-        # their version counters, as an in-place update would, so that a
-        # serving graph holding a copy of them refreshes it
-        for buf in self._bufs:
-            increment_version(buf)
-        add_launches(self.launches_per_replay)
-        self.replays += 1
-        STATS["replays"][self.name] += 1
-        return (unflatten(self._spec, self._bufs),
-                map_tree(torch.clone, self._outs))
+            with span("runner.capture"):
+                self._capture(state, key, perm, hyper)
+        self._load(state, key, perm, hyper)
+        with span("runner.replay"):
+            self._graph.replay()
+            # the replay wrote the state buffers behind torch's back: move
+            # their version counters, as an in-place update would, so that
+            # a serving graph holding a copy of them refreshes it
+            for buf in self._bufs:
+                increment_version(buf)
+            add_launches(self.launches_per_replay)
+            self.replays += 1
+            STATS["replays"][self.name] += 1
+            return (unflatten(self._spec, self._bufs),
+                    map_tree(torch.clone, self._outs))
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +432,6 @@ class _CallGraph:
         self.n_keys = n_keys
         self.n_state = n_state       # None: a pure call
         self.state_spec = state_spec
-        self.replays = 0
 
 
 def _statics(kwargs: dict) -> dict:
@@ -502,7 +521,8 @@ class ServingGraphs:
         STATS["warmup_launches"].update(
             {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
         g.paths = [] if warm is None else warm.paths
-        g.keys = torch.empty(len(g.paths), dtype=torch.int64, device=dev)
+        g.keys = torch.tensor(rng.key_values(key, g.paths) if g.paths
+                              else [], dtype=torch.int64).to(dev)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()      # what stays reserved is the graph's
         reserved = torch.cuda.memory_reserved(dev)
@@ -524,15 +544,19 @@ class ServingGraphs:
         return g
 
     def _replay(self, g: _CallGraph, key) -> None:
+        """Fill the key table of ``g`` from the call's ``key`` and replay
+        it."""
         if _n_keys(key) != g.n_keys:
             raise ValueError(f"{g.name}: called with keys {key!r}, captured "
                              f"with {g.n_keys} (None: no key, 0: one)")
         if g.paths:
-            g.keys.copy_(torch.tensor(rng.key_values(key, g.paths),
-                                      dtype=torch.int64), non_blocking=True)
+            with span("serve.keys"):
+                g.keys.copy_(torch.tensor(rng.key_values(key, g.paths),
+                                          dtype=torch.int64),
+                             non_blocking=True)
+            STATS["keys"][g.name] += len(g.paths)
         g.graph.replay()
         add_launches(g.launches_per_replay)
-        g.replays += 1
         STATS["replays"][g.name] += 1
 
     @staticmethod
@@ -547,17 +571,20 @@ class ServingGraphs:
 
     def call(self, fn, key, *args, **kwargs):
         """``fn(*args, key=key, **kwargs)``, replayed."""
-        leaves, spec = flatten((args, kwargs))
-        sig = self.signature(fn, args, kwargs)
-        g = self.graphs.get(sig)
+        with span("serve.load"):
+            leaves, spec = flatten((args, kwargs))
+            sig = self.signature(fn, args, kwargs)
+            g = self.graphs.get(sig)
+            if g is not None:
+                self.buffers.load(g.slots, leaves)
         if g is None:
-            g = self.graphs[sig] = self._capture(f"serve:{fn.__name__}", fn,
-                                                 key, leaves, spec)
+            with span("serve.capture"):
+                g = self.graphs[sig] = self._capture(
+                    f"serve:{fn.__name__}", fn, key, leaves, spec)
             g.statics = _statics(kwargs)
-        else:
-            self.buffers.load(g.slots, leaves)
-        self._replay(g, key)
-        return map_tree(torch.clone, g.outs)
+        with span("serve.replay"):
+            self._replay(g, key)
+            return map_tree(torch.clone, g.outs)
 
     def update(self, fn, key, state, *args, **kwargs):
         """``fn(state, *args, key=key, **kwargs)``, which returns (new
@@ -566,20 +593,24 @@ class ServingGraphs:
         them as the state, their versions moved (``_Buffers.written``).
         A caller that hands them back at its next call has nothing
         copied; one that hands other tensors has them copied in."""
-        state_leaves, state_spec = flatten(state)
-        leaves, spec = flatten((state, args, kwargs))
-        sig = self.signature(fn, args, kwargs, state, update=True)
-        g = self.graphs.get(sig)
+        with span("serve.load"):
+            state_leaves, state_spec = flatten(state)
+            leaves, spec = flatten((state, args, kwargs))
+            sig = self.signature(fn, args, kwargs, state, update=True)
+            g = self.graphs.get(sig)
+            if g is not None:
+                self.buffers.load(g.slots, leaves)
         if g is None:
-            g = self.graphs[sig] = self._capture(
-                f"step:{fn.__name__}", fn, key, leaves, spec,
-                len(state_leaves), state_spec)
+            with span("serve.capture"):
+                g = self.graphs[sig] = self._capture(
+                    f"step:{fn.__name__}", fn, key, leaves, spec,
+                    len(state_leaves), state_spec)
             g.statics = _statics(kwargs)
-        else:
-            self.buffers.load(g.slots, leaves)
-        self._replay(g, key)
-        new = [self.buffers.written(i) for i in g.slots[:g.n_state]]
-        return unflatten(g.state_spec, new), map_tree(torch.clone, g.outs)
+        with span("serve.replay"):
+            self._replay(g, key)
+            new = [self.buffers.written(i) for i in g.slots[:g.n_state]]
+            return (unflatten(g.state_spec, new),
+                    map_tree(torch.clone, g.outs))
 
 
 class _Eager:

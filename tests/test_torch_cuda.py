@@ -16,6 +16,7 @@ Tolerances: 1e-5 on probabilities and chains (fp32, other summation
 order); a Bernoulli sample may differ only where |p - u| <= 1e-5.
 """
 
+import collections
 import contextlib
 
 import pytest
@@ -802,6 +803,23 @@ def _tree_equal(a, b):
 
 
 @contextlib.contextmanager
+def _counted_replays(monkeypatch):
+    """The replays of each serving graph inside the block, by the graph's
+    ``id``."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    counts = collections.Counter()
+    real = graphs.ServingGraphs._replay
+
+    def counted(self, g, key):
+        counts[id(g)] += 1
+        return real(self, g, key)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.ServingGraphs, "_replay", counted)
+        yield counts
+
+
+@contextlib.contextmanager
 def _replays_without_sync(monkeypatch):
     """Every serving call inside the block (its buffers' refresh, key
     table, replay and clones; the inputs' copies to the card come before)
@@ -830,27 +848,29 @@ def test_serving_calls_replayed_equal_launch_by_launch(dev, monkeypatch,
     launches what launch by launch launches and reads nothing on the
     host."""
     from multimodal_idbn_tpu_torch.ops import graphs
-    m = _small_bimodal(dev) if bimodal else _small_imdbn(dev)
-    m.train_joint(2)
-    for name, call in _serving_calls(m, bimodal).items():
-        eager, first, again = _three_ways(m, call)
-        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
-        m.joint_rbm.reseed(11)
-        before = graphs.launch_counts()
-        with _replays_without_sync(monkeypatch):
-            call(m)
-        replayed = graphs.launches_since(before)
-        m.joint_rbm.reseed(11)
-        before = graphs.launch_counts()
-        with graphs.launch_by_launch():
-            call(m)
-        assert replayed == graphs.launches_since(before), name
+    with _counted_replays(monkeypatch) as replays:
+        m = _small_bimodal(dev) if bimodal else _small_imdbn(dev)
+        m.train_joint(2)
+        for name, call in _serving_calls(m, bimodal).items():
+            eager, first, again = _three_ways(m, call)
+            assert _tree_equal(first, eager) and _tree_equal(again, eager), \
+                name
+            m.joint_rbm.reseed(11)
+            before = graphs.launch_counts()
+            with _replays_without_sync(monkeypatch):
+                call(m)
+            replayed = graphs.launches_since(before)
+            m.joint_rbm.reseed(11)
+            before = graphs.launch_counts()
+            with graphs.launch_by_launch():
+                call(m)
+            assert replayed == graphs.launches_since(before), name
     # one graph per call and shape, replayed at every call after its
     # capture (the first call's, the second's and the checked one); the
     # cache also holds the bias statistics that training ran once
     serving = [g for g in m._serving.graphs.values()
                if g.name != "serve:joint_bias_stats"]
-    assert serving and all(g.replays >= 3 for g in serving)
+    assert serving and all(replays[id(g)] >= 3 for g in serving)
 
 
 @pytest.mark.parametrize("how", ["train", "from_payload"])
@@ -950,8 +970,6 @@ def test_rbm_shell_entries_replayed_equal_launch_by_launch(dev, monkeypatch,
     ``train_epoch`` (itself one replay) the same graphs serve the new
     weights: bit-equal to launch by launch, changed, no new capture."""
     from multimodal_idbn_tpu_torch.ops import graphs
-    r = _shell(dev, groups)
-    calls = _shell_calls(r)
 
     def three_ways(call):
         outs = []
@@ -963,12 +981,16 @@ def test_rbm_shell_entries_replayed_equal_launch_by_launch(dev, monkeypatch,
                 outs.append(call())
         return outs
 
-    before = {}
-    for name, call in calls.items():
-        eager, first, again = three_ways(call)
-        assert _tree_equal(first, eager) and _tree_equal(again, eager), name
-        before[name] = eager
-    assert all(g.replays == 2 for g in r._serving.graphs.values())
+    with _counted_replays(monkeypatch) as replays:
+        r = _shell(dev, groups)
+        calls = _shell_calls(r)
+        before = {}
+        for name, call in calls.items():
+            eager, first, again = three_ways(call)
+            assert _tree_equal(first, eager) and _tree_equal(again, eager), \
+                name
+            before[name] = eager
+    assert all(replays[id(g)] == 2 for g in r._serving.graphs.values())
     data = torch.rand((6, 48), generator=torch.Generator().manual_seed(5))
     twin = _shell(dev, groups)
     twin.state = r.state

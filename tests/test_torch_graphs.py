@@ -28,12 +28,12 @@ import pytest
 import torch
 
 from multimodal_idbn_tpu.ops import dbn_train as jdt
-from multimodal_idbn_tpu_torch.ops import (_cuda, bimodal_ops, dbn_train,
-                                           graphs, imdbn_ops, philox_fill,
-                                           rbm_ops, rng)
+from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, graphs,
+                                           imdbn_ops, philox_fill, rbm_ops,
+                                           rng)
 
-from torch_parity import (both_deterministic, close, jax_state, np_state,
-                          state_np, torch_state)
+from torch_parity import (both_deterministic, close, graph_stand_ins,
+                          jax_state, np_state, state_np, torch_state)
 
 V, H1, H2, N, BS = 40, 24, 12, 44, 16     # two batches of 16 and 12 rows
 DZ, K, HJ = 12, 4, 10
@@ -319,37 +319,12 @@ def test_draws_have_their_distributions():
 
 # (d) ----------------------------------------------------------------------
 
-class _FakeGraph:
-    replays = 0
-
-    def replay(self):
-        _FakeGraph.replays += 1
-
-
 def test_graphed_runner_counts_capture_launches_per_replay(monkeypatch):
     """A graphed runner (the CUDA calls replaced by stand-ins that run the
     body on the CPU): the warm-up's launches leave the counts, the
     capture's are taken off and added once per replay, one replay per
     epoch."""
-    lib = _cuda.CudaLibrary.__new__(_cuda.CudaLibrary)
-    lib.source = _cuda.CSRC / "fake.cu"
-    lib.functions = {"k": []}
-    lib.launches_by_entry = {"k": 0}
-    monkeypatch.setattr(_cuda, "LIBRARIES", [lib])
-    cuda = torch.cuda
-
-    class Stream:
-        def wait_stream(self, other):
-            pass
-
-    for name, fn in (("Stream", lambda *a: Stream()),
-                     ("current_stream", lambda *a: Stream()),
-                     ("stream", lambda s: contextlib.nullcontext()),
-                     ("graph", lambda g, **k: contextlib.nullcontext()),
-                     ("synchronize", lambda *a: None),
-                     ("memory_reserved", lambda *a: 0),
-                     ("CUDAGraph", _FakeGraph)):
-        monkeypatch.setattr(cuda, name, fn)
+    lib, _ = graph_stand_ins(monkeypatch)
 
     def body(consts, state, perm, lr, mom):
         lib.launches_by_entry["k"] += 3

@@ -33,10 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_idbn_tpu_torch.ops import (_cuda, bimodal_ops, dbn_train,
-                                           graphs, imdbn_ops, rbm_ops, rng)
+from multimodal_idbn_tpu_torch.ops import (bimodal_ops, dbn_train, graphs,
+                                           imdbn_ops, rbm_ops, rng)
 
-from torch_parity import np_state, small_bimodal, small_imdbn, torch_state
+from torch_parity import (graph_stand_ins, np_state, small_bimodal,
+                          small_imdbn, torch_state)
 
 DZ, K, HJ, D, B = 12, 4, 10, 40, 6
 
@@ -202,41 +203,13 @@ def test_buffers_refresh_exactly_what_changed():
 
 # (d) ----------------------------------------------------------------------
 
-class _FakeGraph:
-    replays = 0
-
-    def replay(self):
-        _FakeGraph.replays += 1
-
-
 @pytest.fixture
 def stand_ins(monkeypatch):
     """A launch counter and the CUDA calls of a capture replaced by
     stand-ins that run on the CPU (a stand-in replay runs nothing)."""
-    lib = _cuda.CudaLibrary.__new__(_cuda.CudaLibrary)
-    lib.source = _cuda.CSRC / "fake.cu"
-    lib.functions = {"k": []}
-    lib.launches_by_entry = {"k": 0}
-    monkeypatch.setattr(_cuda, "LIBRARIES", [lib])
-
-    class Stream:
-        def wait_stream(self, other):
-            pass
-
-    for name, fn in (("Stream", lambda *a: Stream()),
-                     ("current_stream", lambda *a: Stream()),
-                     ("stream", lambda s: contextlib.nullcontext()),
-                     ("graph", lambda g, **k: contextlib.nullcontext()),
-                     ("synchronize", lambda *a: None),
-                     ("empty_cache", lambda: None),
-                     ("memory_reserved", lambda *a: 0),
-                     ("CUDAGraph", _FakeGraph)):
-        monkeypatch.setattr(torch.cuda, name, fn)
-    cache = graphs.ServingGraphs.__new__(graphs.ServingGraphs)
-    cache.device = torch.device("cpu")
-    cache.graphs, cache.buffers = {}, graphs._Buffers()
+    lib_cache = graph_stand_ins(monkeypatch)
     graphs.reset_stats()
-    yield lib, cache
+    yield lib_cache
     graphs.reset_stats()
 
 

@@ -116,6 +116,44 @@ IMG_LAYERS, JOINT_HIDDEN = [SIDE * SIDE, 64, 32], 24
 MOD1_LAYERS, MOD2_LAYERS, BIMODAL_JOINT = [SIDE * SIDE, 32], [1568, 32], [16]
 
 
+class FakeGraph:
+    """A stand-in ``torch.cuda.CUDAGraph``: a replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+def graph_stand_ins(monkeypatch):
+    """A launch counter and the CUDA calls of a capture replaced by
+    stand-ins that run on the CPU (a stand-in capture runs its body once,
+    a replay nothing); returns (the counter's library, a serving cache on
+    the CPU)."""
+    from multimodal_idbn_tpu_torch.ops import _cuda, graphs
+    lib = _cuda.CudaLibrary.__new__(_cuda.CudaLibrary)
+    lib.source = _cuda.CSRC / "fake.cu"
+    lib.functions = {"k": []}
+    lib.launches_by_entry = {"k": 0}
+    monkeypatch.setattr(_cuda, "LIBRARIES", [lib])
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    for name, fn in (("Stream", lambda *a: Stream()),
+                     ("current_stream", lambda *a: Stream()),
+                     ("stream", lambda s: contextlib.nullcontext()),
+                     ("graph", lambda g, **k: contextlib.nullcontext()),
+                     ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("memory_reserved", lambda *a: 0),
+                     ("CUDAGraph", FakeGraph)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    cache = graphs.ServingGraphs.__new__(graphs.ServingGraphs)
+    cache.device = torch.device("cpu")
+    cache.graphs, cache.buffers = {}, graphs._Buffers()
+    return lib, cache
+
+
 def small_loaders(bimodal=False, **kw):
     """The port's loaders over 64 seeded samples (44 training rows: two
     batches of 16 and a remainder of 12)."""
