@@ -382,9 +382,10 @@ def check_half_step(dev):
         torch.cuda.synchronize()
         err = float((p_k - p_p).abs().max())
         flips, bad = sample_flips(p_p, s_k, s_p, seed)
-        tile_rows, slices, k_per_slice = half_step.plan(B, K, N)
-        log(f"[half_step] {name} [{B},{K}]x[{K},{N}]: {tile_rows}-row "
-            f"tiles, {slices} k-slices of {k_per_slice}; max|dp| {err:.3e},"
+        body, tile_rows, slices, k_per_slice = half_step.plan(B, K, N)
+        log(f"[half_step] {name} [{B},{K}]x[{K},{N}]: {body} body, "
+            f"{tile_rows}-row tiles, {slices} k-slices of {k_per_slice}; "
+            f"max|dp| {err:.3e},"
             f" sample flips {flips} (outside tol: {bad})")
         if not err <= TOL_HALF_STEP or bad:
             raise AssertionError(f"half_step {name} disagrees with plain")
@@ -398,7 +399,8 @@ def check_half_step(dev):
         def library():
             return torch.sigmoid(torch.addmm(b, x, wm))
 
-        row = dict(shape=name, max_abs_err=err, sample_flips=flips,
+        row = dict(shape=name, body=body, max_abs_err=err,
+                   sample_flips=flips,
                    ms=time_ms(kernel, 100), graph_ms=graph_ms(kernel),
                    plain_ms=time_ms(lambda: half_step.half_step_plain(
                        x, w, b, seed, transpose_w=transpose), 10),
@@ -2860,9 +2862,21 @@ def derived_epoch_launches(rec) -> dict:
 
 
 def _port_launches(delta) -> dict:
+    """Launches by entry. The half-step's launches by kernel body
+    (``body:<name>``) are the same launches seen another way: they must add
+    up to its launches by entry, and are left out."""
     out = {"half_step_sample": 0, "chain_run": 0, "philox_fill": 0}
+    by_body = by_entry = 0
     for (src, entry), n in delta.items():
+        if entry.startswith("body:"):
+            by_body += n
+            continue
+        if src == "half_step.cu":
+            by_entry += n
         out[entry if entry in out else f"{src}:{entry}"] = n
+    if by_body != by_entry:
+        raise AssertionError(f"half-step launches by body {by_body}, by "
+                             f"entry {by_entry}: {delta}")
     return out
 
 

@@ -4,8 +4,9 @@
 
 For every half-step shape of the two training paths it holds the kernel
 against its plain version, then times it under the tiling
-``half_step.plan`` chooses and under a grid of other tilings (block tile
-rows x k-slices), beside ``addmm`` + ``sigmoid``. ``ms`` is device time
+``half_step.plan`` chooses and under a grid of other tilings (both
+kernel bodies where the wgmma body takes the shape, block tile rows x
+k-slices), beside ``addmm`` + ``sigmoid``. ``ms`` is device time
 (the calls replayed from a CUDA graph), ``call_ms`` the time of
 back-to-back calls through the Python wrapper, which the host bounds at
 small shapes. For the chain it times the shapes of both joints under each
@@ -91,16 +92,23 @@ def emit(**row) -> None:
     print(json.dumps(row), flush=True)
 
 
-def candidate_tilings(B: int, K: int):
-    k_tiles = -(-K // 16)
-    for tile_rows in (32, 64, 128):
-        if tile_rows > 32 and B <= 32:
-            continue
-        for slices in (1, 2, 3, 4, 6, 8, 11, 16, 22):
+def candidate_tilings(B: int, K: int, N: int):
+    """``half_step.plan`` tuples to time: the mma_sync body at both row
+    tiles and, where it takes the shape, the wgmma body, each over a range
+    of k-slices of at most 1024 terms."""
+    bodies = [("mma_sync", 16, rows) for rows in (32, 64)
+              if not (rows > 32 and B <= 32)]
+    if half_step.plan(B, K, N)[0] == "wgmma":
+        bodies.append(("wgmma", 32, half_step.plan(B, K, N)[1]))
+    for body, k_tile, rows in bodies:
+        k_tiles = -(-K // k_tile)
+        for slices in (1, 2, 3, 4, 6, 8, 11, 16, 24, 32, 48):
+            per = -(-k_tiles // slices)
+            if per * k_tile > 1024:
+                continue
             if slices > k_tiles:
                 break
-            per = -(-k_tiles // slices)
-            yield tile_rows, -(-k_tiles // per), per * 16
+            yield body, rows, -(-k_tiles // per), per * k_tile
 
 
 def bench_half_step(dev, quick: bool) -> None:
@@ -113,15 +121,15 @@ def bench_half_step(dev, quick: bool) -> None:
         p_p, _ = half_step.half_step_plain(x, w, b, 7, transpose_w=transpose)
 
         def run(tiling=None):
-            return half_step._launch("half_step_sample", x, w, b, 2, B, K, N,
-                                     (int(transpose),), (1.0, 7, 0, 0),
-                                     tiling=tiling)
+            return half_step._launch(
+                "half_step_sample", x, w, b, 2, B, K, N, (int(transpose),),
+                (1.0, _cuda.ptr(None), 0, 7, 0, 0), tiling=tiling)
 
         wm = w.T if transpose else w
         lib_ms = graph_ms(lambda: torch.sigmoid(torch.addmm(b, x, wm)))
         chosen = half_step.plan(B, K, N)
         tilings = [chosen] if quick else sorted(
-            {chosen, *candidate_tilings(B, K)})
+            {chosen, *candidate_tilings(B, K, N)})
         for tiling in tilings:
             probs = run(tiling)[0]
             torch.cuda.synchronize()

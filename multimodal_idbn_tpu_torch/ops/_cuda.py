@@ -49,16 +49,20 @@ class CudaLibrary:
     ``functions`` maps each exported C launcher to its ctypes argtypes;
     every one returns a ``cudaError_t`` as int. ``launches`` counts the
     kernel launches made through ``launch``, and ``launches_by_entry`` the
-    launches of each launcher. ``helpers`` are exported functions that
-    launch nothing (called through ``call``, never counted).
+    launches of each launcher. A source with more than one kernel body
+    names them in ``bodies``, and ``launches_by_body`` counts the launches
+    of each. ``helpers`` are exported functions that launch nothing
+    (called through ``call``, never counted).
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence],
-                 helpers: Optional[Dict[str, Sequence]] = None):
+                 helpers: Optional[Dict[str, Sequence]] = None,
+                 bodies: Sequence[str] = ()):
         self.source = CSRC / source
         self.functions = dict(functions)
         self.helpers = dict(helpers or {})
         self.launches_by_entry = dict.fromkeys(self.functions, 0)
+        self.launches_by_body = dict.fromkeys(bodies, 0)
         self._lib: Optional[ctypes.CDLL] = None
         LIBRARIES.append(self)
 
@@ -68,6 +72,7 @@ class CudaLibrary:
 
     def reset_launches(self) -> None:
         self.launches_by_entry = dict.fromkeys(self.functions, 0)
+        self.launches_by_body = dict.fromkeys(self.launches_by_body, 0)
 
     def _sources(self) -> List[Path]:
         return [self.source] + sorted(CSRC.glob("*.cuh"))
@@ -129,11 +134,13 @@ class CudaLibrary:
             raise RuntimeError(f"{self.source.name}:{name} {what} failed: "
                                f"{msg} ({err})")
 
-    def launch(self, name: str, *args) -> None:
-        """Call one exported launcher on the current stream; count it and
-        raise if the launch was refused."""
+    def launch(self, name: str, *args, body: Optional[str] = None) -> None:
+        """Call one exported launcher on the current stream; count it (and
+        the kernel body it runs) and raise if the launch was refused."""
         err = getattr(self.lib(), name)(*args)
         self.launches_by_entry[name] += 1
+        if body is not None:
+            self.launches_by_body[body] += 1
         self._check(name, err, "launch")
 
     def call(self, name: str, *args) -> None:

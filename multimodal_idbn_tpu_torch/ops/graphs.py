@@ -195,17 +195,25 @@ def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree):
 
 def launch_counts() -> Dict[Tuple[str, str], int]:
     """Launches of every entry of every kernel library, by (source,
-    entry)."""
-    return {(lib.source.name, e): n for lib in _cuda.LIBRARIES
-            for e, n in lib.launches_by_entry.items()}
+    entry), and of every kernel body, by (source, ``body:<name>``)."""
+    out = {}
+    for lib in _cuda.LIBRARIES:
+        src = lib.source.name
+        out.update({(src, e): n for e, n in lib.launches_by_entry.items()})
+        out.update({(src, f"body:{b}"): n for b, n
+                    in getattr(lib, "launches_by_body", {}).items()})
+    return out
 
 
 def add_launches(delta: Dict[Tuple[str, str], int], sign: int = 1) -> None:
     """Add ``sign`` × ``delta`` to the libraries' counts."""
     for lib in _cuda.LIBRARIES:
+        src = lib.source.name
         for e in lib.launches_by_entry:
-            lib.launches_by_entry[e] += sign * delta.get(
-                (lib.source.name, e), 0)
+            lib.launches_by_entry[e] += sign * delta.get((src, e), 0)
+        for b in getattr(lib, "launches_by_body", {}):
+            lib.launches_by_body[b] += sign * delta.get(
+                (src, f"body:{b}"), 0)
 
 
 def launches_since(before: Dict[Tuple[str, str], int]

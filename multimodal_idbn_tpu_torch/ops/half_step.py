@@ -35,18 +35,20 @@ CPU tensors it runs the plain version, which reproduces the kernel's
 uniforms bit for bit. Launches are counted per entry
 (``KERNEL.launches_by_entry``).
 
-On an H100 the product is bound by operations (at the flagship first
-layer 57 µs on the fp32 CUDA cores, 23 µs as three TF32 tensor-core
-passes, which is how the kernel keeps fp32 accuracy) and is skinny: at
-most 128 batch rows, so output tiles alone give 8 to 48 blocks for 132
-SMs. The kernel therefore also splits the contraction across blocks.
-``plan`` chooses the block tile and the number of k-slices from (B, K, N)
-alone; with more than one slice the wrapper hands the kernel a scratch
-buffer for the partial products and zeroed ticket counters, both kept per
-stream, and the block that arrives last at an output tile sums the slices
-in fixed order before the fused epilogue. The result does not depend on
-the order in which blocks run: the same inputs give the same bits on
-every launch and through every entry.
+On an H100 one launch at the flagship first layer is bound about
+equally by streaming its 60 MB W from HBM (18 µs) and by the three TF32
+tensor-core passes that keep fp32 accuracy (23 µs), and the product is
+skinny: at most 128 batch rows. ``plan`` picks one of two kernel bodies
+from the whole operand's shape and splits the contraction across blocks:
+the ``wgmma`` body (one block holds the whole batch and 128 columns of W,
+TMA loads, wgmma; every shape whose rows are 16-byte aligned, up to 128
+rows) or the ``mma_sync`` body (64 x 64 tiles; ragged and unaligned
+shapes). With more than one k-slice the wrapper hands the kernel a
+scratch buffer for the partial products and zeroed counters, both kept
+per stream, and the slices are summed in fixed order before the fused
+epilogue. The result does not depend on the order in which blocks run:
+the same inputs give the same bits on every launch and through every
+entry. ``KERNEL.launches_by_body`` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -59,25 +61,31 @@ import torch
 
 from multimodal_idbn_tpu_torch.ops import _cuda, rng
 
+BODIES = ("wgmma", "mma_sync")
 KERNEL = _cuda.CudaLibrary("half_step.cu", {
-    "half_step_sample": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    "half_step_sample": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "half_step_probs": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "half_step_probs": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
-    "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p],
-})
+}, bodies=BODIES)
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
-# The block tile of csrc/gemm_tile.cuh: 64 columns, k-tiles of 16, and 32
-# rows, or 64 for the large products of a full batch.
+# The wgmma body (csrc/wgmma_tile.cuh): slabs of 128 columns, k-tiles of
+# 32, the whole batch in one block, at most one block per SM.
+_WG_COLS = 128
+_WG_K = 32
+_SMS = 132                  # an H100's SMs: the plan's grid, on every card
+# The mma_sync body (csrc/gemm_tile.cuh): 64 columns, k-tiles of 16, and
+# 32 rows, or 64 for the large products of a full batch.
 _TILE_COLS = 64
 _TILE_K = 16
 _TARGET_BLOCKS = 396        # three blocks for each of an H100's 132 SMs
 _MIN_K_TILES_PER_SLICE = 8  # a shorter slice is all latency
-_MAX_K_TILES_PER_SLICE = 64  # 1024 terms: the tensor cores truncate when
-#                              they add to a sum, so a slice is kept short
+_MAX_TERMS = 1024           # the tensor cores truncate when they add to a
+#                             sum, so a slice sums at most 1024 terms
 _LARGE_PRODUCT = 1 << 23    # K * N from which the 64-row tile pays
 
 
@@ -85,22 +93,56 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=256)
-def plan(B: int, K: int, N: int) -> Tuple[int, int, int]:
-    """(tile_rows, slices, k_per_slice) of one half-step: the block tile's
-    rows (32 or 64), the number of k-slices the contraction is split into
-    and the length of a slice, a multiple of 16. A pure function of the
-    shape, the same on every device, so that a result never depends on
-    where or when it is computed. ``slices * k_per_slice >= K`` and no
-    slice is empty. Chosen from the sweep of ``bench_kernels`` on an H100:
-    about three blocks per SM, slices of 128 to 1024 terms."""
+def _plan_wgmma(B: int, K: int, N: int) -> Tuple[int, int, int]:
+    """(rows, slices, k_per_slice) of the wgmma body: the batch rounded up
+    to 32, 64 or 128, and the slices that minimise a time model counted in
+    k-tiles: the waves of (slab, slice) units over the card, each its
+    k-tiles plus two of pipeline fill and its partial sums, written by the
+    unit and read back spread over the grid, at their bytes' worth of
+    k-tiles."""
+    rows = 32 if B <= 32 else (64 if B <= 64 else 128)
+    tiles = _ceil_div(N, _WG_COLS)
+    k_tiles = max(1, _ceil_div(K, _WG_K))
+    partial = rows * 512 / (rows * 128 + _WG_COLS * _WG_K * 4)
+    best = None
+    for want in range(_ceil_div(k_tiles, _MAX_TERMS // _WG_K), k_tiles + 1):
+        per = _ceil_div(k_tiles, want)
+        slices = _ceil_div(k_tiles, per)
+        units = tiles * slices
+        waves = _ceil_div(units, _SMS)
+        cost = waves * (per + 2 + partial) + partial * units / _SMS
+        if best is None or cost < best[0] - 1e-9:
+            best = (cost, slices, per)
+    return rows, best[1], best[2] * _WG_K
+
+
+def _plan_mma_sync(B: int, K: int, N: int) -> Tuple[int, int, int]:
+    """(rows, slices, k_per_slice) of the mma_sync body: about three
+    blocks per SM, slices of 128 to 1024 terms."""
     tile_rows = 64 if B > 32 and K * N >= _LARGE_PRODUCT else 32
     tiles = _ceil_div(B, tile_rows) * _ceil_div(N, _TILE_COLS)
     k_tiles = max(1, _ceil_div(K, _TILE_K))
     slices = max(1, min(k_tiles // _MIN_K_TILES_PER_SLICE,
                         _ceil_div(_TARGET_BLOCKS, tiles)))
-    per_slice = min(_ceil_div(k_tiles, slices), _MAX_K_TILES_PER_SLICE)
+    per_slice = min(_ceil_div(k_tiles, slices), _MAX_TERMS // _TILE_K)
     return tile_rows, _ceil_div(k_tiles, per_slice), per_slice * _TILE_K
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, K: int, N: int) -> Tuple[str, int, int, int]:
+    """(body, tile_rows, slices, k_per_slice) of one half-step. The body
+    is ``wgmma`` where the rows of x and W are 16-byte aligned (K and N
+    multiples of 4) and B is at most 128, else ``mma_sync``; tile_rows is
+    the block tile's rows (wgmma: the batch rounded up to 32, 64 or 128;
+    mma_sync: 32 or 64); the contraction is split into ``slices`` k-slices
+    of ``k_per_slice`` terms, a multiple of the body's k-tile (32, 16) and
+    at most 1024. A pure function of the shape, the same on every device,
+    so that a result never depends on where or when it is computed.
+    ``slices * k_per_slice >= K`` and no slice is empty. Chosen from the
+    sweep of ``bench_kernels`` on an H100."""
+    if B <= 128 and K % 4 == 0 and N % 4 == 0:
+        return ("wgmma", *_plan_wgmma(B, K, N))
+    return ("mma_sync", *_plan_mma_sync(B, K, N))
 
 
 _WORKSPACES: Dict[Tuple[torch.device, Optional[int]],
@@ -131,30 +173,37 @@ def _workspace(device: torch.device, stream: Optional[int], n_floats: int,
 
 def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             n_out: int, B: int, K: int, N: int, head: Tuple[int, ...],
-            tail: Tuple, *, tiling: Optional[Tuple[int, int, int]] = None,
+            tail: Tuple, *,
+            tiling: Optional[Tuple[str, int, int, int]] = None,
             plan_shape: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, ...]:
     """Launch one entry and return its ``n_out`` outputs, each [B, N]
     (one allocation, cut once: a half-step is short, and the host's time
     to enqueue it counts). The C arguments are the operands, the outputs,
     scratch and tickets, the shape, ``head`` (the transpose flag, where
-    the entry has one), the tiling, then ``tail`` (1/T, and the seed and
-    offsets where the entry has them). ``plan_shape``: the (rows, columns)
-    of the whole operand the tiling is chosen for."""
+    the entry has one), the body and the tiling (``plan``'s tuple), then
+    ``tail`` (1/T, and the seed and offsets where the entry has them).
+    ``plan_shape``: the (rows, columns) of the whole operand the tiling is
+    chosen for."""
     pB, pN = plan_shape or (B, N)
-    tile_rows, slices, k_per_slice = tiling or plan(pB, K, pN)
+    body, tile_rows, slices, k_per_slice = tiling or plan(pB, K, pN)
     stream = _cuda.stream_handle(x)
     out = torch.empty((n_out, B, N), device=x.device)
     base = out.data_ptr()
     scratch = tickets = None
-    if slices > 1:
+    if body == "wgmma":
+        scratch, tickets = _workspace(
+            x.device, stream.value,
+            slices * _ceil_div(N, _WG_COLS) * _WG_COLS * tile_rows, 2)
+    elif slices > 1:
         scratch, tickets = _workspace(
             x.device, stream.value, slices * B * _ceil_div(N, 4) * 4,
             _ceil_div(B, tile_rows) * _ceil_div(N, _TILE_COLS))
     KERNEL.launch(entry, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                   *(base + 4 * B * N * i for i in range(n_out)),
                   _cuda.ptr(scratch), _cuda.ptr(tickets), B, K, N, *head,
-                  tile_rows, slices, k_per_slice, *tail, stream)
+                  int(body == "wgmma"), tile_rows, slices, k_per_slice,
+                  *tail, stream, body=body)
     return out.unbind(0)
 
 

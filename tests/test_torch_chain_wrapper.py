@@ -26,23 +26,51 @@ _SHAPES = sorted({(B, *kn) for B in (128, 12) for v, h in _LAYERS
 
 @pytest.mark.parametrize("B,K,N", _SHAPES)
 def test_half_step_plan_covers_the_contraction(B, K, N):
-    tile_rows, slices, k_per_slice = half_step.plan(B, K, N)
-    assert tile_rows in (32, 64)
+    body, tile_rows, slices, k_per_slice = half_step.plan(B, K, N)
+    # the body by alignment: wgmma where x's and W's rows are 16-byte
+    # aligned and the batch fits one block, mma_sync elsewhere
+    aligned = B <= 128 and K % 4 == 0 and N % 4 == 0
+    assert body == ("wgmma" if aligned else "mma_sync")
+    if body == "wgmma":        # the whole batch, rounded up, in one tile
+        assert tile_rows == (32 if B <= 32 else (64 if B <= 64 else 128))
+        k_tile = 32
+    else:
+        assert tile_rows in (32, 64)
+        if B <= 32:
+            assert tile_rows == 32
+        k_tile = 16
     assert slices >= 1
-    assert k_per_slice % 16 == 0 and 16 <= k_per_slice <= 1024
+    assert k_per_slice % k_tile == 0 and k_tile <= k_per_slice <= 1024
     assert slices * k_per_slice >= K          # the slices cover K ...
     assert (slices - 1) * k_per_slice < K     # ... and none is empty
-    if B <= 32:
-        assert tile_rows == 32
     # a pure function of the shape: the same answer again, whatever the
     # default device
-    assert half_step.plan(B, K, N) == (tile_rows, slices, k_per_slice)
+    assert half_step.plan(B, K, N) == (body, tile_rows, slices, k_per_slice)
 
 
 def test_half_step_plan_splits_the_first_layer_over_the_card():
-    tile_rows, slices, _ = half_step.plan(128, 10000, 1500)
-    blocks = -(-128 // tile_rows) * -(-1500 // 64) * slices
-    assert blocks >= 2 * 132
+    body, tile_rows, slices, _ = half_step.plan(128, 10000, 1500)
+    assert (body, tile_rows) == ("wgmma", 128)
+    blocks = -(-1500 // 128) * slices     # slabs of 128 columns x slices
+    assert blocks >= 132
+
+
+def test_body_counter_in_the_launch_accounting():
+    """The half-step's launches by body are part of the graphs' launch
+    accounting (``body:<name>``), as its launches by entry are, so that
+    a graph replay advances both."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    held = dict(half_step.KERNEL.launches_by_body)
+    before = graphs.launch_counts()
+    assert {("half_step.cu", "body:wgmma"),
+            ("half_step.cu", "body:mma_sync")} <= set(before)
+    half_step.KERNEL.launches_by_body["wgmma"] += 3
+    delta = graphs.launches_since(before)
+    assert delta == {("half_step.cu", "body:wgmma"): 3}
+    graphs.add_launches(delta, 2)
+    assert half_step.KERNEL.launches_by_body["wgmma"] == held["wgmma"] + 9
+    graphs.add_launches(delta, -3)
+    assert half_step.KERNEL.launches_by_body == held
 
 
 def test_annealed_schedule_is_cached_per_device():

@@ -211,10 +211,12 @@ def test_half_step_refuses_non_contiguous(dev):
         half_step.half_step_probs(x.contiguous(), w.T.contiguous().T, b)
 
 
-@pytest.mark.parametrize("B,K,N", [(128, 10000, 1500), (37, 1501, 499)])
+@pytest.mark.parametrize("B,K,N", [(128, 10000, 1500), (26, 2500, 1500),
+                                   (37, 1501, 499)])
 def test_half_step_entries_are_deterministic(dev, B, K, N):
     """Two launches on the same inputs give the same bits, for every
-    entry, and the entries agree with each other."""
+    entry, and the entries agree with each other; under the wgmma body
+    (the first two shapes) and the mma_sync body (the last)."""
     g = torch.Generator().manual_seed(K)
     w = _rand(g, K, N, dev=dev, scale=K ** -0.5)
     b = _rand(g, N, dev=dev, scale=0.1)
@@ -226,6 +228,9 @@ def test_half_step_entries_are_deterministic(dev, B, K, N):
                                                transpose_w=True),
             lambda: (half_step.half_step_probs(x, w, b),),
             lambda: half_step.half_step_sample_resident(x, w, b, 9)]
+    body = half_step.plan(B, K, N)[0]
+    assert half_step.plan(B, N, K)[0] == body
+    before = half_step.KERNEL.launches_by_body[body]
     outs = []
     for run in runs:
         first, second = run(), run()
@@ -234,6 +239,132 @@ def test_half_step_entries_are_deterministic(dev, B, K, N):
         outs.append(first)
     assert torch.equal(outs[0][0], outs[2][0])
     assert torch.equal(outs[2][0], outs[3][0])
+    assert half_step.KERNEL.launches_by_body[body] == before + 2 * len(runs)
+
+
+# Every layer of both families (tests/test_torch_chain_wrapper.py _LAYERS).
+_LAYERS = [(10000, 1500), (1500, 500), (1500, 1500), (1568, 500),
+           (500, 500), (500, 1000), (2500, 1500)]
+
+
+@pytest.mark.parametrize("states", [True, False])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("V,H", _LAYERS)
+@pytest.mark.parametrize("B", [128, 26, 12])
+def test_half_step_wgmma_body_at_the_shipped_shapes(dev, B, V, H, transpose,
+                                                    states):
+    """The wgmma body against the plain version at every layer of both
+    families, in both directions, at the full batch and both remainder
+    batches, on 0/1 states (x's TF32 tail zero) and on probabilities;
+    each launch counted under its body."""
+    g = torch.Generator().manual_seed(B + V + H)
+    K, N = (H, V) if transpose else (V, H)
+    w = _rand(g, V, H, dev=dev, scale=V ** -0.5)
+    b = _rand(g, N, dev=dev, scale=0.1)
+    x = torch.rand((B, K), generator=g)
+    x = ((x < 0.3).float() if states else x).to(dev)
+    assert half_step.plan(B, K, N)[0] == "wgmma"
+    before = dict(half_step.KERNEL.launches_by_body)
+    p_k, s_k = half_step.half_step_sample(x, w, b, 31, transpose_w=transpose)
+    after = half_step.KERNEL.launches_by_body
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["mma_sync"] == before["mma_sync"]
+    p_p, s_p = half_step.half_step_plain(x, w, b, 31, transpose_w=transpose)
+    torch.cuda.synchronize()
+    assert float((p_k - p_p).abs().max()) <= TOL
+    u = rng.philox_uniform(31, B, N, device=dev)
+    assert not bool(((s_k != s_p) & ((p_p - u).abs() > TOL)).any())
+
+
+@pytest.mark.parametrize("B,K,N,body", [(37, 77, 130, "mma_sync"),
+                                        (129, 512, 64, "mma_sync"),
+                                        (128, 1500, 500, "wgmma"),
+                                        (12, 40, 8, "wgmma")])
+def test_half_step_body_counter(dev, B, K, N, body):
+    """The body a launch runs, by the plan: wgmma where the rows are
+    16-byte aligned and B <= 128, mma_sync at unaligned or taller shapes;
+    counted on the wrapper and in the graphs' launch accounting."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    g = torch.Generator().manual_seed(K)
+    x = (torch.rand((B, K), generator=g) < 0.4).float().to(dev)
+    w = _rand(g, K, N, dev=dev, scale=K ** -0.5)
+    b = _rand(g, N, dev=dev, scale=0.1)
+    before = graphs.launch_counts()
+    p_k, _ = half_step.half_step_sample(x, w, b, 3)
+    assert graphs.launches_since(before) == {
+        ("half_step.cu", "half_step_sample"): 1,
+        ("half_step.cu", f"body:{body}"): 1}
+    torch.cuda.synchronize()
+    assert float((p_k - half_step.half_step_plain(x, w, b, 3)[0]).abs().max()
+                 ) <= TOL
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_half_step_rank_parts_bit_equal_to_the_whole(dev, transpose):
+    """A data-parallel rank's rows (row0) and a model-parallel rank's
+    columns (col0; 750 columns, whose rows are not 16-byte aligned, and
+    768, whose rows are), launched with the whole operand's plan, are the
+    whole launch's rows and columns bit for bit. The first 64 rows of x
+    are not TF32 numbers and the rest are 0/1, so the rank of rows 64..
+    leaves out the hi.lo pass that the whole launch makes: its zeros do
+    not move a bit."""
+    g = torch.Generator().manual_seed(8)
+    K, N = (1500, 10000) if transpose else (10000, 1500)
+    w = _rand(g, *((N, K) if transpose else (K, N)), dev=dev,
+              scale=K ** -0.5)
+    b = _rand(g, N, dev=dev, scale=0.1)
+    x = (torch.rand((128, K), generator=g) < 0.2).float()
+    x[:64] *= torch.rand((64, K), generator=g)
+    x = x.to(dev)
+    seed = 0xC0FFEE
+    assert half_step.plan(128, K, N)[0] == "wgmma"
+    p_all, s_all = half_step.half_step_sample(x, w, b, seed,
+                                              transpose_w=transpose)
+    parts = [(x[64:], w, b, dict(row0=64), (slice(64, None), slice(None))),
+             (x[:26], w, b, dict(row0=0), (slice(0, 26), slice(None)))]
+    for c0 in (() if transpose else (750, 768)):
+        parts.append((x, w[:, c0:].contiguous(), b[c0:], dict(col0=c0),
+                      (slice(None), slice(c0, None))))
+    for xp, wp, bp, off, (rs, cs) in parts:
+        p_k, s_k = half_step.half_step_sample(
+            xp, wp, bp, seed, transpose_w=transpose, plan_shape=(128, N),
+            **off)
+        torch.cuda.synchronize()
+        assert torch.equal(p_k, p_all[rs, cs]), off
+        assert torch.equal(s_k, s_all[rs, cs]), off
+
+
+def test_half_step_replayed_in_a_graph_with_new_keys(dev):
+    """One launch captured in a CUDA graph with its seed read from a key
+    table, replayed after the table was refilled: equal to a launch
+    outside the graph with that key by value."""
+    g = torch.Generator().manual_seed(9)
+    x = (torch.rand((128, 1500), generator=g) < 0.4).float().to(dev)
+    w = _rand(g, 1500, 500, dev=dev, scale=1500 ** -0.5)
+    b = _rand(g, 500, dev=dev, scale=0.1)
+    path = (2, 5)
+    keys = torch.tensor(rng.key_values(1, [path]), device=dev)
+
+    def body():
+        with rng.key_table(rng.KeyTable(keys, [path])):
+            return half_step.half_step_sample(x, w, b, rng.Key(path))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        p_g, s_g = body()
+    for root in (2, 3):
+        value = rng.key_values(root, [path])
+        keys.copy_(torch.tensor(value, device=dev))
+        graph.replay()
+        p_e, s_e = half_step.half_step_sample(x, w, b, value[0])
+        torch.cuda.synchronize()
+        assert torch.equal(p_g, p_e) and torch.equal(s_g, s_e)
 
 
 def _chain_case(dev, B, V, H, groups, n_steps, seed):
@@ -719,6 +850,37 @@ def test_image_epochs_replayed_equal_launch_by_launch(dev, pcd):
         replayed = dbn_train.idbn_epoch_block(states, 5, data, *args,
                                               runner=runner, **kw)
     assert runner.replays == 3 and _tree_equal(replayed, eager)
+
+
+def test_image_epoch_graph_runs_every_half_step_on_the_wgmma_body(dev):
+    """An image-iDBN epoch graph at the flagship widths [10000, 1500, 500]
+    over 1434 rows in batches of 128 (11 full and one of 26), CD-10: each
+    replay launches 12 x 2 x (1 + 2 x 10) = 504 half-steps, all of them on
+    the wgmma body, and the replay advances the counter by body as it
+    advances the counter by entry."""
+    from multimodal_idbn_tpu_torch.ops import dbn_train, graphs
+    g = torch.Generator().manual_seed(4)
+    data = (torch.rand((1434, 10000), generator=g) < 0.15).float().to(dev)
+    states = [rbm_ops.init_rbm_state(1, 10000, 1500, device=dev),
+              rbm_ops.init_rbm_state(2, 1500, 500, device=dev)]
+    kw = dict(weight_decay=1e-4, sparsity_factor=0.05, cd=10,
+              sparsity_flags=(False, False), batch_size=128,
+              fast_sampler=True)
+    runner = dbn_train.idbn_epoch_runner(data, graphed=True, **kw)
+    dbn_train.idbn_epoch_block(states, 5, data, [0], [0.1], [0.5], **kw,
+                               runner=runner)
+    per_replay = runner.launches_per_replay
+    assert per_replay[("half_step.cu", "half_step_sample")] == 504
+    assert per_replay[("half_step.cu", "body:wgmma")] == 504
+    assert ("half_step.cu", "body:mma_sync") not in per_replay
+    before = graphs.launch_counts()
+    dbn_train.idbn_epoch_block(states, 5, data, [1], [0.1], [0.5], **kw,
+                               runner=runner)
+    torch.cuda.synchronize()
+    after = graphs.launches_since(before)
+    assert after[("half_step.cu", "body:wgmma")] == 504
+    assert after[("half_step.cu", "half_step_sample")] == 504
+    assert ("half_step.cu", "body:mma_sync") not in after
 
 
 # -- serving calls as graph replays --------------------------------------------
