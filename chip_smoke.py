@@ -285,8 +285,9 @@ def bounds(flops: float, nbytes: float):
 
 def build_kernels():
     from multimodal_idbn_tpu_torch.ops import (_cuda, chain, half_step,
-                                               philox_fill)
-    libs = [half_step.KERNEL, chain.KERNEL, philox_fill.KERNEL]
+                                               philox_fill, rsoftmax)
+    libs = [half_step.KERNEL, chain.KERNEL, philox_fill.KERNEL,
+            rsoftmax.KERNEL]
     t0 = time.perf_counter()
     _cuda.build_all(libs)
     log(f"[build] nvcc {' '.join(_cuda.NVCC_FLAGS)}: "
@@ -302,10 +303,11 @@ def build_kernels():
 def reset_launches():
     """Zero every kernel's launch count and the graph replays."""
     from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
-                                               philox_fill)
+                                               philox_fill, rsoftmax)
     half_step.KERNEL.reset_launches()
     chain.KERNEL.reset_launches()
     philox_fill.KERNEL.reset_launches()
+    rsoftmax.KERNEL.reset_launches()
     graphs.reset_stats()
 
 
@@ -317,10 +319,11 @@ def read_launches():
     (``step_replays``: a per-batch step, a probe chunk, the shell's
     training entries)."""
     from multimodal_idbn_tpu_torch.ops import (chain, graphs, half_step,
-                                               philox_fill)
+                                               philox_fill, rsoftmax)
     out = dict(half_step.KERNEL.launches_by_entry)
     out["chain_run"] = chain.KERNEL.launches
     out["philox_fill"] = philox_fill.KERNEL.launches
+    out["rs_sample"] = rsoftmax.KERNEL.launches
     replays = graphs.STATS["replays"]
     out["graph_replays"] = sum(n for k, n in replays.items()
                                if not k.startswith(("serve:", "step:")))
@@ -450,6 +453,196 @@ def check_half_step_big(dev):
         f"{row['plain_ms']:.4f} ms, addmm+sigmoid {row['library_ms']:.4f} "
         f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
+
+
+# The multimodal DBN's bottom layers on its main path:
+# (entry, B, K, N) of each launch shape of an epoch, the Gaussian layer
+# [3857, 1024] on the mma_sync body, the tag layer [2000, 1024] on wgmma
+MDBN_SHAPES = (
+    ("half_step_sample", 128, 3857, 1024),   # image features up
+    ("half_step_gauss", 128, 1024, 3857),    # the Gaussian visibles down
+    ("half_step_scaled", 128, 2000, 1024),   # word counts up, D·a
+    ("half_step_linear", 128, 1024, 2000),   # the word logits down
+    ("half_step_gauss", 128, 1024, 2000),    # each entry on the other body
+    ("half_step_linear", 128, 1024, 3857),
+    ("half_step_scaled", 128, 3857, 1024),
+)
+MDBN_WORDS = 10   # a row's tags: 1 .. 10 words
+
+
+def check_mdbn_kernels(dev):
+    """The entries of visible units that are not Bernoulli and the word
+    sampler at the multimodal DBN's shapes, each against its plain
+    version: means to 1e-5; a Gaussian draw its mean plus the kernels'
+    N(0, 1) to 1e-5; a Bernoulli draw may differ only inside the
+    tolerance band; the words of a row sum to its D and are the plain
+    version's but where a draw lies on a boundary of the cumulative
+    weights (at most 2% of rows). Returns {entry: [rows]}, the first row
+    of each at its main-path shape."""
+    import torch
+    from multimodal_idbn_tpu_torch.bench_kernels import graph_ms
+    from multimodal_idbn_tpu_torch.ops import half_step, rng, rsoftmax
+    g = torch.Generator().manual_seed(21)
+    out = {}
+    for entry, B, K, N in MDBN_SHAPES:
+        seed = 0x6D64_626E + len(out.get(entry, ()))
+        transpose = entry in ("half_step_gauss", "half_step_linear")
+        V, H = (N, K) if transpose else (K, N)
+        w = (torch.randn((V, H), generator=g) / V ** 0.5).to(dev)
+        b = (0.1 * torch.randn((N,), generator=g)).to(dev)
+        if entry == "half_step_sample":
+            x = torch.randn((B, K), generator=g).to(dev)
+        elif entry == "half_step_scaled":
+            x = torch.zeros((B, K))
+            idx = torch.randint(0, K, (B, MDBN_WORDS), generator=g)
+            take = (torch.arange(MDBN_WORDS)[None] < torch.randint(
+                1, MDBN_WORDS + 1, (B, 1), generator=g)).float()
+            x = x.scatter_add_(1, idx, take).to(dev)
+        else:
+            x = (torch.rand((B, K), generator=g) < 0.4).float().to(dev)
+        scale = x.sum(1) if entry == "half_step_scaled" else None
+        wm = w.T if transpose else w
+        if entry == "half_step_sample":
+            def kernel():
+                return half_step.half_step_sample(x, w, b, seed)
+
+            def library():
+                return torch.sigmoid(torch.addmm(b, x, w))
+            p_k, _ = kernel()
+            want = torch.sigmoid(x.double() @ w.double() + b.double())
+            err, flips = float((p_k.double() - want).abs().max()), 0
+        elif entry == "half_step_scaled":
+            def kernel():
+                return half_step.half_step_scaled(x, w, b, scale, seed)
+
+            def library():
+                return torch.sigmoid(torch.addmm(scale[:, None] * b, x, w))
+            p_k, s_k = kernel()
+            p_p, s_p = half_step.half_step_scaled_plain(x, w, b, scale, seed)
+            err = float((p_k - p_p).abs().max())
+            flips, bad = sample_flips(p_p, s_k, s_p, seed)
+            if bad:
+                raise AssertionError(f"{entry} [{B},{K}]x[{K},{N}]: {bad} "
+                                     f"draws outside the band")
+        elif entry == "half_step_gauss":
+            def kernel():
+                return half_step.half_step_gauss(x, w, b, seed)
+
+            def library():
+                m = torch.addmm(b, x, wm)
+                return m, m + torch.randn_like(m)
+            m_k, v_k = kernel()
+            m_p, _ = half_step.half_step_gauss_plain(x, w, b, seed)
+            noise = rng.philox_normal(seed, B, N, device=dev)
+            err = max(float((m_k - m_p).abs().max()),
+                      float(((v_k - m_k) - noise).abs().max()))
+            flips = 0
+        else:
+            def kernel():
+                return half_step.half_step_linear(x, w, b)
+
+            def library():
+                return torch.addmm(b, x, wm)
+            err = float((kernel() - half_step.half_step_linear_plain(
+                x, w, b)).abs().max())
+            flips = 0
+        torch.cuda.synchronize()
+        body = half_step.plan(B, K, N)[0]
+        if not err <= TOL_HALF_STEP:
+            raise AssertionError(f"{entry} [{B},{K}]x[{K},{N}] ({body}): "
+                                 f"max error {err:.3e}")
+        plain = {"half_step_sample": lambda: half_step.half_step_plain(
+                     x, w, b, seed),
+                 "half_step_scaled": lambda: half_step.half_step_scaled_plain(
+                     x, w, b, scale, seed),
+                 "half_step_gauss": lambda: half_step.half_step_gauss_plain(
+                     x, w, b, seed),
+                 "half_step_linear": lambda: half_step.half_step_linear_plain(
+                     x, w, b)}[entry]
+        outs = 1 if entry == "half_step_linear" else 2
+        row = dict(shape=f"[{B},{K}]x[{K},{N}]", body=body,
+                   max_abs_err=err, sample_flips=flips,
+                   ms=time_ms(kernel, 100), graph_ms=graph_ms(kernel),
+                   plain_ms=time_ms(plain, 10),
+                   library_ms=time_ms(library, 100),
+                   **bounds(2.0 * B * K * N, 4.0 * (
+                       B * K + K * N + N + outs * B * N
+                       + (B if scale is not None else 0))))
+        out.setdefault(entry, []).append(row)
+        log(f"[mdbn] {entry} {row['shape']} ({body}): max|d| {err:.3e}, "
+            f"flips {flips}; kernel {row['ms']:.4f} ms (device "
+            f"{row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for B in (128, 26):
+        V = 2000
+        logits = (2.0 * torch.randn((B, V), generator=g)).to(dev)
+        words = torch.randint(1, MDBN_WORDS + 1, (B,),
+                              generator=g).float().to(dev)
+
+        def kernel():
+            return rsoftmax.rs_sample(logits, words, 0x7273)
+
+        def library():
+            return torch.multinomial(torch.softmax(logits, 1), MDBN_WORDS,
+                                     replacement=True)
+        counts, mean = kernel()
+        c_p, m_p = rsoftmax.rs_sample_plain(logits, words, 0x7273)
+        torch.cuda.synchronize()
+        err = float((mean - m_p).abs().max())
+        differ = float((counts != c_p).any(1).float().mean())
+        if not (err <= TOL_HALF_STEP and torch.equal(counts.sum(1), words)
+                and differ <= 0.02):
+            raise AssertionError(f"rs_sample [{B},{V}]: mean error "
+                                 f"{err:.3e}, rows of other words {differ}")
+        row = dict(shape=f"[{B},{V}], D 1-{MDBN_WORDS}", max_abs_err=err,
+                   rows_differ=differ, ms=time_ms(kernel, 100),
+                   graph_ms=graph_ms(kernel),
+                   plain_ms=time_ms(lambda: rsoftmax.rs_sample_plain(
+                       logits, words, 0x7273), 10),
+                   library_ms=time_ms(library, 100),
+                   **bounds(0.0, 4.0 * (3 * B * V + B)))
+        out.setdefault("rs_sample", []).append(row)
+        log(f"[mdbn] rs_sample {row['shape']}: mean max|d| {err:.3e}, rows "
+            f"of other words {differ:.3f}; kernel {row['ms']:.4f} ms (device "
+            f"{row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+            f"softmax+multinomial {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
+
+
+def run_mdbn_path(workdir: Path) -> dict:
+    """The multimodal DBN's YAML through ``train_bimodal`` at its widths,
+    one epoch of each pathway and one of the joint (``cuts`` "mdbn-cut"),
+    with the launch counts reset just before and read just after: the new
+    entries' launches on their main path, by entry and by body. An epoch
+    of each pathway launches, for its nb batches at CD-k, nb·k Gaussian
+    down passes, nb·(k + 1) scaled up passes, nb·k logits and nb·k word
+    draws; later calls of the run (the joint's inputs, the cross metrics)
+    may add more."""
+    from multimodal_idbn_tpu_torch import cuts
+    from multimodal_idbn_tpu_torch.ops import half_step
+    reset_launches()
+    summary = cuts.run_cut("mdbn-cut", workdir)
+    launches = read_launches()
+    bodies = dict(half_step.KERNEL.launches_by_body)
+    cfg = cuts.CUTS["mdbn-cut"]
+    n = int(0.7 * cfg["cut"]["dataset"]["n_samples"])
+    nb, k = -(-n // 128), 10
+    want = {"half_step_gauss": nb * k, "half_step_linear": nb * k,
+            "half_step_scaled": nb * (k + 1), "rs_sample": nb * k}
+    losses = summary["mod1_loss"] + summary["mod2_loss"]
+    log(f"[mdbn-cut] launches {json.dumps(launches)}; by body "
+        f"{json.dumps(bodies)}; one pathway epoch derives {json.dumps(want)}"
+        f"; phase seconds {json.dumps(summary['seconds'])}; MOD1 / MOD2 CD "
+        f"loss {summary['mod1_loss']} / {summary['mod2_loss']}")
+    if any(launches[e] < n_ for e, n_ in want.items()) or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mdbn-cut: launches {launches}, derived at "
+                             f"least {want}; losses {losses}")
+    if bodies["mma_sync"] <= 0 or bodies["wgmma"] <= 0:
+        raise AssertionError(f"mdbn-cut: a body did not run: {bodies}")
+    return dict(launches, **{f"body:{b}": c for b, c in bodies.items()})
 
 
 def check_determinism(dev):
@@ -909,7 +1102,9 @@ def busy_ms(fn):
 
 SERVE_SEED = 20261
 KERNEL_ENTRIES = ("half_step_sample", "half_step_probs",
-                  "half_step_sample_resident", "chain_run", "philox_fill")
+                  "half_step_sample_resident", "chain_run", "philox_fill",
+                  "half_step_gauss", "half_step_linear", "half_step_scaled",
+                  "rs_sample")
 
 
 @contextlib.contextmanager
@@ -3506,6 +3701,7 @@ def main() -> int:
         build_kernels()
         hs_main, hs_rows = check_half_step(dev)
         hs_big = check_half_step_big(dev)
+        mdbn_rows = check_mdbn_kernels(dev)
         resident = check_resident(dev)
         ch_rows = check_chain(dev)
         check_determinism(dev)
@@ -3552,13 +3748,14 @@ def main() -> int:
             fill_row, phase14 = run_phase14(dev, tmp)
             by_path.update(phase14)
             by_path.update(run_phase15(dev))
+            by_path["mdbn-cut"] = run_mdbn_path(tmp)
     except Exception:
         traceback.print_exc()
         return 1
 
     def launches(entry, path):
         return dict(launches=by_path[path][entry], launches_by_path={
-            p: counts[entry] for p, counts in by_path.items()},
+            p: counts.get(entry, 0) for p, counts in by_path.items()},
             graph_replays_by_path={p: counts.get("graph_replays", 0)
                                    for p, counts in by_path.items()},
             serving_replays_by_path={p: counts.get("serving_replays", 0)
@@ -3611,13 +3808,57 @@ def main() -> int:
              replaces="none: jax.random in multimodal_idbn_tpu/ops/"
                       "sampling.py:22 (XLA, no Pallas kernel)",
              **launches("philox_fill", "bimodal-cut"), **fill_row),
-    ]
+    ] + mdbn_kernel_rows(mdbn_rows, launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def mdbn_kernel_rows(rows, launches) -> list:
+    """The kernels-line rows of the multimodal DBN's entries and sampler
+    (no TPU kernel: the JAX package has no such units), launches from the
+    mdbn-cut drive."""
+    return [dict(name=entry, route="cuda",
+                 source="multimodal_idbn_tpu_torch/csrc/" + (
+                     "rsoftmax.cu" if entry == "rs_sample"
+                     else "half_step.cu"),
+                 replaces="none: the JAX package has no Gaussian or "
+                          "replicated-softmax units",
+                 **launches(entry, "mdbn-cut"), **rows[entry][0],
+                 other_shapes=rows[entry][1:])
+            for entry in ("half_step_gauss", "half_step_linear",
+                          "half_step_scaled", "rs_sample")]
+
+
+def mdbn_main() -> int:
+    """``chip_smoke.py --mdbn``: the build, the multimodal DBN's entries
+    and sampler against their plain versions, and the mdbn-cut drive;
+    prints their kernels-line rows."""
+    import torch
+    from multimodal_idbn_tpu_torch import resolve_device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device("cuda")
+        build_kernels()
+        rows = check_mdbn_kernels(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path = {"mdbn-cut": run_mdbn_path(Path(tmp))}
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+    def launches(entry, path):
+        return dict(launches=by_path[path][entry],
+                    launches_by_body={k: n for k, n in by_path[path].items()
+                                      if k.startswith("body:")})
+
+    print(json.dumps({"kernels": mdbn_kernel_rows(rows, launches)}))
     return 0
 
 
@@ -3706,4 +3947,6 @@ if __name__ == "__main__":
         sys.exit(phase14_main())
     if sys.argv[1:2] == ["--serving"]:
         sys.exit(serving_main())
+    if sys.argv[1:2] == ["--mdbn"]:
+        sys.exit(mdbn_main())
     sys.exit(main())

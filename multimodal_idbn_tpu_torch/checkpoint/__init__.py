@@ -30,6 +30,12 @@ What differs from the JAX module:
   :174-177); both packages read either's. A bf16 state loads as bf16, any
   other as fp32. PCD fantasy particles travel as ``extra/pcd_chain{i}``
   and are restored in numeric order (:276-279, :313-318).
+- Visible unit types. An iDBN whose layer 0 is not Bernoulli
+  (``iDBN.visible``: "gaussian", "replicated_softmax") records its type
+  under ``meta["visible"]`` by the stack's name (``""`` for a bare iDBN,
+  ``mod1_dbn``, ``mod2_dbn``, ``image_idbn``); loading refuses a model of
+  another type. A file without the record, as every older checkpoint and
+  the JAX package's, holds Bernoulli stacks.
 """
 
 from __future__ import annotations
@@ -78,6 +84,17 @@ def _collect_rbms(model) -> Dict[str, "object"]:
             out[f"layer{i}"] = r
     else:
         raise TypeError(f"don't know how to checkpoint {type(model)}")
+    return out
+
+
+def _visible_types(model) -> Dict[str, str]:
+    """The visible unit type of every iDBN of ``model``, by stack name."""
+    out = {}
+    for name in ("", "image_idbn", "mod1_dbn", "mod2_dbn"):
+        dbn = getattr(model, name, None) if name else model
+        if dbn is not None and hasattr(dbn, "layers") \
+                and hasattr(dbn, "visible"):
+            out[name] = dbn.visible
     return out
 
 
@@ -142,6 +159,10 @@ def save_checkpoint(model, path: str, extra: Optional[Dict] = None) -> None:
                 f"round-trip through the npz format")
     if dtypes:
         meta["dtypes"] = dtypes
+    visible = {k: v for k, v in _visible_types(model).items()
+               if v != "bernoulli"}
+    if visible:
+        meta["visible"] = visible
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
     # Atomic: a crash mid-write must never clobber the previous checkpoint
@@ -189,6 +210,7 @@ def load_checkpoint(model, path: str) -> Dict[str, np.ndarray]:
     with np.load(p, allow_pickle=False) as f:
         files = dict(f)
     bf16 = set()
+    saved_visible = {}
     if "__meta__" in files:
         meta = json.loads(bytes(files["__meta__"]).decode())
         for k, dt in (meta.get("dtypes") or {}).items():
@@ -196,6 +218,13 @@ def load_checkpoint(model, path: str) -> Dict[str, np.ndarray]:
                 raise TypeError(f"checkpoint array {k!r} is bit-viewed "
                                 f"{dt}; only bfloat16 is supported")
             bf16.add(k)
+        saved_visible = meta.get("visible") or {}
+    for name, vis in _visible_types(model).items():
+        if saved_visible.get(name, "bernoulli") != vis:
+            raise ValueError(
+                f"checkpoint {p!r} holds {saved_visible.get(name, 'bernoulli')}"
+                f" visible units in {name or 'the iDBN'}, this model "
+                f"{vis}")
     rbms = _collect_rbms(model)
     missing = [name for name in rbms if f"{name}/w" not in files]
     if missing:

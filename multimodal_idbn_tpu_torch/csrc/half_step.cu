@@ -99,6 +99,23 @@
 // output is written once. The uniform depends only on (seed, row, col),
 // never on the tiling or the slices; two launches on the same inputs
 // agree bit for bit, and the three entries agree with each other.
+//
+// Three more entries give the visible units that are not Bernoulli their
+// half-steps, on both bodies, as other instances of the same templates
+// (EPI, the epilogue; the Bernoulli kernels keep their names and code):
+// - half_step_linear (EPI_LINEAR): out = (x . W^T + b) * inv_T, no draw:
+//   the logits of a replicated-softmax visible layer, whose words the row
+//   kernel of rsoftmax.cu draws.
+// - half_step_gauss (EPI_GAUSS): mean = (x . W^T + b) * inv_T and sample
+//   = mean + n(seed, row0 + row, col0 + col), the N(0, 1) of Philox words 0
+//   and 1 at the uniform's counter (philox.cuh): a Gaussian visible layer
+//   of unit variance, drawn downward.
+// - half_step_scaled (EPI_ROW_SCALED): probs = sigmoid((x . W + s_row * b)
+//   * inv_T) and its Bernoulli sample: the hidden layer above a
+//   replicated-softmax visible, whose bias counts once per word of the row
+//   (s_row = D, the row's words).
+// They are instantiated for the direction they are used in (down, down,
+// up), and count their launches under their own names.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,7 +143,11 @@ struct HalfStepArgs {
   int key_index;
   uint64_t seed;
   uint32_t row0, col0;  // global index of this operand's first row, column
+  const float* row_scale;  // [B], the bias's factor per row (EPI_ROW_SCALED)
 };
+
+// The epilogues: EPI_SIGMOID is the Bernoulli half-step's.
+enum { EPI_SIGMOID = 0, EPI_LINEAR = 1, EPI_GAUSS = 2, EPI_ROW_SCALED = 3 };
 
 __device__ __forceinline__ uint64_t seed_of(const HalfStepArgs& a) {
   return a.keys != nullptr ? __ldg(a.keys + a.key_index) : a.seed;
@@ -149,13 +170,45 @@ __device__ __forceinline__ void emit(const HalfStepArgs& a, int r, int c,
   if (a.sample != nullptr) a.sample[o] = p > u ? 1.0f : 0.0f;
 }
 
+// The epilogue of output (r, c) of the other instances, which draw their
+// own noise from the seed.
+template <int EPI>
+__device__ __forceinline__ void emit_mode(const HalfStepArgs& a,
+                                          uint64_t seed, int r, int c,
+                                          float sum) {
+  const size_t o = (size_t)r * a.N + c;
+  if constexpr (EPI == EPI_ROW_SCALED) {
+    const float p = sigmoidf_exact(
+        (sum + __ldg(a.row_scale + r) * __ldg(a.b + c)) * a.inv_T);
+    a.probs[o] = p;
+    if (a.sample != nullptr)
+      a.sample[o] = p > uniform_of(a, seed, r, c) ? 1.0f : 0.0f;
+  } else {
+    const float m = (sum + __ldg(a.b + c)) * a.inv_T;
+    a.probs[o] = m;
+    if (EPI == EPI_GAUSS && a.sample != nullptr)
+      a.sample[o] = m + philox_normal(seed, a.row0 + (uint32_t)r,
+                                      a.col0 + (uint32_t)c, 0u, 0u);
+  }
+}
+
+// Output (r, c) through epilogue EPI.
+template <int EPI>
+__device__ __forceinline__ void emit_epi(const HalfStepArgs& a, uint64_t seed,
+                                         int r, int c, float sum) {
+  if constexpr (EPI == EPI_SIGMOID)
+    emit(a, r, c, sum,
+         a.sample != nullptr ? uniform_of(a, seed, r, c) : 0.0f);
+  else
+    emit_mode<EPI>(a, seed, r, c, sum);
+}
+
 // ---------------------------------------------------------------------------
 // The mma_sync body
 // ---------------------------------------------------------------------------
 
-template <bool TRANSPOSE, int TM>
-__global__ void __launch_bounds__(gemm::THREADS, TM == 4 ? 4 : 5)
-half_step_kernel(HalfStepArgs a) {
+template <bool TRANSPOSE, int TM, int EPI>
+__device__ __forceinline__ void mma_sync_body(const HalfStepArgs& a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int is_last;
   using T = gemm::Tile<TM>;
@@ -205,16 +258,35 @@ half_step_kernel(HalfStepArgs a) {
     for (int j = 0; j < gemm::TN; ++j) {
       const int c = n0 + gemm::tile_col(tid, j);
       if (c >= a.N) continue;
-      emit(a, r, c, acc[i][j],
-           a.sample != nullptr ? uniform_of(a, seed, r, c) : 0.0f);
+      emit_epi<EPI>(a, seed, r, c, acc[i][j]);
     }
   }
 }
 
 template <bool TRANSPOSE, int TM>
+__global__ void __launch_bounds__(gemm::THREADS, TM == 4 ? 4 : 5)
+half_step_kernel(HalfStepArgs a) {
+  mma_sync_body<TRANSPOSE, TM, EPI_SIGMOID>(a);
+}
+
+template <bool TRANSPOSE, int TM, int EPI>
+__global__ void __launch_bounds__(gemm::THREADS, TM == 4 ? 4 : 5)
+half_step_mode_kernel(HalfStepArgs a) {
+  mma_sync_body<TRANSPOSE, TM, EPI>(a);
+}
+
+template <bool TRANSPOSE, int TM, int EPI>
+constexpr auto tile_kernel() {
+  if constexpr (EPI == EPI_SIGMOID)
+    return &half_step_kernel<TRANSPOSE, TM>;
+  else
+    return &half_step_mode_kernel<TRANSPOSE, TM, EPI>;
+}
+
+template <bool TRANSPOSE, int TM, int EPI>
 int launch_tile(const HalfStepArgs& a, void* stream) {
   using T = gemm::Tile<TM>;
-  auto kernel = half_step_kernel<TRANSPOSE, TM>;
+  auto kernel = tile_kernel<TRANSPOSE, TM, EPI>();
   if (T::SMEM_BYTES > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
@@ -298,10 +370,10 @@ __device__ __forceinline__ void load_by_hand(const WgArgs& g, float* xs,
   }
 }
 
-template <bool TRANSPOSE, int NB>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-half_step_wgmma(const __grid_constant__ CUtensorMap xmap,
-                const __grid_constant__ CUtensorMap wmap, const WgArgs g) {
+template <bool TRANSPOSE, int NB, int EPI>
+__device__ __forceinline__ void wgmma_body(const CUtensorMap& xmap,
+                                           const CUtensorMap& wmap,
+                                           const WgArgs& g) {
   using L = wg::Layout<NB>;
   const HalfStepArgs& a = g.a;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -486,9 +558,7 @@ half_step_wgmma(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int rr = r + (e & 1), c = e < 2 ? c0 : c1;
-        if (rr < a.B && c < a.N)
-          emit(a, rr, c, v[e],
-               a.sample != nullptr ? uniform_of(a, seed, rr, c) : 0.0f);
+        if (rr < a.B && c < a.N) emit_epi<EPI>(a, seed, rr, c, v[e]);
       }
     }
   }
@@ -498,6 +568,21 @@ half_step_wgmma(const __grid_constant__ CUtensorMap xmap,
     counters[0] = 0;
     counters[1] = 0;
   }
+}
+
+template <bool TRANSPOSE, int NB>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+half_step_wgmma(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, const WgArgs g) {
+  wgmma_body<TRANSPOSE, NB, EPI_SIGMOID>(xmap, wmap, g);
+}
+
+template <bool TRANSPOSE, int NB, int EPI>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+half_step_mode_wgmma(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const WgArgs g) {
+  wgmma_body<TRANSPOSE, NB, EPI>(xmap, wmap, g);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
@@ -545,10 +630,18 @@ bool tma_ready(const float* p, int ld) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && (ld & 3) == 0;
 }
 
-template <bool TRANSPOSE, int NB>
+template <bool TRANSPOSE, int NB, int EPI>
+constexpr auto wgmma_kernel() {
+  if constexpr (EPI == EPI_SIGMOID)
+    return &half_step_wgmma<TRANSPOSE, NB>;
+  else
+    return &half_step_mode_wgmma<TRANSPOSE, NB, EPI>;
+}
+
+template <bool TRANSPOSE, int NB, int EPI>
 int launch_wgmma(const HalfStepArgs& a, void* stream) {
   using L = wg::Layout<NB>;
-  auto kernel = half_step_wgmma<TRANSPOSE, NB>;
+  auto kernel = wgmma_kernel<TRANSPOSE, NB, EPI>();
   static int capacity[64] = {0};  // co-resident blocks, per device
   int dev = 0;
   cudaError_t err;
@@ -596,11 +689,15 @@ int launch_wgmma(const HalfStepArgs& a, void* stream) {
 // slices == 1; body 1: wgmma, tile_rows 32, 64 or 128 (the batch rounded
 // up; B <= tile_rows), k_per_slice a multiple of 32, scratch and tickets
 // always. The slices cover K.
+// The Bernoulli epilogue takes both directions; the others the one they
+// are instantiated for (TRANSPOSE_OF).
+template <int EPI>
 int launch(const float* x, const float* w, const float* b, float* probs,
            float* sample, float* scratch, int* tickets, int B, int K, int N,
            bool transpose_w, int body, int tile_rows, int slices,
            int k_per_slice, float inv_T, const unsigned long long* keys,
-           int key_index, uint64_t seed, int row0, int col0, void* stream) {
+           int key_index, uint64_t seed, int row0, int col0, void* stream,
+           const float* row_scale = nullptr) {
   if (B <= 0 || N <= 0) return 0;
   const int k_tile = body == 1 ? wg::KT : gemm::BK;
   const bool rows_ok =
@@ -614,24 +711,38 @@ int launch(const float* x, const float* w, const float* b, float* probs,
       ((slices > 1 || body == 1) &&
        (scratch == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if ((EPI == EPI_ROW_SCALED && row_scale == nullptr) ||
+      (EPI != EPI_SIGMOID && transpose_w != (EPI != EPI_ROW_SCALED)))
+    return (int)cudaErrorInvalidValue;
   const HalfStepArgs a{x, w, b, probs, sample, scratch, tickets, B, K, N,
                        slices, k_per_slice, inv_T, keys, key_index, seed,
-                       (uint32_t)row0, (uint32_t)col0};
-  if (body == 1) {
-    if (tile_rows == 128)
-      return transpose_w ? launch_wgmma<true, 128>(a, stream)
-                         : launch_wgmma<false, 128>(a, stream);
+                       (uint32_t)row0, (uint32_t)col0, row_scale};
+  if constexpr (EPI == EPI_SIGMOID) {
+    if (body == 1) {
+      if (tile_rows == 128)
+        return transpose_w ? launch_wgmma<true, 128, EPI>(a, stream)
+                           : launch_wgmma<false, 128, EPI>(a, stream);
+      if (tile_rows == 64)
+        return transpose_w ? launch_wgmma<true, 64, EPI>(a, stream)
+                           : launch_wgmma<false, 64, EPI>(a, stream);
+      return transpose_w ? launch_wgmma<true, 32, EPI>(a, stream)
+                         : launch_wgmma<false, 32, EPI>(a, stream);
+    }
     if (tile_rows == 64)
-      return transpose_w ? launch_wgmma<true, 64>(a, stream)
-                         : launch_wgmma<false, 64>(a, stream);
-    return transpose_w ? launch_wgmma<true, 32>(a, stream)
-                       : launch_wgmma<false, 32>(a, stream);
+      return transpose_w ? launch_tile<true, 4, EPI>(a, stream)
+                         : launch_tile<false, 4, EPI>(a, stream);
+    return transpose_w ? launch_tile<true, 2, EPI>(a, stream)
+                       : launch_tile<false, 2, EPI>(a, stream);
+  } else {
+    constexpr bool T = EPI != EPI_ROW_SCALED;
+    if (body == 1) {
+      if (tile_rows == 128) return launch_wgmma<T, 128, EPI>(a, stream);
+      if (tile_rows == 64) return launch_wgmma<T, 64, EPI>(a, stream);
+      return launch_wgmma<T, 32, EPI>(a, stream);
+    }
+    if (tile_rows == 64) return launch_tile<T, 4, EPI>(a, stream);
+    return launch_tile<T, 2, EPI>(a, stream);
   }
-  if (tile_rows == 64)
-    return transpose_w ? launch_tile<true, 4>(a, stream)
-                       : launch_tile<false, 4>(a, stream);
-  return transpose_w ? launch_tile<true, 2>(a, stream)
-                     : launch_tile<false, 2>(a, stream);
 }
 
 }  // namespace
@@ -644,9 +755,10 @@ extern "C" int half_step_sample(const float* x, const float* w,
                                 float inv_T, const unsigned long long* keys,
                                 int key_index, unsigned long long seed,
                                 int row0, int col0, void* stream) {
-  return launch(x, w, b, probs, sample, scratch, tickets, B, K, N,
-                transpose_w != 0, body, tile_rows, slices, k_per_slice, inv_T,
-                keys, key_index, seed, row0, col0, stream);
+  return launch<EPI_SIGMOID>(x, w, b, probs, sample, scratch, tickets, B, K,
+                             N, transpose_w != 0, body, tile_rows, slices,
+                             k_per_slice, inv_T, keys, key_index, seed, row0,
+                             col0, stream);
 }
 
 extern "C" int half_step_probs(const float* x, const float* w,
@@ -654,9 +766,9 @@ extern "C" int half_step_probs(const float* x, const float* w,
                                int* tickets, int B, int K, int N, int body,
                                int tile_rows, int slices, int k_per_slice,
                                float inv_T, void* stream) {
-  return launch(x, w, b, probs, nullptr, scratch, tickets, B, K, N, false,
-                body, tile_rows, slices, k_per_slice, inv_T, nullptr, 0, 0,
-                0, 0, stream);
+  return launch<EPI_SIGMOID>(x, w, b, probs, nullptr, scratch, tickets, B, K,
+                             N, false, body, tile_rows, slices, k_per_slice,
+                             inv_T, nullptr, 0, 0, 0, 0, stream);
 }
 
 // seed is the TPU kernel's int32 seed; its 32 bits key Philox.
@@ -667,9 +779,52 @@ extern "C" int half_step_sample_resident(const float* x, const float* w,
                                          int body, int tile_rows, int slices,
                                          int k_per_slice, float inv_T,
                                          unsigned int seed, void* stream) {
-  return launch(x, w, b, probs, sample, scratch, tickets, B, K, N, false,
-                body, tile_rows, slices, k_per_slice, inv_T, nullptr, 0,
-                (uint64_t)seed, 0, 0, stream);
+  return launch<EPI_SIGMOID>(x, w, b, probs, sample, scratch, tickets, B, K,
+                             N, false, body, tile_rows, slices, k_per_slice,
+                             inv_T, nullptr, 0, (uint64_t)seed, 0, 0, stream);
+}
+
+// The logits (x . W^T + b) * inv_T of a replicated-softmax visible layer.
+extern "C" int half_step_linear(const float* x, const float* w,
+                                const float* b, float* out, float* scratch,
+                                int* tickets, int B, int K, int N, int body,
+                                int tile_rows, int slices, int k_per_slice,
+                                float inv_T, void* stream) {
+  return launch<EPI_LINEAR>(x, w, b, out, nullptr, scratch, tickets, B, K,
+                            N, true, body, tile_rows, slices, k_per_slice,
+                            inv_T, nullptr, 0, 0, 0, 0, stream);
+}
+
+// The mean (x . W^T + b) * inv_T of a Gaussian visible layer and, where
+// sample is not null, the mean plus N(0, 1) noise keyed as
+// half_step_sample's uniforms.
+extern "C" int half_step_gauss(const float* x, const float* w,
+                               const float* b, float* mean, float* sample,
+                               float* scratch, int* tickets, int B, int K,
+                               int N, int body, int tile_rows, int slices,
+                               int k_per_slice, float inv_T,
+                               const unsigned long long* keys, int key_index,
+                               unsigned long long seed, int row0, int col0,
+                               void* stream) {
+  return launch<EPI_GAUSS>(x, w, b, mean, sample, scratch, tickets, B, K, N,
+                           true, body, tile_rows, slices, k_per_slice, inv_T,
+                           keys, key_index, seed, row0, col0, stream);
+}
+
+// sigmoid((x . W + row_scale[row] * b) * inv_T) and its Bernoulli sample,
+// keyed as half_step_sample's.
+extern "C" int half_step_scaled(const float* x, const float* w,
+                                const float* b, const float* row_scale,
+                                float* probs, float* sample, float* scratch,
+                                int* tickets, int B, int K, int N, int body,
+                                int tile_rows, int slices, int k_per_slice,
+                                float inv_T, const unsigned long long* keys,
+                                int key_index, unsigned long long seed,
+                                int row0, int col0, void* stream) {
+  return launch<EPI_ROW_SCALED>(x, w, b, probs, sample, scratch, tickets, B,
+                                K, N, false, body, tile_rows, slices,
+                                k_per_slice, inv_T, keys, key_index, seed,
+                                row0, col0, stream, row_scale);
 }
 
 extern "C" const char* kernel_error_string(int code) {

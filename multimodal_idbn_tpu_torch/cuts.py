@@ -9,6 +9,10 @@ and only its scale cut (samples and epochs).
   [10000, 1500, 1500], MOD2 [1568, 500, 500, 1000], joint [1500, 500]
   (layer 0 is 2500×1500) with CD-10, joint CD-5, 50 cross steps, 30 aux
   steps; 384 samples, 1 epoch per modality, 9 joint epochs.
+- ``mdbn-cut``: configs/mdbn_flickr_training_config.yaml, the multimodal
+  DBN's Gaussian [3857, 1024, 1024] and replicated-softmax [2000, 1024,
+  1024] pathways CD-10, joint [2048]; 2 048 samples (1 434 training rows,
+  as the benchmark's cells), 1 epoch per pathway and 1 joint epoch.
 
 With 384 samples the training split is 268 rows: 2 full batches of 128
 and a remainder of 12, so both batch shapes run.
@@ -58,6 +62,15 @@ CUTS: Dict[str, dict] = {
         "cut": {"dataset": {"n_samples": 384},
                 "training": {"epochs_mod1": 1, "epochs_mod2": 1,
                              "epochs_joint": 9}},
+    },
+    # the multimodal DBN's widths, 1 434 training rows (the split of
+    # 2 048), one epoch of each pathway and of the joint
+    "mdbn-cut": {
+        "yaml": "mdbn_flickr_training_config.yaml",
+        "entry": "train_bimodal",
+        "cut": {"dataset": {"n_samples": 2048},
+                "training": {"epochs_mod1": 1, "epochs_mod2": 1,
+                             "epochs_joint": 1}},
     },
 }
 

@@ -11,7 +11,9 @@ JAX package: the native C++ generator when it builds, else the Python
 one. With ``second_modality="mnist100"`` the dataset is bimodal:
 batches are (numerosity images, MNIST-100 images), the second modality
 read from ``mnist100_path`` or rendered from the labels
-(``numerosity.generate_mnist100_images``).
+(``numerosity.generate_mnist100_images``). ``create_dataloaders_features_tags``
+gives the multimodal DBN's bimodal loaders instead: (image features, tag
+counts) batches of the synthetic set of ``features_tags``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ from multimodal_idbn_tpu_torch.data.loaders import (  # noqa: F401
     NumerosityDataset,
     Subset,
     train_val_test_split,
+)
+from multimodal_idbn_tpu_torch.data.features_tags import (  # noqa: F401
+    generate_feature_tag_dataset,
 )
 from multimodal_idbn_tpu_torch.data.numerosity import (  # noqa: F401
     generate_mnist100_images,
@@ -164,3 +169,28 @@ def create_dataloaders_zipfian(data_path: Optional[str] = None,
         class_probs=zipf_probs(num_classes, zipf_exponent))
     return _build_loaders(data, batch_size, second_modality, mnist100_path,
                           val_size, test_size, seed)
+
+
+def create_dataloaders_features_tags(n_features: int, vocab: int,
+                                     batch_size: int = 128,
+                                     num_classes: int = 32,
+                                     n_samples: int = 512, seed: int = 0,
+                                     max_words: int = 10,
+                                     val_size: float = 0.15,
+                                     test_size: float = 0.15):
+    """(train, val, test) bimodal loaders of (image features, tag counts)
+    batches over ``generate_feature_tag_dataset``, split as the numerosity
+    loaders are."""
+    data = generate_feature_tag_dataset(n_samples, n_features, vocab,
+                                        num_classes, seed=seed,
+                                        max_words=max_words)
+    ds = NumerosityDataset(
+        images=data["images"], labels=data["labels"], onehot=data["onehot"],
+        cumArea=data["cumArea"], CH=data["CH"], mod2_images=data["tags"],
+        mode="bimodal")
+    tr, va, te = train_val_test_split(len(ds), val_size=val_size,
+                                      test_size=test_size, seed=42)
+    return (DataLoader(Subset(ds, tr), batch_size=batch_size, shuffle=True,
+                       seed=seed),
+            DataLoader(Subset(ds, va), batch_size=batch_size, shuffle=False),
+            DataLoader(Subset(ds, te), batch_size=batch_size, shuffle=False))

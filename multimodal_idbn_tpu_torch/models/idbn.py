@@ -46,6 +46,16 @@ process on its rows of every batch (``dbn_train.idbn_epoch_block`` with
 the mesh); it takes the default fp32 CD path and bf16 storage, not PCD,
 ``COMPUTE_DTYPE`` or the per-batch loop, as in JAX.
 
+``visible`` names the unit type of layer 0's visible units: "bernoulli"
+(the default, every shipped stack), "gaussian" (unit variance over
+standardised real data) or "replicated_softmax" (word counts), the
+multimodal DBN's image and text pathways (Srivastava & Salakhutdinov,
+JMLR 15, 2014); ``visible_lr_scale`` scales layer 0's learning rate.
+Layer 0 then trains by ``fast_cd``'s update of that type on the fused
+epochs, in fp32 CD on one device (``dbn_train.check_visible_route``); the
+per-batch loop, PCD, bf16 storage, mixed precision and a mesh raise
+``NotImplementedError``.
+
 ``represent``, ``reconstruct`` and ``decode`` are JAX's jitted
 ``dbn_represent``, ``dbn_reconstruct`` and ``dbn_decode``
 (ops/dbn_train.py:388-434): on a CUDA device each call is one replay of
@@ -171,8 +181,11 @@ class iDBN:
     def __init__(self, layer_sizes: List[int], params: dict, dataloader,
                  val_loader=None, device: DeviceLike = None, wandb_run=None,
                  logging_config_path: Optional[str] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, visible: str = "bernoulli",
+                 visible_lr_scale: float = 1.0):
         self.params = params
+        self.visible = fast_cd.check_visible(visible)
+        self.visible_lr_scale = float(visible_lr_scale)
         self.dataloader = dataloader
         self.val_loader = val_loader
         self.device = resolve_device(device)
@@ -291,6 +304,15 @@ class iDBN:
                 for i, r in enumerate(self.layers)]
         return self._pcd_chains
 
+    def _visible_kw(self) -> dict:
+        """Layer 0's unit type and rate factor as keywords of the ops,
+        where it is not Bernoulli (a Bernoulli stack calls them as it
+        always has)."""
+        if self.visible == fast_cd.BERNOULLI:
+            return {}
+        return dict(visible=self.visible,
+                    visible_lr_scale=self.visible_lr_scale)
+
     def _epoch_kw(self, bs: int) -> dict:
         """The setting of this model's fused epochs."""
         r0 = self.layers[0]
@@ -298,7 +320,8 @@ class iDBN:
                     sparsity_factor=self.sparsity_factor, cd=self.cd_k,
                     sparsity_flags=[r.sparsity for r in self.layers],
                     batch_size=bs, compute_dtype=self.compute_dtype,
-                    sr=self.sr, fast_sampler=self._fast_sampler())
+                    sr=self.sr, fast_sampler=self._fast_sampler(),
+                    **self._visible_kw())
 
     def _epoch_runner(self, data: torch.Tensor, bs: int):
         """The runner of this train call's fused epochs
@@ -341,6 +364,10 @@ class iDBN:
         models/idbn.py:433-442). A batch is one call of ``_batch_step``,
         one graph replay on the card; the losses stay on the device until
         the epoch's one host read."""
+        if self.visible != fast_cd.BERNOULLI:
+            raise NotImplementedError(
+                f"{self.visible} visible units train on the fused epochs "
+                f"only: give the loader materialize()")
         hyper = graphs.hyper(self.device, *(
             x for r in self.layers for x in (
                 effective_lr(r.lr, epoch, r.dynamic_lr),
@@ -457,7 +484,9 @@ class iDBN:
         if self.val_batch is None:
             return None
         vb = as_tensor(self.val_batch, self.device)
-        rec = torch.clamp(self.reconstruct(vb), 0, 1)
+        rec = self.reconstruct(vb)
+        if self.visible == fast_cd.BERNOULLI:
+            rec = torch.clamp(rec, 0, 1)
         mse = float(torch.mean((vb - rec) ** 2))
         blank = float(torch.mean(vb * vb))
         return mse / max(blank, 1e-12)
@@ -601,18 +630,26 @@ class iDBN:
              else max(0, min(len(self.layers), int(upto_layer))))
         return graphs.serve(self, self.device, dbn_train.dbn_represent,
                             None, self._weights(), as_tensor(x, self.device),
-                            upto=L)
+                            upto=L, **self._unit_kw())
 
     def reconstruct(self, x) -> torch.Tensor:
         """Encode all the way up, then decode back."""
         return graphs.serve(self, self.device, dbn_train.dbn_reconstruct,
                             None, self._weights(),
-                            as_tensor(x, self.device))
+                            as_tensor(x, self.device), **self._unit_kw())
 
     def decode(self, top) -> torch.Tensor:
-        """Decode top activations to input space."""
+        """Decode top activations to input space: probabilities, or the
+        Gaussian's mean, or the word distribution."""
         return graphs.serve(self, self.device, dbn_train.dbn_decode, None,
-                            self._weights(), as_tensor(top, self.device))
+                            self._weights(), as_tensor(top, self.device),
+                            **self._unit_kw())
+
+    def _unit_kw(self) -> dict:
+        """Layer 0's unit type as a keyword of the inference ops, where it
+        is not Bernoulli."""
+        return {} if self.visible == fast_cd.BERNOULLI \
+            else {"visible": self.visible}
 
     # -- persistence (JAX models/idbn.py:660-674) -----------------------------
 
@@ -648,7 +685,8 @@ class iDBN:
                      ("use_pcd", False), ("_pcd_chains", None),
                      ("_route_said", False), ("mesh", None),
                      ("_dp_devices", None), ("val_labels", None),
-                     ("logging_cfg", {})):
+                     ("logging_cfg", {}), ("visible", "bernoulli"),
+                     ("visible_lr_scale", 1.0)):
             d.setdefault(k, v)
         d.setdefault("sparsity_last",
                      bool((d.get("params") or {}).get("SPARSITY", False)))

@@ -28,6 +28,18 @@ chain and the latent trajectories 2-D / 3-D) and the per-epoch logging to
 a run object (``_log_joint_epoch``, ``_log_snapshots``, :863-1011); they
 draw from joint layer 0's own stream, never from the training keys.
 
+The params keys ``MOD1_VISIBLE`` and ``MOD2_VISIBLE`` name the unit type
+of each modality stack's visible layer (``iDBN``'s ``visible``: the
+default "bernoulli", "gaussian" or "replicated_softmax"), and
+``MOD1_VISIBLE_LR_SCALE`` / ``MOD2_VISIBLE_LR_SCALE`` the factor on its
+learning rate: the multimodal DBN of Srivastava & Salakhutdinov (JMLR 15,
+2014), a Gaussian image-feature pathway and a replicated-softmax tag
+pathway. The joint's latents come through each stack's own up pass, and
+the deterministic cross calls decode to the Gaussian's mean and the word
+distribution; the sampled cross calls raise ``NotImplementedError`` for a
+stack that is not Bernoulli (a generated text's number of words is
+unknown).
+
 How a serving call runs: the calls JAX jits,
 ``bimodal_ops.bimodal_cross_reconstruct`` (``_cross_reconstruct``,
 ``mod1_to_mod2``, ``mod2_to_mod1``), ``bimodal_ops.sample_cross``
@@ -72,6 +84,17 @@ from multimodal_idbn_tpu_torch.utils.wandb_compat import pyplot, wandb
 
 # Hard-coded in the reference (JAX models/imdbn_bimodal.py:30).
 WARMUP_EPOCHS = 8
+
+
+def visible_args(params: dict, mod: str) -> dict:
+    """``iDBN``'s ``visible`` and ``visible_lr_scale`` of stack ``mod``
+    ("MOD1", "MOD2") from the params, where they are set."""
+    out = {}
+    if params.get(f"{mod}_VISIBLE") is not None:
+        out["visible"] = str(params[f"{mod}_VISIBLE"])
+    if params.get(f"{mod}_VISIBLE_LR_SCALE") is not None:
+        out["visible_lr_scale"] = float(params[f"{mod}_VISIBLE_LR_SCALE"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +179,9 @@ def _bimodal_batch_step(joint, mod1_weights, mod2_weights, v1, v2, hyper, *,
     (``represent``), then ``bimodal_ops.bimodal_batch_step``'s body at
     ``hyper`` = (lr, momentum). Returns (joint, (CD loss, metric
     sums))."""
-    z1 = dbn_train.dbn_represent(mod1_weights, v1, len(mod1_weights))
-    z2 = dbn_train.dbn_represent(mod2_weights, v2, len(mod2_weights))
+    vis1, vis2 = statics.get("visibles") or ("bernoulli", "bernoulli")
+    z1 = dbn_train.dbn_represent(mod1_weights, v1, len(mod1_weights), vis1)
+    z2 = dbn_train.dbn_represent(mod2_weights, v2, len(mod2_weights), vis2)
     joint, cd_loss, m = bimodal_ops._bimodal_train_batch(
         joint, mod1_weights, mod2_weights, key, z1, z2, v1, v2, hyper[0],
         hyper[1], weight_decay, **statics)
@@ -357,11 +381,13 @@ class iMDBN_BiModal:
         self.logging_cfg = logging_cfg or {}
         self.mod1_dbn = iDBN(layer_sizes_mod1, self.params, None,
                              device=self.device, seed=seed,
-                             wandb_run=wandb_run)
+                             wandb_run=wandb_run, **visible_args(
+                                 self.params, "MOD1"))
         self.mod2_dbn = iDBN(layer_sizes_mod2, self.params, None,
                              device=self.device,
                              seed=None if seed is None else seed + 100,
-                             wandb_run=wandb_run)
+                             wandb_run=wandb_run, **visible_args(
+                                 self.params, "MOD2"))
         self.Dz_mod1 = int(self.mod1_dbn.layers[-1].num_hidden)
         self.Dz_mod2 = int(self.mod2_dbn.layers[-1].num_hidden)
         if isinstance(joint_layer_sizes, int):
@@ -427,6 +453,17 @@ class iMDBN_BiModal:
         if self.mesh is None and self._dp_devices:
             self.set_mesh(self._dp_devices)
         return self.mesh
+
+    @property
+    def visibles(self) -> Tuple[str, str]:
+        """The unit types of the two stacks' visible layers."""
+        return self.mod1_dbn.visible, self.mod2_dbn.visible
+
+    def _visible_kw(self) -> dict:
+        """``visibles`` as a keyword of ``bimodal_ops``, where a stack is
+        not Bernoulli."""
+        vis = self.visibles
+        return {} if vis == ("bernoulli", "bernoulli") else {"visibles": vis}
 
     def _joint_states(self):
         return [r.state for r in self.joint_layers]
@@ -527,7 +564,7 @@ class iMDBN_BiModal:
             z1=as_tensor(z_mod1, self.device),
             z2=as_tensor(z_mod2, self.device),
             steps=int(self.cross_steps if steps is None else steps),
-            Dz1=self.Dz_mod1, direction=direction)
+            Dz1=self.Dz_mod1, direction=direction, **self._visible_kw())
 
     def mod1_to_mod2(self, mod1_images) -> torch.Tensor:
         """Decoded modality-2 images from raw modality-1 images."""
@@ -562,6 +599,13 @@ class iMDBN_BiModal:
         return self._sample_cross(mod2_images, "2to1", gibbs_steps, seed)
 
     def _sample_cross(self, images, direction, gibbs_steps, seed):
+        target = self.visibles[1 if direction == "1to2" else 0]
+        if target != "bernoulli":
+            raise NotImplementedError(
+                f"sampled cross-modal generation to {target} visible units "
+                f"is not supported (the number of words of generated text "
+                f"is unknown); use the deterministic mod1_to_mod2 / "
+                f"mod2_to_mod1")
         with span("serve.inputs"):
             if direction == "1to2":
                 z1 = self.mod1_dbn.represent(images)
@@ -659,7 +703,7 @@ class iMDBN_BiModal:
                 statics = dict(warmup=warmup, joint_cd=self.joint_cd,
                                aux_cond_steps=aux_cond_steps,
                                Dz1=self.Dz_mod1, steps=self.cross_steps,
-                               sr=jr.sr)
+                               sr=jr.sr, **self._visible_kw())
                 if fused:
                     if warmup not in runners:
                         runners[warmup] = bimodal_ops.bimodal_epoch_runner(

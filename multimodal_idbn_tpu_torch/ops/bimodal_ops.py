@@ -29,6 +29,11 @@ models/imdbn_bimodal.py:760-775). Every clamped CD's
 30-step noisy init runs on the chain kernel on the card (``ops.chain``);
 the sampled conditional Gibbs of the cross metrics and the joint CD stay
 plain torch, as they are jnp in the JAX package.
+
+``visibles``, where given, names the unit types of the two modality
+stacks' visible layers (``fast_cd.VISIBLE_TYPES``; None: both Bernoulli):
+the cross-reconstructions decode to them (``dbn_train.dbn_decode``), and
+the sampled cross calls refuse a type that is not Bernoulli.
 """
 
 from __future__ import annotations
@@ -39,8 +44,14 @@ import torch
 
 from multimodal_idbn_tpu_torch.ops import (dbn_train, graphs, rbm_ops, rng,
                                            shard)
+from multimodal_idbn_tpu_torch.ops.fast_cd import BERNOULLI
 
 States = List[rbm_ops.RBMState]
+
+
+def _visible_kw(visibles: Optional[Tuple[str, str]]) -> dict:
+    """``visibles`` as a keyword of the calls below, where given."""
+    return {} if visibles is None else {"visibles": tuple(visibles)}
 
 
 class BimodalMetrics(NamedTuple):
@@ -78,7 +89,8 @@ def bimodal_cross_reconstruct(joint0: rbm_ops.RBMState,
                               mod2_states: Sequence[rbm_ops.RBMState],
                               key: int, z1: torch.Tensor, z2: torch.Tensor,
                               *, steps: int, Dz1: int,
-                              direction: str = "both"):
+                              direction: str = "both",
+                              visibles: Optional[Tuple[str, str]] = None):
     """MOD1→MOD2 and MOD2→MOD1 through joint layer 0
     (bimodal_ops.py:40-77); returns (mod1_from_mod2, mod2_from_mod1), the
     output of a skipped ``direction`` ("1to2" | "2to1") being None. Each
@@ -88,17 +100,18 @@ def bimodal_cross_reconstruct(joint0: rbm_ops.RBMState,
     if z1.shape[1] != Dz1:
         raise ValueError(f"z1 has {z1.shape[1]} columns, Dz1 is {Dz1}")
     km1, vk1, vk2 = _clamps(z1, z2)
+    vis1, vis2 = visibles or (BERNOULLI, BERNOULLI)
     mod2_from_mod1 = mod1_from_mod2 = None
     if direction in ("both", "1to2"):
         v = rbm_ops.conditional_gibbs(joint0, rng.fold_in(key, 0), vk1, km1,
                                       n_steps=steps, sample_h=True,
                                       sample_v=False)
-        mod2_from_mod1 = dbn_train.dbn_decode(mod2_states, v[:, Dz1:])
+        mod2_from_mod1 = dbn_train.dbn_decode(mod2_states, v[:, Dz1:], vis2)
     if direction in ("both", "2to1"):
         v = rbm_ops.conditional_gibbs(joint0, rng.fold_in(key, 1), vk2,
                                       1.0 - km1, n_steps=steps,
                                       sample_h=True, sample_v=False)
-        mod1_from_mod2 = dbn_train.dbn_decode(mod1_states, v[:, :Dz1])
+        mod1_from_mod2 = dbn_train.dbn_decode(mod1_states, v[:, :Dz1], vis1)
     return mod1_from_mod2, mod2_from_mod1
 
 
@@ -109,7 +122,8 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
                        v2: torch.Tensor, lr, mom, weight_decay, *,
                        warmup: bool, joint_cd: int, aux_cond_steps: int,
                        Dz1: int, steps: int, compute_metrics: bool = True,
-                       sr: Optional[bool] = None
+                       sr: Optional[bool] = None,
+                       visibles: Optional[Tuple[str, str]] = None
                        ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
     """``_bimodal_train_batch`` as its jitted twin (bimodal_ops.py:307-316):
     on a CUDA device one graph replay (``graphs.serve``, the graphs of
@@ -121,7 +135,7 @@ def bimodal_batch_step(joint: Sequence[rbm_ops.RBMState],
         mod2_states, z1, z2, v1, v2, graphs.hyper(dev, lr, mom),
         weight_decay, warmup=warmup, joint_cd=joint_cd,
         aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
-        compute_metrics=compute_metrics, sr=sr)
+        compute_metrics=compute_metrics, sr=sr, **_visible_kw(visibles))
 
 
 def _bimodal_step_at(joint, mod1_states, mod2_states, z1, z2, v1, v2, hyper,
@@ -139,7 +153,8 @@ def _bimodal_train_batch(joint: Sequence[rbm_ops.RBMState],
                          weight_decay, *, warmup: bool, joint_cd: int,
                          aux_cond_steps: int, Dz1: int, steps: int,
                          compute_metrics: bool = True,
-                         sr: Optional[bool] = None
+                         sr: Optional[bool] = None,
+                         visibles: Optional[Tuple[str, str]] = None
                          ) -> Tuple[States, torch.Tensor, BimodalMetrics]:
     """One bimodal joint batch (bimodal_ops.py:80-146). Returns (joint
     states, layer-0 CD loss (0 in warm-up), metric sums). ``sr`` reaches
@@ -179,7 +194,7 @@ def _bimodal_train_batch(joint: Sequence[rbm_ops.RBMState],
     if compute_metrics:
         rec1, rec2 = bimodal_cross_reconstruct(
             layers[0], mod1_states, mod2_states, keys[7], z1, z2,
-            steps=steps, Dz1=Dz1)
+            steps=steps, Dz1=Dz1, visibles=visibles)
         metrics = BimodalMetrics(
             torch.full((), float(z1.shape[0]), device=z1.device),
             ((rec1 - v1) ** 2).sum(), ((rec2 - v2) ** 2).sum())
@@ -193,7 +208,8 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
                   V2: torch.Tensor, lr, mom, weight_decay, *, warmup: bool,
                   joint_cd: int, aux_cond_steps: int, Dz1: int, steps: int,
                   batch_size: int, metrics_every: int = 1,
-                  sr: Optional[bool] = None, mesh=None):
+                  sr: Optional[bool] = None, mesh=None,
+                  visibles: Optional[Tuple[str, str]] = None):
     """One joint epoch over already-permuted latents Z and images V: the
     ``n // batch_size`` full batches in order, batch b keyed
     ``fold_in(fold_in(key, 0), b)``, then the remainder keyed
@@ -210,7 +226,7 @@ def bimodal_epoch(joint: Sequence[rbm_ops.RBMState],
     every = max(1, int(metrics_every))
     statics = dict(warmup=warmup, joint_cd=joint_cd,
                    aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
-                   sr=sr)
+                   sr=sr, **_visible_kw(visibles))
     joint = list(joint)
     totals = zeros_metrics(Z1.device)
     cd_sum = torch.zeros((), device=Z1.device)
@@ -249,7 +265,8 @@ def bimodal_joint_epoch(joint: Sequence[rbm_ops.RBMState],
                         aux_cond_steps: int, Dz1: int, steps: int,
                         batch_size: int, metrics_every: int = 1,
                         shuffle: bool = False, sr: Optional[bool] = None,
-                        mesh=None):
+                        mesh=None,
+                        visibles: Optional[Tuple[str, str]] = None):
     """The full batches of one joint epoch (bimodal_ops.py:154-249): the
     rows beyond ``n // batch_size`` batches are left to the caller.
     ``shuffle`` permutes the data by ``rng.permutation(key, n)`` first.
@@ -263,7 +280,7 @@ def bimodal_joint_epoch(joint: Sequence[rbm_ops.RBMState],
         V2[:m], lr, mom, weight_decay, warmup=warmup, joint_cd=joint_cd,
         aux_cond_steps=aux_cond_steps, Dz1=Dz1, steps=steps,
         batch_size=batch_size, metrics_every=metrics_every, sr=sr,
-        mesh=mesh)
+        mesh=mesh, visibles=visibles)
     return joint, cd_sum / max(1, count), totals
 
 
@@ -289,7 +306,9 @@ def bimodal_epoch_runner(Z1: torch.Tensor, Z2: torch.Tensor,
                          aux_cond_steps: int, Dz1: int, steps: int,
                          batch_size: int, metrics_every: int = 1,
                          sr: Optional[bool] = None, mesh=None,
-                         graphed: bool = False) -> graphs.EpochRunner:
+                         graphed: bool = False,
+                         visibles: Optional[Tuple[str, str]] = None
+                         ) -> graphs.EpochRunner:
     """The runner of ``bimodal_epoch_body`` at one setting (warm-up or
     main); ``graphed`` replays it as a CUDA graph (no ``mesh``)."""
     if graphed and mesh is not None:
@@ -298,7 +317,8 @@ def bimodal_epoch_runner(Z1: torch.Tensor, Z2: torch.Tensor,
                    joint_cd=int(joint_cd),
                    aux_cond_steps=int(aux_cond_steps), Dz1=int(Dz1),
                    steps=int(steps), batch_size=int(batch_size),
-                   metrics_every=int(metrics_every), sr=sr, mesh=mesh)
+                   metrics_every=int(metrics_every), sr=sr, mesh=mesh,
+                   **_visible_kw(visibles))
     return graphs.EpochRunner(
         "bimodal_epoch_warmup" if warmup else "bimodal_epoch",
         bimodal_epoch_body,
@@ -317,7 +337,8 @@ def bimodal_epoch_block(joint: Sequence[rbm_ops.RBMState],
                         batch_size: int, metrics_every: int = 1,
                         n_epochs: Optional[int] = None,
                         sr: Optional[bool] = None, mesh=None,
-                        runner: Optional[graphs.EpochRunner] = None):
+                        runner: Optional[graphs.EpochRunner] = None,
+                        visibles: Optional[Tuple[str, str]] = None):
     """The joint epochs ``epoch_idx`` (all warm-up or all main, as
     ``warmup`` says): epoch e is ``bimodal_epoch_body`` under the key
     ``fold_in(epoch_key, e)`` (its permutation ``rng.permutation`` of that
@@ -332,7 +353,7 @@ def bimodal_epoch_block(joint: Sequence[rbm_ops.RBMState],
         Z1, Z2, V1, V2, mod1_states, mod2_states, weight_decay,
         warmup=warmup, joint_cd=joint_cd, aux_cond_steps=aux_cond_steps,
         Dz1=Dz1, steps=steps, batch_size=batch_size,
-        metrics_every=metrics_every, sr=sr, mesh=mesh)
+        metrics_every=metrics_every, sr=sr, mesh=mesh, visibles=visibles)
     count = 0 if warmup else -(-Z1.shape[0] // batch_size)
     joint = list(joint)
     sums, counts, totals = [], [], []
@@ -349,7 +370,8 @@ def sample_cross(joint0: rbm_ops.RBMState,
                  mod1_states: Sequence[rbm_ops.RBMState],
                  mod2_states: Sequence[rbm_ops.RBMState], key: int,
                  z1: torch.Tensor, z2: torch.Tensor, *, steps: int, Dz1: int,
-                 direction: str) -> torch.Tensor:
+                 direction: str,
+                 visibles: Optional[Tuple[str, str]] = None) -> torch.Tensor:
     """Draw the other modality from p(x_other | x_known)
     (bimodal_ops.py:328-361): the fully sampled conditional chain on joint
     layer 0, then the ancestral-sampled decode through the target
@@ -370,6 +392,8 @@ def sample_cross(joint0: rbm_ops.RBMState,
     v = rbm_ops.sampled_conditional_chain(joint0, rng.fold_in(key, 0),
                                           v_known, km, n_steps=steps)
     kdec = rng.fold_in(key, 1)
+    vis1, vis2 = visibles or (BERNOULLI, BERNOULLI)
     if direction == "1to2":
-        return dbn_train.dbn_decode_sampled(mod2_states, v[:, Dz1:], kdec)
-    return dbn_train.dbn_decode_sampled(mod1_states, v[:, :Dz1], kdec)
+        return dbn_train.dbn_decode_sampled(mod2_states, v[:, Dz1:], kdec,
+                                            vis2)
+    return dbn_train.dbn_decode_sampled(mod1_states, v[:, :Dz1], kdec, vis1)

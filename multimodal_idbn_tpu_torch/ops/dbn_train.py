@@ -28,6 +28,17 @@ models/idbn.py:164-180), False by default as in JAX (dbn_train.py:71,
 ``rbm_ops.cd_update`` / ``pcd_update`` in plain torch, the route of bf16
 storage and of ``compute_dtype``. ``sr`` is the stochastic-rounding
 override of ``rbm_ops.cd_update``.
+
+``visible`` names the unit type of layer 0's visible units
+(``fast_cd.VISIBLE_TYPES``): "bernoulli", every shipped stack; "gaussian"
+or "replicated_softmax" train layer 0 by ``fast_cd``'s update of that
+type, on one device and in fp32 CD only (any other route raises
+``NotImplementedError``). ``visible_lr_scale`` scales layer 0's learning
+rate (a Gaussian visible layer learns at a rate orders of magnitude below
+a Bernoulli one's). Layer 1 is fed layer 0's p(h|v)
+(replicated softmax: ``fast_cd.rsm_hidden_probs``). ``dbn_represent`` and
+``dbn_decode`` take the same type: the bottom layer decodes to the
+Gaussian's mean or the word distribution ``softmax(b + h·Wᵀ)``.
 """
 
 from __future__ import annotations
@@ -44,13 +55,43 @@ Chains = List[torch.Tensor]
 
 
 def _layer_update(st, key, v, *, fast_sampler: bool, compute_dtype, sr,
-                  **kw):
+                  visible: str = fast_cd.BERNOULLI, **kw):
     """One groupless CD update through the route ``fast_sampler`` names
-    (dbn_train.py:31-52)."""
+    (dbn_train.py:31-52), of a layer whose visible units are of type
+    ``visible``."""
+    if visible != fast_cd.BERNOULLI:
+        check_visible_route(visible, fast_sampler=fast_sampler)
+        return fast_cd.visible_update(visible)(st, key, v, **kw)
     if fast_sampler:
         return fast_cd.fast_sampled_cd_update(st, key, v, **kw)
     return rbm_ops.cd_update(st, key, v, compute_dtype=compute_dtype,
                              sr=sr, **kw)
+
+
+def check_visible_route(visible: str, *, fast_sampler: bool = True,
+                        pcd: bool = False, mesh=None, groups=()) -> None:
+    """Raise ``NotImplementedError`` for a route a visible layer of type
+    ``visible`` cannot take: the plain torch route (bf16 storage, mixed
+    precision), persistent CD, a mesh and softmax groups. Bernoulli takes
+    them all."""
+    if fast_cd.check_visible(visible) == fast_cd.BERNOULLI:
+        return
+    why = ("bf16 storage or mixed precision (the plain torch route)"
+           if not fast_sampler else "persistent CD" if pcd
+           else "a data-parallel mesh" if mesh is not None
+           else "softmax groups" if groups else None)
+    if why is not None:
+        raise NotImplementedError(f"{visible} visible units train by fp32 "
+                                  f"CD on one device; {why} is not "
+                                  f"supported")
+
+
+def _hidden_probs(st, v, visible: str, compute_dtype):
+    """p(h|v) of an updated layer whose visible units are of type
+    ``visible``, fed to the layer above."""
+    if visible == fast_cd.REPLICATED_SOFTMAX:
+        return fast_cd.rsm_hidden_probs(st, v)
+    return rbm_ops.hidden_probs(rbm_ops.compute_cast(st, compute_dtype), v)
 
 
 def _layer_pcd(st, chain, key, v, *, fast_sampler: bool, compute_dtype,
@@ -68,19 +109,21 @@ def idbn_batch_step(states: Sequence[rbm_ops.RBMState], key: int,
                     sparsity_factor, *, cd: int,
                     sparsity_flags: Sequence[bool],
                     compute_dtype: Optional[torch.dtype] = None,
-                    sr: Optional[bool] = None, fast_sampler: bool = False
-                    ) -> Tuple[States, torch.Tensor]:
+                    sr: Optional[bool] = None, fast_sampler: bool = False,
+                    **visible_kw) -> Tuple[States, torch.Tensor]:
     """All-layers CD update on one batch, as JAX jits it
     (dbn_train.py:364-385): on a CUDA device one graph replay
     (``graphs.serve``, the graphs of ``graphs.SHARED``; lr and momentum
     read from ``graphs.hyper``), launch by launch elsewhere. Returns
-    (states, losses[L]). The epochs run its body, ``_idbn_batch_step``."""
+    (states, losses[L]). The epochs run its body, ``_idbn_batch_step``.
+    ``visible_kw``: ``visible`` and ``visible_lr_scale`` of layer 0
+    (module docstring)."""
     dev = batch.device
     return graphs.serve(
         graphs.SHARED, dev, _idbn_step_at, key, states, batch,
         graphs.hyper(dev, lr, mom), weight_decay, sparsity_factor, cd=cd,
         sparsity_flags=tuple(sparsity_flags), compute_dtype=compute_dtype,
-        sr=sr, fast_sampler=fast_sampler)
+        sr=sr, fast_sampler=fast_sampler, **visible_kw)
 
 
 def _idbn_step_at(states, batch, hyper, weight_decay, sparsity_factor, *,
@@ -94,19 +137,23 @@ def _idbn_batch_step(states: Sequence[rbm_ops.RBMState], key,
                      sparsity_factor, *, cd: int,
                      sparsity_flags: Sequence[bool],
                      compute_dtype: Optional[torch.dtype] = None,
-                     sr: Optional[bool] = None, fast_sampler: bool = False
+                     sr: Optional[bool] = None, fast_sampler: bool = False,
+                     visible: str = fast_cd.BERNOULLI,
+                     visible_lr_scale: float = 1.0
                      ) -> Tuple[States, torch.Tensor]:
     """All-layers CD update on one batch (dbn_train.py:366-385); returns
     (states, losses[L])."""
     v = batch.to(compute_dtype or states[0].w.dtype)
     new_states, losses = [], []
     for i, st in enumerate(states):
+        kind = visible if i == 0 else fast_cd.BERNOULLI
         st, loss = _layer_update(
             st, rng.fold_in(key, i), v, fast_sampler=fast_sampler,
-            compute_dtype=compute_dtype, sr=sr, lr=lr, mom=mom,
-            weight_decay=weight_decay, cd=cd, sparsity=sparsity_flags[i],
-            sparsity_factor=sparsity_factor)
-        v = rbm_ops.hidden_probs(rbm_ops.compute_cast(st, compute_dtype), v)
+            compute_dtype=compute_dtype, sr=sr, visible=kind,
+            lr=lr * visible_lr_scale if i == 0 and visible_lr_scale != 1.0
+            else lr, mom=mom, weight_decay=weight_decay, cd=cd,
+            sparsity=sparsity_flags[i], sparsity_factor=sparsity_factor)
+        v = _hidden_probs(st, v, kind, compute_dtype)
         new_states.append(st)
         losses.append(loss)
     return new_states, torch.stack(losses)
@@ -117,13 +164,16 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
                cd: int, sparsity_flags: Sequence[bool], batch_size: int,
                compute_dtype: Optional[torch.dtype] = None,
                sr: Optional[bool] = None, fast_sampler: bool = False,
-               shuffle: bool = False, mesh=None
+               shuffle: bool = False, mesh=None, **visible_kw
                ) -> Tuple[States, torch.Tensor]:
     """One iDBN epoch over the ``n // batch_size`` full batches of ``data``
     in order (first permuted by ``rng.permutation(key, n)`` with
     ``shuffle``); returns (states, losses[nb, L]). Rows beyond
     ``nb * batch_size`` are left to the caller (dbn_train.py:82-90). With
-    a ``mesh``, this process's rows of each batch (module docstring)."""
+    a ``mesh``, this process's rows of each batch (module docstring).
+    ``visible_kw``: layer 0's ``visible`` and ``visible_lr_scale``."""
+    check_visible_route(visible_kw.get("visible", fast_cd.BERNOULLI),
+                        fast_sampler=fast_sampler, mesh=mesh)
     if shuffle:
         data = data[rng.permutation(key, data.shape[0]).to(data.device)]
     nb = data.shape[0] // batch_size
@@ -137,7 +187,7 @@ def idbn_epoch(states: Sequence[rbm_ops.RBMState], key: int,
                 weight_decay=weight_decay, sparsity_factor=sparsity_factor,
                 cd=cd, sparsity_flags=sparsity_flags,
                 compute_dtype=compute_dtype, sr=sr,
-                fast_sampler=fast_sampler)
+                fast_sampler=fast_sampler, **visible_kw)
         losses.append(lb)
     if not losses:
         return states, torch.zeros((0, len(states)), device=data.device)
@@ -180,12 +230,15 @@ def idbn_epoch_runner(data: torch.Tensor, *, weight_decay, sparsity_factor,
                       batch_size: int,
                       compute_dtype: Optional[torch.dtype] = None,
                       sr: Optional[bool] = None, fast_sampler: bool = True,
-                      pcd: bool = False, mesh=None, graphed: bool = False
-                      ) -> graphs.EpochRunner:
+                      pcd: bool = False, mesh=None, graphed: bool = False,
+                      **visible_kw) -> graphs.EpochRunner:
     """The runner of ``idbn_epoch_body`` over ``data`` at one setting;
-    ``graphed`` replays it as a CUDA graph (no ``mesh``)."""
+    ``graphed`` replays it as a CUDA graph (no ``mesh``). ``visible_kw``:
+    layer 0's ``visible`` and ``visible_lr_scale``, where given."""
     if graphed and mesh is not None:
         raise ValueError("a data-parallel epoch runs launch by launch")
+    check_visible_route(visible_kw.get("visible", fast_cd.BERNOULLI),
+                        fast_sampler=fast_sampler, pcd=pcd, mesh=mesh)
     return graphs.EpochRunner(
         "idbn_epoch_pcd" if pcd else "idbn_epoch", idbn_epoch_body, (data,),
         dict(batch_size=int(batch_size), pcd=bool(pcd), mesh=mesh,
@@ -193,7 +246,7 @@ def idbn_epoch_runner(data: torch.Tensor, *, weight_decay, sparsity_factor,
              cd=int(cd), sparsity_flags=tuple(bool(f)
                                               for f in sparsity_flags),
              compute_dtype=compute_dtype, sr=sr,
-             fast_sampler=bool(fast_sampler)),
+             fast_sampler=bool(fast_sampler), **visible_kw),
         n_rows=data.shape[0], device=data.device, graphed=graphed)
 
 
@@ -209,7 +262,8 @@ def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
                      n_epochs: Optional[int] = None,
                      compute_dtype: Optional[torch.dtype] = None,
                      sr: Optional[bool] = None, fast_sampler: bool = False,
-                     mesh=None, runner: Optional[graphs.EpochRunner] = None):
+                     mesh=None, runner: Optional[graphs.EpochRunner] = None,
+                     **visible_kw):
     """The epochs ``epoch_idx`` of the image iDBN, with learning rates
     ``lr_arr`` and momenta ``mom_arr``: epoch e is ``idbn_epoch_body``
     under the key ``fold_in(epoch_key, e)`` (its permutation
@@ -224,13 +278,14 @@ def idbn_epoch_block(states: Sequence[rbm_ops.RBMState], epoch_key: int,
         data, weight_decay=weight_decay, sparsity_factor=sparsity_factor,
         cd=cd, sparsity_flags=sparsity_flags, batch_size=batch_size,
         compute_dtype=compute_dtype, sr=sr, fast_sampler=fast_sampler,
-        mesh=mesh)
+        mesh=mesh, **visible_kw)
     count = _loss_entries(data.shape[0], batch_size, len(states))
     state = dict(states=list(states), chains=None)
     sums, counts = [], []
     for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
         state, (loss_sum,) = run(state, rng.fold_in(epoch_key, int(e)),
-                                 lr, mom)
+                                 lr, mom,
+                                 next_key=rng.fold_in(epoch_key, int(e) + 1))
         sums.append(loss_sum)
         counts.append(count)
     return state["states"], sums, counts
@@ -263,7 +318,8 @@ def idbn_epoch_block_pcd(states: Sequence[rbm_ops.RBMState],
     sums, counts = [], []
     for e, lr, mom in zip(epoch_idx, lr_arr, mom_arr):
         state, (loss_sum,) = run(state, rng.fold_in(epoch_key, int(e)),
-                                 lr, mom)
+                                 lr, mom,
+                                 next_key=rng.fold_in(epoch_key, int(e) + 1))
         sums.append(loss_sum)
         counts.append(count)
     return state["states"], state["chains"], sums, counts
@@ -314,29 +370,48 @@ def idbn_epoch_pcd(states: Sequence[rbm_ops.RBMState],
 
 
 def dbn_represent(states: Sequence[rbm_ops.RBMState], v: torch.Tensor,
-                  upto: int) -> torch.Tensor:
+                  upto: int, visible: str = fast_cd.BERNOULLI
+                  ) -> torch.Tensor:
     """Mean-field encode through the first ``upto`` layers
-    (dbn_train.py:388-394)."""
-    for st in states[:upto]:
-        v = rbm_ops.hidden_probs(st, v)
+    (dbn_train.py:388-394); layer 0 by its ``visible`` type."""
+    for i, st in enumerate(states[:upto]):
+        v = _hidden_probs(st, v, visible if i == 0 else fast_cd.BERNOULLI,
+                          None)
     return v
 
 
 def dbn_decode(states: Sequence[rbm_ops.RBMState],
-               top: torch.Tensor) -> torch.Tensor:
-    """Decode top activations back to input space (dbn_train.py:397-404)."""
+               top: torch.Tensor, visible: str = fast_cd.BERNOULLI
+               ) -> torch.Tensor:
+    """Decode top activations back to input space (dbn_train.py:397-404):
+    the bottom layer's probabilities, or by its ``visible`` type the
+    Gaussian's mean or the word distribution ``softmax(b + h·Wᵀ)``."""
+    states = list(states)
     cur = top
-    for st in reversed(list(states)):
-        cur = rbm_ops.visible_probs(st, cur)
+    for i, st in enumerate(reversed(states)):
+        if i == len(states) - 1 and visible != fast_cd.BERNOULLI:
+            cur = rbm_ops.visible_logits(st, cur)
+            if fast_cd.check_visible(visible) == \
+                    fast_cd.REPLICATED_SOFTMAX:
+                cur = torch.softmax(cur, dim=1)
+        else:
+            cur = rbm_ops.visible_probs(st, cur)
     return cur
 
 
 def dbn_decode_sampled(states: Sequence[rbm_ops.RBMState],
-                       top: torch.Tensor, key: int) -> torch.Tensor:
+                       top: torch.Tensor, key: int,
+                       visible: str = fast_cd.BERNOULLI) -> torch.Tensor:
     """Ancestral-sampled decode (dbn_train.py:407-424): every layer above
     the bottom is Bernoulli-sampled on the way down (layer i from the top
     with ``fold_in(key, i)``); the bottom layer's probabilities are
-    returned."""
+    returned. Bernoulli visible units only: a replicated-softmax layer's
+    words are unknown when its text is generated."""
+    if fast_cd.check_visible(visible) != fast_cd.BERNOULLI:
+        raise NotImplementedError(
+            f"sampled decoding to {visible} visible units is not supported "
+            f"(the number of words of generated text is unknown); use the "
+            f"deterministic decode")
     states = list(states)
     cur = top
     for i, st in enumerate(reversed(states)):
@@ -347,6 +422,8 @@ def dbn_decode_sampled(states: Sequence[rbm_ops.RBMState],
 
 
 def dbn_reconstruct(states: Sequence[rbm_ops.RBMState],
-                    v: torch.Tensor) -> torch.Tensor:
+                    v: torch.Tensor, visible: str = fast_cd.BERNOULLI
+                    ) -> torch.Tensor:
     """Encode through all layers, then decode back (dbn_train.py:427-434)."""
-    return dbn_decode(states, dbn_represent(states, v, len(states)))
+    return dbn_decode(states, dbn_represent(states, v, len(states), visible),
+                      visible)

@@ -99,7 +99,11 @@ an epoch is ``runner.permutation``, ``runner.keys``, ``runner.load`` and
 ``runner.replay`` (the first one ``runner.capture`` too), a serving call
 ``serve.load`` and ``serve.replay``, inside which a keyed call's
 ``serve.keys`` (the first at a signature ``serve.capture`` too). None
-opens inside a captured body.
+opens inside a captured body. A caller that names the key of the epoch it
+runs next (the iDBN's epoch blocks) has that epoch's ``runner.permutation``
+and ``runner.keys`` drawn right after this epoch's ``runner.replay``, while
+the device runs it, so that the key table's host time stays off the
+device's path.
 """
 
 from __future__ import annotations
@@ -245,18 +249,22 @@ class EpochRunner:
         self.graphed = bool(graphed)
         self.replays = 0
         self._graph = None
+        self._ahead = None      # (next key, its permutation, key table)
 
     # -- one epoch -----------------------------------------------------------
 
-    def __call__(self, state, key: int, lr: float, mom: float):
+    def __call__(self, state, key: int, lr: float, mom: float,
+                 next_key: Optional[int] = None):
         """(new state, outputs) of the epoch whose key is ``key``
         (``fold_in(block key, epoch)``), at learning rate ``lr`` and
-        momentum ``mom``."""
-        with span("runner.permutation"):
-            perm = rng.permutation(key, self.n_rows)
+        momentum ``mom``. ``next_key``: the key of the epoch the caller
+        expects to run next; a graphed runner draws that epoch's
+        permutation and key table on the host while the device runs this
+        one, and uses them if the next call's key is that key."""
         hyper = torch.tensor([float(lr), float(mom)], dtype=torch.float64)
         if self.graphed:
-            return self._replay(state, key, perm, hyper)
+            return self._replay(state, key, hyper, next_key)
+        perm = self._permutation(key)
         perm, hyper = (t.to(self.device, non_blocking=True)
                        for t in (perm, hyper))
         with rng.key_table(rng.KeyTable(root=key)):
@@ -296,13 +304,25 @@ class EpochRunner:
         self._perm.copy_(perm, non_blocking=True)
         self._hyper.copy_(hyper, non_blocking=True)
 
-    def _load(self, state, key: int, perm, hyper) -> None:
-        """The epoch's keys, then its state, permutation and schedule
-        values, into the static buffers."""
+    def _permutation(self, key: int) -> torch.Tensor:
+        """The permutation of the epoch whose key is ``key``, on the
+        host."""
+        with span("runner.permutation"):
+            return rng.permutation(key, self.n_rows)
+
+    def _key_values(self, key: int) -> torch.Tensor:
+        """The key table of the epoch whose key is ``key``, on the
+        host."""
         with span("runner.keys"):
-            self._keys.copy_(torch.tensor(rng.key_values(key, self._paths),
-                                          dtype=torch.int64),
-                             non_blocking=True)
+            return torch.tensor(rng.key_values(key, self._paths),
+                                dtype=torch.int64)
+
+    def _load(self, state, key: int, perm, hyper, values=None) -> None:
+        """The epoch's keys (``values``, or computed now), then its state,
+        permutation and schedule values, into the static buffers."""
+        if values is None:
+            values = self._key_values(key)
+        self._keys.copy_(values, non_blocking=True)
         STATS["keys"][self.name] += len(self._paths)
         with span("runner.load"):
             self._fill(state, perm, hyper)
@@ -348,11 +368,16 @@ class EpochRunner:
             launches={f"{s}:{e}": n for (s, e), n
                       in self.launches_per_replay.items()}))
 
-    def _replay(self, state, key: int, perm, hyper):
+    def _replay(self, state, key: int, hyper, next_key: Optional[int]):
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None and ahead[0] == key:
+            perm, values = ahead[1:]
+        else:
+            perm, values = self._permutation(key), None
         if self._graph is None:
             with span("runner.capture"):
                 self._capture(state, key, perm, hyper)
-        self._load(state, key, perm, hyper)
+        self._load(state, key, perm, hyper, values)
         with span("runner.replay"):
             self._graph.replay()
             # the replay wrote the state buffers behind torch's back: move
@@ -363,8 +388,13 @@ class EpochRunner:
             add_launches(self.launches_per_replay)
             self.replays += 1
             STATS["replays"][self.name] += 1
-            return (unflatten(self._spec, self._bufs),
-                    map_tree(torch.clone, self._outs))
+            out = (unflatten(self._spec, self._bufs),
+                   map_tree(torch.clone, self._outs))
+        if next_key is not None:
+            # the next epoch's host inputs, while the device runs this one
+            self._ahead = (next_key, self._permutation(next_key),
+                           self._key_values(next_key))
+        return out
 
 
 # ---------------------------------------------------------------------------

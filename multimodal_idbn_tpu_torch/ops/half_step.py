@@ -49,6 +49,14 @@ per stream, and the slices are summed in fixed order before the fused
 epilogue. The result does not depend on the order in which blocks run:
 the same inputs give the same bits on every launch and through every
 entry. ``KERNEL.launches_by_body`` counts the launches of each body.
+
+Visible units that are not Bernoulli take three more entries of the same
+source, each on both bodies: ``half_step_gauss`` (a Gaussian visible of
+unit variance, drawn downward), ``half_step_linear`` (the logits of a
+replicated-softmax visible, whose words ``ops.rsoftmax`` draws) and
+``half_step_scaled`` (the hidden layer above it, its bias counted once per
+word of the row). No TPU kernel has them: the JAX package trains Bernoulli
+and softmax-group units only.
 """
 
 from __future__ import annotations
@@ -70,6 +78,14 @@ KERNEL = _cuda.CudaLibrary("half_step.cu", {
     + [ctypes.c_float, ctypes.c_void_p],
     "half_step_sample_resident": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p],
+    "half_step_linear": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "half_step_gauss": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "half_step_scaled": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }, bodies=BODIES)
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
@@ -175,7 +191,8 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             n_out: int, B: int, K: int, N: int, head: Tuple[int, ...],
             tail: Tuple, *,
             tiling: Optional[Tuple[str, int, int, int]] = None,
-            plan_shape: Optional[Tuple[int, int]] = None
+            plan_shape: Optional[Tuple[int, int]] = None,
+            operands: Tuple[torch.Tensor, ...] = ()
             ) -> Tuple[torch.Tensor, ...]:
     """Launch one entry and return its ``n_out`` outputs, each [B, N]
     (one allocation, cut once: a half-step is short, and the host's time
@@ -184,7 +201,8 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the entry has one), the body and the tiling (``plan``'s tuple), then
     ``tail`` (1/T, and the seed and offsets where the entry has them).
     ``plan_shape``: the (rows, columns) of the whole operand the tiling is
-    chosen for."""
+    chosen for; ``operands``: inputs of the entry after b (the row scale of
+    ``half_step_scaled``)."""
     pB, pN = plan_shape or (B, N)
     body, tile_rows, slices, k_per_slice = tiling or plan(pB, K, pN)
     stream = _cuda.stream_handle(x)
@@ -200,6 +218,7 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             x.device, stream.value, slices * B * _ceil_div(N, 4) * 4,
             _ceil_div(B, tile_rows) * _ceil_div(N, _TILE_COLS))
     KERNEL.launch(entry, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  *(t.data_ptr() for t in operands),
                   *(base + 4 * B * N * i for i in range(n_out)),
                   _cuda.ptr(scratch), _cuda.ptr(tickets), B, K, N, *head,
                   int(body == "wgmma"), tile_rows, slices, k_per_slice,
@@ -347,3 +366,105 @@ def half_step_sample_resident(v: torch.Tensor, w: torch.Tensor,
     probs, sample = _launch("half_step_sample_resident", v, w, b, 2, B, V, H,
                             (), (1.0 / max(1e-6, T), key))
     return probs, sample
+
+
+# ---------------------------------------------------------------------------
+# Visible units that are not Bernoulli: a Gaussian visible layer of unit
+# variance and a replicated-softmax one (ops/fast_cd.py)
+# ---------------------------------------------------------------------------
+
+def _sampled_launch(entry: str, x, w, b, seed, T, transpose_w: bool,
+                    row0: int, col0: int, plan_shape, operands=()):
+    """(out, sample) of an entry that draws from ``seed`` as
+    ``half_step_sample`` does."""
+    if rng.is_deterministic():
+        raise RuntimeError("the deterministic sampler mode is a CPU test "
+                           "hook; the CUDA kernel draws real uniforms")
+    N = _out_dim(x, w, b, transpose_w)
+    _cuda.check_cuda_operands(x, w, b, *operands)
+    B, K = x.shape
+    keys, index, value = rng.key_operand(seed)
+    return _launch(entry, x, w, b, 2, B, K, N, (),
+                   (1.0 / max(1e-6, T), _cuda.ptr(keys), index, value,
+                    int(row0), int(col0)), plan_shape=plan_shape,
+                   operands=operands)
+
+
+def half_step_linear_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           T=1.0) -> torch.Tensor:
+    """``(h·Wᵀ + b)/max(1e-6, T)`` in plain torch."""
+    _out_dim(h, w, b, True)
+    return torch.addmm(b, h, w.T) * (1.0 / max(1e-6, T))
+
+
+def half_step_linear(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     T=1.0) -> torch.Tensor:
+    """[B, V] ``(h·Wᵀ + b)/max(1e-6, T)`` of a [V, H] W, no draw: the
+    logits of a replicated-softmax visible layer (the ``half_step_linear``
+    entry on CUDA tensors, the plain version on CPU tensors)."""
+    if not h.is_cuda:
+        return half_step_linear_plain(h, w, b, T)
+    V = _out_dim(h, w, b, True)
+    _cuda.check_cuda_operands(h, w, b)
+    B, H = h.shape
+    return _launch("half_step_linear", h, w, b, 1, B, H, V, (),
+                   (1.0 / max(1e-6, T),))[0]
+
+
+def half_step_gauss_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          seed: rng.AnyKey, T=1.0, *, row0: int = 0,
+                          col0: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean ``(h·Wᵀ + b)/max(1e-6, T)`` and the mean plus the kernels'
+    N(0, 1) of (seed, row0 + row, col0 + col), in plain torch."""
+    mean = half_step_linear_plain(h, w, b, T)
+    noise = rng.philox_normal(seed, mean.shape[0], mean.shape[1],
+                              device=mean.device, row0=row0, col0=col0)
+    return mean, mean + noise
+
+
+def half_step_gauss(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    seed: rng.AnyKey, T=1.0, *, row0: int = 0, col0: int = 0,
+                    plan_shape: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, sample), both [B, V] fp32, of a Gaussian visible layer of
+    unit variance below ``h``: v ~ N(h·Wᵀ + b, 1) (the ``half_step_gauss``
+    entry on CUDA tensors, the plain version on CPU tensors)."""
+    if not h.is_cuda:
+        return half_step_gauss_plain(h, w, b, seed, T, row0=row0, col0=col0)
+    return _sampled_launch("half_step_gauss", h, w, b, seed, T, True, row0,
+                           col0, plan_shape)
+
+
+def half_step_scaled_plain(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           scale: torch.Tensor, seed: rng.AnyKey, T=1.0, *,
+                           row0: int = 0, col0: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sigmoid((v·W + scale[:, None]·b)/max(1e-6, T))`` and its Bernoulli
+    sample against the kernels' uniforms, in plain torch."""
+    _out_dim(v, w, b, False)
+    p = torch.sigmoid((torch.mm(v, w) + scale[:, None] * b)
+                      * (1.0 / max(1e-6, T)))
+    u = rng.philox_uniform(seed, p.shape[0], p.shape[1], device=p.device,
+                           row0=row0, col0=col0)
+    return p, (p > u).to(p.dtype)
+
+
+def half_step_scaled(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     scale: torch.Tensor, seed: rng.AnyKey, T=1.0, *,
+                     row0: int = 0, col0: int = 0,
+                     plan_shape: Optional[Tuple[int, int]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs, sample), both [B, H] fp32, of the hidden layer above a
+    replicated-softmax visible: the bias counted ``scale[row]`` times (the
+    row's words), ``sigmoid(v·W + D·b)`` (the ``half_step_scaled`` entry on
+    CUDA tensors, the plain version on CPU tensors)."""
+    if scale.ndim != 1 or scale.shape[0] != v.shape[0]:
+        raise ValueError(f"scale {tuple(scale.shape)} is not one factor "
+                         f"per row of v {tuple(v.shape)}")
+    if not v.is_cuda:
+        return half_step_scaled_plain(v, w, b, scale, seed, T, row0=row0,
+                                      col0=col0)
+    return _sampled_launch("half_step_scaled", v, w, b, seed, T, False,
+                           row0, col0, plan_shape,
+                           operands=(scale.contiguous(),))

@@ -316,16 +316,17 @@ def philox_uniform(seed: AnyKey, rows: int, cols: int, *, step: int = 0,
 
 
 def philox_normal(seed: AnyKey, rows: int, cols: int, *, step: int = 0,
-                  stream: int = 0, device=None, row0: int = 0
-                  ) -> torch.Tensor:
+                  stream: int = 0, device=None, row0: int = 0,
+                  col0: int = 0) -> torch.Tensor:
     """[rows, cols] N(0, 1) of the kernels: Box-Muller on words 0 and 1
-    (pallas_chain.py:72-82) of the counter (row0 + row, col, step,
+    (pallas_chain.py:72-82) of the counter (row0 + row, col0 + col, step,
     stream); 0 in deterministic mode."""
     if _MODE.deterministic:
         key_word(seed)
         return torch.zeros((rows, cols), device=device)
     x0, x1, _, _ = philox4x32(_grid_counter(rows, cols, step, stream,
-                                            device, row0), key_word(seed))
+                                            device, row0, col0),
+                              key_word(seed))
     u1 = torch.clamp(bits_to_uniform(x0), min=1e-7)
     u2 = bits_to_uniform(x1)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(

@@ -20,7 +20,13 @@ earlier one). ``wandb.enable: true`` logs the diagnostics as in
 ``training.dtype``, ``compute_dtype``, ``stochastic_rounding`` (:76-81),
 ``matmul_precision`` (:170-175) and ``dataset.distribution: zipfian``
 (which the JAX script leaves unread; the port does not ignore a
-setting). Data parallelism (``training.dp_devices: N``, :68) runs as in
+setting). ``model.mod1_visible`` / ``mod2_visible`` ("bernoulli", the
+default, "gaussian" or "replicated_softmax") and ``mod1_visible_lr_scale``
+/ ``mod2_visible_lr_scale`` set each modality stack's visible units and
+their rate (``iMDBN_BiModal``), as the multimodal DBN of
+``configs/mdbn_flickr_training_config.yaml`` does; with
+``dataset.second_modality: tags`` its data are the synthetic image
+features and tag counts of ``data.create_dataloaders_features_tags``. Data parallelism (``training.dp_devices: N``, :68) runs as in
 ``train_multimodal``: one process per device under ``torchrun
 --nproc-per-node N -m multimodal_idbn_tpu_torch.train_bimodal``, all three
 phases over the mesh, rank 0 alone printing and writing files.
@@ -41,11 +47,13 @@ from multimodal_idbn_tpu_torch.checkpoint import (
     cli_checkpoint_paths, config_fingerprint,
     load_train_checkpoint_expecting, remove_checkpoints,
     save_train_checkpoint)
-from multimodal_idbn_tpu_torch.data import DataLoader, NumerosityDataset
+from multimodal_idbn_tpu_torch.data import (DataLoader, NumerosityDataset,
+                                            create_dataloaders_features_tags)
 from multimodal_idbn_tpu_torch.device import (resolve_device,
                                               set_matmul_precision,
                                               synchronize)
 from multimodal_idbn_tpu_torch.models.imdbn_bimodal import iMDBN_BiModal
+from multimodal_idbn_tpu_torch.ops.fast_cd import VISIBLE_TYPES
 from multimodal_idbn_tpu_torch.parallel.distributed import is_main_process
 from multimodal_idbn_tpu_torch.train_multimodal import (build_logging_params,
                                                         check_common,
@@ -73,6 +81,12 @@ def check_supported(cfg: dict) -> None:
     more ``dp_devices`` than processes, or a dataset without a second
     modality (as scripts/train_bimodal.py:196-204)."""
     check_common(cfg)
+    model = cfg.get("model", {}) or {}
+    for mod in ("mod1", "mod2"):
+        vis = model.get(f"{mod}_visible")
+        if vis is not None and vis not in VISIBLE_TYPES:
+            raise ValueError(f"model.{mod}_visible: {vis!r} is not one of "
+                             f"{VISIBLE_TYPES}")
     if not (cfg.get("dataset", {}) or {}).get("second_modality"):
         raise ValueError(
             "bimodal training needs a second modality but the dataset has "
@@ -109,7 +123,20 @@ def build_params(cfg: dict) -> dict:
         "COMPUTE_DTYPE": t.get("compute_dtype"),
         "SR": t.get("stochastic_rounding"),
         "SEED": t.get("seed", 0),
+        **visible_params(cfg.get("model", {}) or {}),
     }
+
+
+def visible_params(model: dict) -> dict:
+    """The modality stacks' visible types and rate factors as params
+    (``MOD1_VISIBLE``, ...), only where the YAML sets them: a YAML without
+    them builds, and fingerprints, the Bernoulli model as before."""
+    out = {}
+    for mod in ("mod1", "mod2"):
+        for key in ("visible", "visible_lr_scale"):
+            if model.get(f"{mod}_{key}") is not None:
+                out[f"{mod.upper()}_{key.upper()}"] = model[f"{mod}_{key}"]
+    return out
 
 
 def modality_loader(train_loader, modality_idx: int) -> DataLoader:
@@ -147,14 +174,23 @@ def main(argv: Optional[List[str]] = None,
     log_params = build_logging_params(cfg)
 
     t0 = time.perf_counter()
-    train_loader, val_loader, _ = make_loaders(dataset, "train_bimodal")(
-        data_path=dataset.get("path"), data_name=dataset.get("name"),
-        batch_size=dataset.get("batch_size", 128),
-        second_modality=dataset.get("second_modality"),
-        mnist100_path=dataset.get("mnist100_path"),
-        num_classes=model.get("num_labels", 32),
-        n_samples=dataset.get("n_samples", 512),
-        side=dataset.get("side", 100))
+    if dataset.get("second_modality") == "tags":
+        train_loader, val_loader, _ = create_dataloaders_features_tags(
+            n_features=model["mod1_layers"][0],
+            vocab=model["mod2_layers"][0],
+            batch_size=dataset.get("batch_size", 128),
+            num_classes=model.get("num_labels", 32),
+            n_samples=dataset.get("n_samples", 512),
+            max_words=dataset.get("max_words", 10))
+    else:
+        train_loader, val_loader, _ = make_loaders(dataset, "train_bimodal")(
+            data_path=dataset.get("path"), data_name=dataset.get("name"),
+            batch_size=dataset.get("batch_size", 128),
+            second_modality=dataset.get("second_modality"),
+            mnist100_path=dataset.get("mnist100_path"),
+            num_classes=model.get("num_labels", 32),
+            n_samples=dataset.get("n_samples", 512),
+            side=dataset.get("side", 100))
     joint_hidden = model.get("joint_hidden", 500)
     wandb_run = (maybe_wandb(cfg, params, project="bimodal-idbn-tpu")
                  if main_rank else None)

@@ -10,6 +10,9 @@
   (``serve.capture`` once per signature); the models' serving methods
   wrap their preparation in ``serve.inputs`` and their per-epoch entries
   the host reads in ``epoch.read``; no span opens while a body runs;
+- (b2) a runner given the next epoch's key draws that epoch's permutation
+  and key table after this epoch's replay, and loads each epoch's own
+  keys whether or not the hint was right;
 - (c) ``STATS["keys"]`` counts the key table's length at every replay;
 - (d) outputs, states and launch counts are bit-equal with the profiler
   on and off;
@@ -108,12 +111,23 @@ def _runner(lib):
     return runner
 
 
-def _epochs(lib, n=3):
+def _epochs(lib, n=3, hint=None, runners=None):
+    """``n`` epochs of the stand-in runner (appended to ``runners``);
+    ``hint`` names the next key each call passes: None, "next" (the next
+    epoch's) or "other" (a key no epoch runs). Returns (state, outputs)."""
     runner = _runner(lib)
+    if runners is not None:
+        runners.append(runner)
     state, outs = torch.zeros(2, 2), []
     for e in range(n):
-        state, out = runner(state, rng.fold_in(1, e), 0.1, 0.5)
+        nxt = {None: None, "next": rng.fold_in(1, e + 1),
+               "other": rng.fold_in(2, e)}[hint]
+        state, out = runner(state, rng.fold_in(1, e), 0.1, 0.5, next_key=nxt)
         outs.append(out)
+        assert torch.equal(runner._perm, rng.permutation(rng.fold_in(1, e),
+                                                         4))
+        assert runner._keys.tolist() == rng.key_values(rng.fold_in(1, e),
+                                                       runner._paths)
     return state, outs
 
 
@@ -174,6 +188,35 @@ def test_runner_spans_per_epoch(stand_ins):
              "runner.replay"]
     assert names == (["runner.permutation", "runner.capture"] + epoch[1:]
                      + epoch * 2)
+
+
+def test_runner_draws_the_next_epoch_after_the_replay(stand_ins):
+    lib, _ = stand_ins
+    _, names, _ = _profiled(lambda: _epochs(lib, 3, hint="next"))
+    ahead = ["runner.permutation", "runner.keys"]
+    epoch = ["runner.load", "runner.replay"] + ahead
+    assert names == (["runner.permutation", "runner.capture", "runner.keys"]
+                     + epoch + epoch * 2)
+
+
+@pytest.mark.parametrize("hint", ["next", "other"])
+def test_runner_loads_each_epochs_own_keys_whatever_the_hint(stand_ins,
+                                                            hint):
+    lib, _ = stand_ins
+    runners = []
+    state, outs = _epochs(lib, 3, runners=runners)
+    counts = (dict(graphs.STATS["replays"]), dict(graphs.STATS["keys"]))
+    graphs.reset_stats()
+    state2, outs2 = _epochs(lib, 3, hint=hint, runners=runners)
+    runner, runner2 = runners
+    assert (dict(graphs.STATS["replays"]),
+            dict(graphs.STATS["keys"])) == counts
+    assert torch.equal(state, state2)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(outs),
+                                                 _leaves(outs2)))
+    assert runner._ahead is None
+    assert runner2._ahead[0] == {"next": rng.fold_in(1, 3),
+                                 "other": rng.fold_in(2, 2)}[hint]
 
 
 @pytest.mark.parametrize("kind", ["call", "update"])
