@@ -20,11 +20,13 @@ Phases, each fatal on failure:
      K shorter than one k-slice),
    - the probs-only and the resident sampled half-steps at
      [128,1568]·[1568,500] and [128,2500]·[2500,1500],
-   - the chain at the flagship joint (532×500, batch 128 and 12, and with
-     a second softmax group that straddles a 64-column tile boundary) and
-     at the bimodal joint layer 0 (2500×1500, batch 128 and the ragged
-     remainder of 12), and at the flagship joint at the batch sizes a
-     serving request brings (1, 3, 96, 200; 50 steps, both families),
+   - the chain at the flagship joint (532×500, batch 128, 26 and 12, and
+     with a second softmax group) on the cluster body, and at the bimodal
+     joint layer 0 (2500×1500, batch 128 and the ragged remainder of 12)
+     on the grid body, as ``chain.body`` picks them, and at the flagship
+     joint at the batch sizes a serving request brings (1, 3, 96, 200; 50
+     steps, both families); each timed flagship case also on the grid
+     body, forced,
    - determinism: every entry launched twice on the same inputs must
      return bit-equal tensors, at the first-layer shape and a ragged one;
    - ``half_step_sample_big`` (JAX's standalone wrapper of the sampled
@@ -256,7 +258,8 @@ def launch_ms(fn, reps: int = 10) -> float:
     """Device time of one call: the median over ``reps`` calls of the time
     between two CUDA events recorded on the stream just before and just
     after the call. For a call that is one kernel launch (the chain) this
-    is the kernel's time plus the wrapper's barrier memset."""
+    is the kernel's time plus, on the grid body, the wrapper's barrier
+    memset."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -781,10 +784,14 @@ def chain_inputs(dev, B, V, H, Dz, seed):
 
 def check_chain(dev):
     """Kernel 2: both families at the flagship joint (532×500, a 32-wide
-    label group that straddles the 64-column tile boundary at 512; batch
-    128 and 12; once more with a second group across the boundary at 64),
-    and the aux-CD init of the bimodal joint layer 0 (2500×1500, no group)
-    at batch 128 and at the remainder of 12."""
+    label group; batch 128 and the epoch's remainder of 26; once more with
+    a second group), the aux-CD init of the bimodal joint layer 0
+    (2500×1500, no group) at batch 128 and at the remainder of 12, and the
+    flagship joint at the batch sizes a serving request brings. Each case
+    runs on the body ``chain.body`` picks (the cluster body at 532×500, the
+    grid body at 2500×1500) against the plain version; a timed case at the
+    flagship joint is timed on both bodies (the other one forced), so that
+    the kernel table gives the two side by side."""
     import torch
     from multimodal_idbn_tpu_torch.bench_kernels import graph_ms
     from multimodal_idbn_tpu_torch.ops import chain, rbm_ops
@@ -807,17 +814,23 @@ def check_chain(dev):
                       torch.tensor([[1.0, 0.0, 0.0]]).repeat(n, 1).to(dev),
                       groups, None, None, True, n == 50))
     cases.append(("flagship noisy 30 steps", j, vk_y, 1.0 - km_z, aux_sched,
-                  groups, None, 0xC0FFEE, False, False))
+                  groups, None, 0xC0FFEE, False, True))
     cases.append(("flagship noisy 50 steps + mu", j, vk_y, 1.0 - km_z,
                   rbm_ops.annealed_schedule(50, 3.0, 1.0, 0.9, 3, 0.9,
                                             0.15).to(dev), groups, j["mu"],
                   0xBEEF, False, True))
-    cases.append(("flagship noisy 30 steps B=12", j, vk_y[:12],
-                  1.0 - km_z[:12], aux_sched, groups, None, 0xC0FFEE, False,
-                  True))
-    cases.append(("flagship noisy 30 steps + mu, groups across tile "
-                  "boundaries", j, vk_y, 1.0 - km_z, aux_sched,
-                  ((56, 72), (Dz, Dz + K)), j["mu"], 0xC0FFEE, True, False))
+    for Bs in (26, 12):
+        cases.append((f"flagship noisy 30 steps B={Bs}", j, vk_y[:Bs],
+                      1.0 - km_z[:Bs], aux_sched, groups, None, 0xC0FFEE,
+                      False, Bs == 26))
+    cases.append(("flagship noisy 50 steps + mu B=26", j, vk_y[:26],
+                  1.0 - km_z[:26],
+                  rbm_ops.annealed_schedule(50, 3.0, 1.0, 0.9, 3, 0.9,
+                                            0.15).to(dev), groups, j["mu"],
+                  0xBEEF, False, True))
+    cases.append(("flagship noisy 30 steps + mu, two groups", j, vk_y,
+                  1.0 - km_z, aux_sched, ((56, 72), (Dz, Dz + K)), j["mu"],
+                  0xC0FFEE, True, False))
     # bimodal joint layer 0: [z_mod1 (1500) ⊕ z_mod2 (1000)], mod1 clamped
     for Bb in (128, 12):
         jb = chain_inputs(dev, Bb, 2500, 1500, 1500, 3)
@@ -853,38 +866,57 @@ def check_chain(dev):
         v0 = vk * km + (1.0 - km) * j["u"][:Bc]
         args = (j["w"], j["hb"], j["vb"], v0, vk, km, sched)
         kw = dict(groups=groups, mu=mu, seed=seed, final_unclamped=final)
-        plan = chain.plan(Bc, V, H, sched.shape[0], final)
+        body = chain.body(V, H, groups)
+        plan = chain.plan(Bc, V, H, sched.shape[0], final, groups=groups)
+        before = dict(chain.KERNEL.launches_by_body)
         out_k = chain.clamped_chain(*args, **kw)
         out_p = chain.chain_plain(*args, **kw)
         torch.cuda.synchronize()
+        if chain.KERNEL.launches_by_body != dict(
+                before, **{body: before[body] + 1}):
+            raise AssertionError(f"chain {name}: not one {body} launch")
         err = float((out_k - out_p).abs().max())
         finite = bool(torch.isfinite(out_k).all())
-        log(f"[chain] {name}: grid {plan['grid']} blocks, "
-            f"{plan['tile_rows']}-row tiles, k-slices {plan['slices_h']} / "
-            f"{plan['slices_v']}, {plan['barriers']} grid barriers; "
-            f"max|dv| {err:.3e}")
+        log(f"[chain] {name}: {body} body, grid {plan['grid']} blocks "
+            f"(clusters of {plan['cluster']}), {plan['tile_rows']} rows a "
+            f"tile or cluster, k-parts {plan['slices_h']} / "
+            f"{plan['slices_v']}, {plan['barriers']} grid barriers, "
+            f"{plan['smem_bytes']} B shared a block; max|dv| {err:.3e}")
         if not (finite and err <= TOL_CHAIN):
             raise AssertionError(f"chain {name} disagrees with plain")
-        if timed:
-            n = sched.shape[0]
-            ms = time_ms(lambda: chain.clamped_chain(*args, **kw), 5)
-            device_ms = launch_ms(lambda: chain.clamped_chain(*args, **kw))
-            gms = graph_ms(lambda: chain.clamped_chain(*args, **kw), 10)
-            plain_ms = time_ms(lambda: chain.chain_plain(*args, **kw), 3)
-            bnd = bounds(
-                (n + int(final)) * 2 * 2.0 * Bc * V * H,
-                4.0 * (V * H + V + H + 4 * Bc * V
-                       + (0 if mu is None else mu.numel()) + 3 * n))
-            rows[name] = dict(shape=name, max_abs_err=err, ms=ms,
-                              device_ms=device_ms, graph_ms=gms,
-                              plain_ms=plain_ms, library_ms=None,
-                              grid=plan["grid"], barriers=plan["barriers"],
-                              **bnd)
-            log(f"[chain] {name}: kernel {ms:.4f} ms (one launch between "
-                f"events {device_ms:.4f}, graph replay {gms:.4f}), plain "
-                f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}), fp32 bound "
+        if not timed:
+            continue
+        n = sched.shape[0]
+        plain_ms = time_ms(lambda: chain.chain_plain(*args, **kw), 3)
+        bnd = bounds(
+            (n + int(final)) * 2 * 2.0 * Bc * V * H,
+            4.0 * (V * H + V + H + 4 * Bc * V
+                   + (0 if mu is None else mu.numel()) + 3 * n))
+        timed_bodies = {}
+        for b in ([body] + [o for o in chain.BODIES if o != body]
+                  if body == "cluster" else [body]):
+            def run(b=b):
+                return chain._launch(*args, groups, mu, seed, final,
+                                     body_name=b)
+            if b != body:    # the forced body against the plain version
+                err_b = float((run() - out_p).abs().max())
+                if not err_b <= TOL_CHAIN:
+                    raise AssertionError(f"chain {name} on the {b} body "
+                                         f"disagrees with plain")
+            timed_bodies[b] = dict(ms=time_ms(run, 5),
+                                   device_ms=launch_ms(run),
+                                   graph_ms=graph_ms(run, 10))
+            t = timed_bodies[b]
+            log(f"[chain] {name}, {b} body: kernel {t['ms']:.4f} ms (one "
+                f"launch between events {t['device_ms']:.4f}, graph replay "
+                f"{t['graph_ms']:.4f}), plain {plain_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), fp32 bound "
                 f"{bnd['bound_fp32_ms']:.4f} ms")
+        rows[name] = dict(shape=name, body=body, max_abs_err=err,
+                          **timed_bodies[body], plain_ms=plain_ms,
+                          library_ms=None, grid=plan["grid"],
+                          barriers=plan["barriers"],
+                          by_body=timed_bodies, **bnd)
     return rows
 
 
@@ -3057,21 +3089,21 @@ def derived_epoch_launches(rec) -> dict:
 
 
 def _port_launches(delta) -> dict:
-    """Launches by entry. The half-step's launches by kernel body
-    (``body:<name>``) are the same launches seen another way: they must add
-    up to its launches by entry, and are left out."""
+    """Launches by entry. A kernel's launches by body (``body:<name>``,
+    the half-step's and the chain's) are the same launches seen another
+    way: they must add up to its launches by entry, and are left out."""
     out = {"half_step_sample": 0, "chain_run": 0, "philox_fill": 0}
-    by_body = by_entry = 0
+    by_body, by_entry = {}, {}
     for (src, entry), n in delta.items():
         if entry.startswith("body:"):
-            by_body += n
+            by_body[src] = by_body.get(src, 0) + n
             continue
-        if src == "half_step.cu":
-            by_entry += n
+        by_entry[src] = by_entry.get(src, 0) + n
         out[entry if entry in out else f"{src}:{entry}"] = n
-    if by_body != by_entry:
-        raise AssertionError(f"half-step launches by body {by_body}, by "
-                             f"entry {by_entry}: {delta}")
+    for src, n in by_body.items():
+        if n != by_entry.get(src, 0):
+            raise AssertionError(f"{src} launches by body {n}, by entry "
+                                 f"{by_entry.get(src, 0)}: {delta}")
     return out
 
 

@@ -1,11 +1,15 @@
 """CPU tests of what surrounds the two CUDA kernels in Python: the split-K
-plan of the half-step (``half_step.plan``) and the device caches of the
-chain's schedules and softmax groups (``rbm_ops``, ``chain``).
+plan of the half-step (``half_step.plan``), the chain's body rule and
+cluster layout (``chain.body``, ``chain.cluster_layout``) and the device
+caches of the chain's schedules and softmax groups (``rbm_ops``,
+``chain``).
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py);
 here the wrappers run their plain versions, whose values must not depend
 on the caches.
 """
+
+import inspect
 
 import pytest
 import torch
@@ -71,6 +75,106 @@ def test_body_counter_in_the_launch_accounting():
     assert half_step.KERNEL.launches_by_body["wgmma"] == held["wgmma"] + 9
     graphs.add_launches(delta, -3)
     assert half_step.KERNEL.launches_by_body == held
+
+
+def _no_group_cut(bounds, groups):
+    return not any(gs < b < ge for b in bounds for gs, ge in groups)
+
+
+def _rule_flagship():
+    groups = ((500, 532),)
+    assert chain.body(532, 500, groups) == "cluster"
+    hw, bounds = chain.cluster_layout(532, 500, groups)
+    assert hw == 32 and hw * chain.CLUSTER_BLOCKS >= 500
+    assert bounds[0] == 0 and bounds[-1] == 532
+    assert len(bounds) == chain.CLUSTER_BLOCKS + 1
+    assert list(bounds) == sorted(bounds) and _no_group_cut(bounds, groups)
+    assert chain.cluster_smem_bytes(532, hw, bounds, 2) <= chain.SMEM_BYTES
+
+
+def _rule_bimodal():
+    assert chain.body(2500, 1500) == "grid"
+    hw, bounds = chain.cluster_layout(2500, 1500)
+    # W's slice alone (2 500 rows x 96 columns) is over a block's budget
+    assert 4 * 2500 * hw > chain.SMEM_BYTES
+
+
+def _rule_budget_edge():
+    # at H = 500 the state grows with V: 700 columns fit, 800 do not
+    inside, outside = (chain.cluster_smem_bytes(V, *chain.cluster_layout(
+        V, 500), 2) for V in (700, 800))
+    assert inside <= chain.SMEM_BYTES < outside
+    assert (chain.body(700, 500), chain.body(800, 500)) == ("cluster", "grid")
+    # the hidden width moves the budget too
+    assert chain.body(532, 1500, ((500, 532),)) == "grid"
+
+
+def _rule_group_straddles():
+    # nominal slices of 36 columns would cut (30, 50) at 36: the boundary
+    # moves to the group's start
+    groups = ((30, 50), (500, 532))
+    hw, bounds = chain.cluster_layout(532, 500, groups)
+    assert 30 in bounds and 36 not in bounds
+    assert _no_group_cut(bounds, groups) and bounds[-1] == 532
+    assert chain.body(532, 500, groups) == "cluster"
+
+
+def _rule_eight_groups():
+    groups = tuple((30 * i, 30 * i + 17) for i in range(8))
+    hw, bounds = chain.cluster_layout(300, 70, groups)
+    assert _no_group_cut(bounds, groups) and bounds[-1] == 300
+    assert chain.body(300, 70, groups) == "cluster"
+
+
+def _rule_overlapping_groups():
+    assert chain.cluster_layout(100, 50, ((10, 30), (20, 40))) is None
+    assert chain.body(100, 50, ((10, 30), (20, 40))) == "grid"
+
+
+def _rule_takes_no_batch():
+    # a data-parallel rank and the whole batch ask the same question
+    assert list(inspect.signature(chain.body).parameters) == ["V", "H",
+                                                              "groups"]
+    assert list(inspect.signature(chain.cluster_layout).parameters) == [
+        "V", "H", "groups"]
+    assert chain.body(532, 500, [[500, 532]]) == chain.body(
+        532, 500, ((500, 532),))
+
+
+_RULE_CASES = {
+    "flagship joint": _rule_flagship,
+    "bimodal joint": _rule_bimodal,
+    "either side of the budget": _rule_budget_edge,
+    "a group across a slice boundary": _rule_group_straddles,
+    "eight groups": _rule_eight_groups,
+    "overlapping groups": _rule_overlapping_groups,
+    "no batch": _rule_takes_no_batch,
+}
+
+
+@pytest.mark.parametrize("case", list(_RULE_CASES))
+def test_chain_body_rule(case):
+    """``chain.body``: the cluster body where W's slices and the state of
+    16 rows a cluster fit a block's shared memory with every softmax group
+    inside one block's columns, the grid body elsewhere; a pure function
+    of (V, H, groups)."""
+    _RULE_CASES[case]()
+
+
+def test_chain_body_counter_in_the_launch_accounting():
+    """The chain's launches by body are part of the graphs' launch
+    accounting, as the half-step's are."""
+    from multimodal_idbn_tpu_torch.ops import graphs
+    assert chain.KERNEL.launches_by_body.keys() == {"cluster", "grid"}
+    held = dict(chain.KERNEL.launches_by_body)
+    before = graphs.launch_counts()
+    assert {("chain.cu", "body:cluster"),
+            ("chain.cu", "body:grid")} <= set(before)
+    chain.KERNEL.launches_by_body["cluster"] += 2
+    delta = graphs.launches_since(before)
+    assert delta == {("chain.cu", "body:cluster"): 2}
+    graphs.add_launches(delta, -1)
+    assert chain.KERNEL.launches_by_body == held
 
 
 def test_annealed_schedule_is_cached_per_device():

@@ -379,15 +379,30 @@ def _chain_case(dev, B, V, H, groups, n_steps, seed):
     return (w, hb, vb, v0, vk, km, sched), dict(groups=groups, mu=mu)
 
 
+def _forced(args, kw, extra, body_name):
+    """One launch of the chain kernel on the given body."""
+    w, hb, vb, v0, vk, km, sched = args
+    return chain._launch(w, hb, vb, v0, vk, km, sched, kw["groups"],
+                         kw["mu"], extra.get("seed"),
+                         extra.get("final_unclamped", False),
+                         body_name=body_name)
+
+
+@pytest.mark.parametrize("body", chain.BODIES)
 @pytest.mark.parametrize("B,V,H,groups", [
     (37, 200, 90, ((56, 72), (120, 200))),       # groups across tile edges
     (9, 300, 70, tuple((30 * i, 30 * i + 17) for i in range(8))),  # 8 groups
     (1, 77, 33, ((3, 9),)), (129, 77, 130, ((60, 70),)),
     (128, 532, 500, ((500, 532),))])
-def test_chain_tiles_and_groups(dev, B, V, H, groups):
+def test_chain_tiles_and_groups(dev, B, V, H, groups, body):
+    """Both bodies, forced, at ragged shapes: the cluster body's slices
+    (groups moved inside one block's columns, blocks with no columns,
+    a 129-row batch over clusters of 16 rows) and the grid body's tiles."""
     args, kw = _chain_case(dev, B, V, H, groups, 6, B + V)
     for extra in (dict(seed=3), dict(seed=None, final_unclamped=True)):
-        out_k = chain.clamped_chain(*args, **kw, **extra)
+        before = chain.KERNEL.launches_by_body[body]
+        out_k = _forced(args, kw, extra, body)
+        assert chain.KERNEL.launches_by_body[body] == before + 1
         out_p = chain.chain_plain(*args, **kw, **extra)
         torch.cuda.synchronize()
         assert float((out_k - out_p).abs().max()) <= TOL
@@ -408,42 +423,126 @@ def test_chain_zero_steps(dev, final):
     (128, 2500, 1500, ()), (37, 131, 77, ((60, 70), (100, 131)))])
 def test_chain_is_deterministic_and_launches_cooperatively(dev, B, V, H,
                                                            groups):
-    """The cooperative launch is taken at the bimodal joint (every block of
-    the planned grid resident), and two launches give the same bits."""
+    """The grid body: the cooperative launch is taken at the bimodal joint
+    (by the body rule; every block of the planned grid resident) and at a
+    ragged shape with two groups (forced), and two launches give the same
+    bits."""
     args, kw = _chain_case(dev, B, V, H, groups, 8, V)
-    plan = chain.plan(B, V, H, 8, False)
+    forced = None if chain.body(V, H, groups) == "grid" else "grid"
+    assert forced is None or (V, H) != (2500, 1500)
+    plan = chain.plan(B, V, H, 8, False, groups=groups, body_name=forced)
+    assert plan["body"] == "grid" and plan["cluster"] == 0
     assert plan["grid"] >= 1 and plan["barriers"] == 1 + 4 * 8
     before = chain.KERNEL.launches
-    first = chain.clamped_chain(*args, **kw, seed=4)
-    second = chain.clamped_chain(*args, **kw, seed=4)
+    grid_before = chain.KERNEL.launches_by_body["grid"]
+    first = _forced(args, kw, dict(seed=4), forced)
+    second = _forced(args, kw, dict(seed=4), forced)
     torch.cuda.synchronize()
     assert chain.KERNEL.launches == before + 2
+    assert chain.KERNEL.launches_by_body["grid"] == grid_before + 2
     assert torch.equal(first, second)
     assert float((first - chain.chain_plain(*args, **kw, seed=4)).abs().max()
                  ) <= TOL
 
 
-@pytest.mark.parametrize("B", [1, 3, 96, 200])
-@pytest.mark.parametrize("family", ["noisy + mu", "mean-field + final pass"])
-def test_chain_at_request_sized_batches(dev, B, family):
-    """The flagship joint (532x500, the 32-wide label group) at the batch
-    sizes a serving request brings, 200 rows being more than one 128-row
-    tile: 50 steps as ``txt2img`` and ``img2txt`` run them."""
-    args, kw = _chain_case(dev, B, 532, 500, ((500, 532),), 50, B)
+def _request_case(dev, B, family, steps=50):
+    args, kw = _chain_case(dev, B, 532, 500, ((500, 532),), steps, B)
     if family == "noisy + mu":
         extra = dict(seed=B + 1)
     else:
-        args = args[:6] + (torch.tensor([[1.0, 0.0, 0.0]]).repeat(50, 1),)
+        args = args[:6] + (torch.tensor([[1.0, 0.0, 0.0]]).repeat(steps, 1),)
         kw = dict(kw, mu=None)
         extra = dict(seed=None, final_unclamped=True)
+    return args, kw, extra
+
+
+@pytest.mark.parametrize("B", [1, 3, 26, 96, 128, 200])
+@pytest.mark.parametrize("family", ["noisy + mu", "mean-field + final pass"])
+def test_chain_at_request_sized_batches(dev, B, family):
+    """The flagship joint (532x500, the 32-wide label group) at the batch
+    sizes a serving request and a training epoch bring, 200 rows being more
+    than the clusters the card holds at once: 50 steps as ``txt2img`` and
+    ``img2txt`` run them, on the cluster body by the body rule, one launch
+    each, counted as the cluster body's."""
+    args, kw, extra = _request_case(dev, B, family)
+    assert chain.body(532, 500, kw["groups"]) == "cluster"
+    plan = chain.plan(B, 532, 500, 50, family != "noisy + mu",
+                      groups=kw["groups"])
+    assert (plan["body"], plan["cluster"], plan["barriers"]) == (
+        "cluster", chain.CLUSTER_BLOCKS, 0)
+    hw, bounds = chain.cluster_layout(532, 500, kw["groups"])
+    tiles = -(-plan["tile_rows"] // 8)
+    assert plan["smem_bytes"] == chain.cluster_smem_bytes(532, hw, bounds,
+                                                          tiles)
+    assert 1 <= plan["tile_rows"] <= 24
+    assert plan["grid"] == chain.CLUSTER_BLOCKS * -(-B // plan["tile_rows"])
     before = chain.KERNEL.launches
+    bodies = dict(chain.KERNEL.launches_by_body)
     out_k = chain.clamped_chain(*args, **kw, **extra)
     assert chain.KERNEL.launches == before + 1
+    assert chain.KERNEL.launches_by_body == dict(
+        bodies, cluster=bodies["cluster"] + 1)
     out_p = chain.chain_plain(*args, **kw, **extra)
     torch.cuda.synchronize()
     assert tuple(out_k.shape) == (B, 532)
     assert float((out_k - out_p).abs().max()) <= TOL
     assert torch.equal(out_k, chain.clamped_chain(*args, **kw, **extra))
+
+
+@pytest.mark.parametrize("family", ["noisy + mu", "mean-field + final pass"])
+def test_chain_cluster_skips_clamped_slices(dev, family):
+    """Where a cluster's rows clamp every coordinate of a slice (as the
+    IMG→TXT chain clamps the 500 latents), the cluster body computes and
+    moves only the slices with a free coordinate from the second step on.
+    The output matches the plain version, the clamped coordinates come
+    back as their clamp values, and the rows are bit-equal to the same
+    rows of a launch in which one more row of their cluster leaves every
+    coordinate free, so that no slice is skipped there."""
+    args, kw, extra = _request_case(dev, 128, family)
+    w, hb, vb, v0, vk, km, sched = args
+    km = torch.zeros_like(km)
+    km[:, :500] = 1.0
+    args = (w, hb, vb, v0, vk, km, sched)
+    out_k = chain.clamped_chain(*args, **kw, **extra)
+    out_p = chain.chain_plain(*args, **kw, **extra)
+    km_free = km.clone()
+    km_free[0] = 0.0
+    out_free = chain.clamped_chain(*args[:5], km_free, sched, **kw, **extra)
+    torch.cuda.synchronize()
+    assert float((out_k - out_p).abs().max()) <= TOL
+    if family == "noisy + mu":
+        assert torch.equal(out_k[:, :500], vk[:, :500])
+    rows = chain.plan(128, 532, 500, 50, family != "noisy + mu",
+                      groups=kw["groups"])["tile_rows"]
+    assert rows > 1
+    assert torch.equal(out_free[1:rows], out_k[1:rows])
+
+
+@pytest.mark.parametrize("family", ["noisy + mu", "mean-field + final pass"])
+def test_chain_cluster_rows_are_the_whole_batch_rows(dev, family):
+    """On the cluster body each row's sums are fixed by the shape alone:
+    a B = 26 launch, and a rank's launch of rows 40..65 at ``row0`` 40 of
+    a ``plan_rows`` 128 batch, are bit-equal to the same rows of the
+    B = 128 launch, though their rows fall to other clusters."""
+    args, kw, extra = _request_case(dev, 128, family)
+    whole = chain.clamped_chain(*args, **kw, **extra)
+
+    def rows(a, b):
+        part = tuple(x[a:b] for x in args[3:6])
+        pkw = dict(kw, mu=None if kw["mu"] is None else kw["mu"][a:b])
+        return args[:3] + part + args[6:], pkw
+
+    head_args, head_kw = rows(0, 26)
+    head = chain.clamped_chain(*head_args, **head_kw, **extra)
+    rank_args, rank_kw = rows(40, 66)
+    rank = chain.clamped_chain(*rank_args, **rank_kw, **extra, row0=40,
+                               plan_rows=128)
+    torch.cuda.synchronize()
+    assert torch.equal(head, whole[:26])
+    assert torch.equal(rank, whole[40:66])
+    if family == "noisy + mu":    # the rank's own noise rows matter
+        other = chain.clamped_chain(*rank_args, **rank_kw, **extra)
+        assert not torch.equal(other, rank)
 
 
 @pytest.mark.parametrize("B,V,H", [(37, 1501, 499), (1, 1, 1),
