@@ -24,6 +24,7 @@ No JAX counterpart: the TPU kernels' block sizes were fixed by VMEM.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -111,6 +112,15 @@ def candidate_tilings(B: int, K: int, N: int):
             yield body, rows, -(-k_tiles // per), per * k_tile
 
 
+def half_step_launch(x, w, b, transpose: bool, tiling=None):
+    """(probs, sample) of ``half_step_sample(x, w, b, 7, transpose_w=
+    transpose)`` under ``tiling`` (None: ``half_step.plan``'s), through
+    the launch the public wrapper takes."""
+    return half_step._sampled_launch(
+        "half_step_sample", x, w, b, 7, 1.0, transpose, 0, 0, None,
+        head=(int(transpose),), tiling=tiling)
+
+
 def bench_half_step(dev, quick: bool) -> None:
     g = torch.Generator().manual_seed(0)
     for name, (B, K, N, transpose, density) in HALF_STEP_SHAPES.items():
@@ -119,12 +129,7 @@ def bench_half_step(dev, quick: bool) -> None:
         b = (0.1 * torch.randn((N,), generator=g)).to(dev)
         x = (torch.rand((B, K), generator=g) < density).float().to(dev)
         p_p, _ = half_step.half_step_plain(x, w, b, 7, transpose_w=transpose)
-
-        def run(tiling=None):
-            return half_step._launch(
-                "half_step_sample", x, w, b, 2, B, K, N, (int(transpose),),
-                (1.0, _cuda.ptr(None), 0, 7, 0, 0), tiling=tiling)
-
+        run = functools.partial(half_step_launch, x, w, b, transpose)
         wm = w.T if transpose else w
         lib_ms = graph_ms(lambda: torch.sigmoid(torch.addmm(b, x, wm)))
         chosen = half_step.plan(B, K, N)

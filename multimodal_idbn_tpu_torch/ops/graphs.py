@@ -26,18 +26,20 @@ copies it and the schedule values to the device, outside the body. Then:
   functions ``ops.*_epoch_block`` called as they are), the body runs with
   a key table by value: each key's value is computed on the host as the
   body draws it;
-- graphed, at the first epoch the body runs once on a side stream with a
-  key table by value, to warm up (libraries loaded, the chain kernel's
-  grid size asked, cuBLAS's workspace made) and to record the paths of
-  its keys; its results are dropped. It is then captured under
-  ``torch.cuda.graph`` into static buffers, with a key table read from a
-  static int64 buffer, and replayed at every epoch, this one included,
-  after the host filled the key buffer (``rng.key_values``: the values
-  ``fold_in`` gives for the epoch), the permutation and the schedule
-  values. The captured body ends by copying the new state into the state
-  buffers, so the state stays in them from replay to replay; the outputs
-  are cloned after each replay. A capture that fails raises: nothing falls
-  back to launch by launch.
+- graphed, the body is captured at the first epoch by the capture core
+  (``_Graph``) and replayed at every epoch, this one included. The core
+  runs the body once on a side stream with a key table by value, to warm
+  up (libraries loaded, the chain kernel's grid size asked, cuBLAS's
+  workspace made) and to record the paths of its keys; its results are
+  dropped. It then captures it under ``torch.cuda.graph`` on static
+  buffers, with a key table read from a static int64 buffer that nothing
+  fills at capture. Before each replay the host fills the key buffer
+  (``_Graph.key_values``: the values ``fold_in`` gives for the epoch, the
+  one place the host computes a key table), the permutation and the
+  schedule values. The captured body ends by copying the new state into
+  the state buffers, so the state stays in them from replay to replay;
+  the outputs are cloned after each replay. A capture that fails raises:
+  nothing falls back to launch by launch.
 
 Serving calls. The JAX package jits each serving call as one dispatch
 (ops/imdbn_ops.py:462-507, ops/bimodal_ops.py:319-361,
@@ -46,9 +48,9 @@ one cache per model, which captures a call at its first use at a given
 signature (the function, the structure, shapes, dtypes and devices of its
 tensor arguments, and its other arguments, among them the ones JAX names
 in ``static_argnames``) and replays it at every later call with that
-signature, as ``jax.jit`` retraces per shape. The warm-up, the capture,
-the key table (filled per call with ``rng.key_values`` of the call's key)
-and the launch accounting are the runner's above.
+signature, as ``jax.jit`` retraces per shape. Each graph is an instance
+of the runner's capture core: the same warm-up, capture, key table
+(filled per call from the call's key) and launch accounting.
 
 A graph reads static buffers, never the caller's tensors. Before each
 replay every tensor argument is held against the buffer it feeds: a
@@ -228,6 +230,99 @@ def launches_since(before: Dict[Tuple[str, str], int]
 
 
 # ---------------------------------------------------------------------------
+# The capture core
+# ---------------------------------------------------------------------------
+
+def _write_state(name: str, bufs: List[torch.Tensor], spec, state) -> None:
+    """Copy the leaves of ``state``, which must have the structure
+    ``spec``, into ``bufs`` (a leaf that is its buffer already stays)."""
+    leaves, got = flatten(state)
+    if got != spec:
+        raise RuntimeError(f"{name}: a state of another structure")
+    for buf, t in zip(bufs, leaves):
+        if t is not buf:
+            buf.copy_(t, non_blocking=True)
+
+
+def _moved(bufs: List[torch.Tensor]) -> None:
+    """Move the version counters of buffers a replay wrote behind torch's
+    back, as an in-place update would, so that a serving graph holding a
+    copy of one refreshes it."""
+    for buf in bufs:
+        increment_version(buf)
+
+
+class _Graph:
+    """One call on static buffers, captured once and replayed: the
+    warm-up, the capture, the key table and the launch accounting of
+    every epoch and serving graph (module docstring)."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.device = device
+        self.graph = None
+
+    def capture(self, run: Callable, root, **record) -> None:
+        """Capture ``run(table, write)``: the call on the static buffers
+        with the key table ``table`` (None for a call without a key),
+        which writes its new state into its buffers if ``write`` and
+        returns its outputs (kept as ``outs``). ``root``: the warm-up's
+        key (None: no key); ``record``: fields of the capture's
+        ``STATS`` record beside its name, time, memory and launches."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = launch_counts()
+        warm = None if root is None else rng.KeyTable(root=root)
+        with torch.cuda.stream(side):
+            run(warm, False)           # the warm-up; its results dropped
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm_launches = launches_since(before)
+        add_launches(warm_launches, -1)
+        STATS["warmup_launches"].update(
+            {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
+        self.paths = [] if warm is None else warm.paths
+        # filled before every replay and read by index on the device only
+        # then; zeros, not garbage, for a capture stand-in on the CPU that
+        # runs the body
+        self.keys = torch.zeros(len(self.paths), dtype=torch.int64,
+                                device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()      # what stays reserved is the graph's
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        table = None if root is None else rng.KeyTable(self.keys, self.paths)
+        with torch.cuda.graph(graph, stream=side):
+            self.outs = run(table, True)
+        self.launches_per_replay = launches_since(before)
+        add_launches(self.launches_per_replay, -1)
+        self.graph = graph
+        STATS["captures"].append(dict(
+            name=self.name, seconds=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved, **record,
+            launches={f"{s}:{e}": n for (s, e), n
+                      in self.launches_per_replay.items()}))
+
+    def key_values(self, root) -> torch.Tensor:
+        """The key table's values for the key ``root``, on the host: the
+        one place where they are computed."""
+        return torch.tensor(rng.key_values(root, self.paths),
+                            dtype=torch.int64)
+
+    def replay(self, values: Optional[torch.Tensor]) -> None:
+        """Copy the key table's ``values`` in (None: the call draws no
+        key) and replay."""
+        if values is not None:
+            self.keys.copy_(values, non_blocking=True)
+            STATS["keys"][self.name] += len(self.paths)
+        self.graph.replay()
+        add_launches(self.launches_per_replay)
+        STATS["replays"][self.name] += 1
+
+
+# ---------------------------------------------------------------------------
 # The runner
 # ---------------------------------------------------------------------------
 
@@ -248,8 +343,16 @@ class EpochRunner:
             raise ValueError("a CUDA graph needs a CUDA device")
         self.graphed = bool(graphed)
         self.replays = 0
-        self._graph = None
+        self._core = _Graph(name, self.device)
         self._ahead = None      # (next key, its permutation, key table)
+
+    # the core's graph, key paths, key buffer and launches, under the
+    # runner's names
+    _graph = property(lambda self: self._core.graph)
+    _paths = property(lambda self: self._core.paths)
+    _keys = property(lambda self: self._core.keys)
+    launches_per_replay = property(
+        lambda self: self._core.launches_per_replay)
 
     # -- one epoch -----------------------------------------------------------
 
@@ -273,36 +376,18 @@ class EpochRunner:
 
     # -- the graph -----------------------------------------------------------
 
-    def _run_static(self, table: rng.KeyTable):
+    def _run_static(self, table: rng.KeyTable, write: bool):
         """The body on the static buffers with the key table ``table``;
-        the new state copied into the state buffers. Returns the
-        outputs."""
+        the new state copied into the state buffers if ``write``. Returns
+        the outputs."""
         state = unflatten(self._spec, self._bufs)
         with rng.key_table(table):
             new, outs = self.body(self.consts, state, self._perm,
                                   self._hyper[0], self._hyper[1],
                                   **self.statics)
-        new_leaves, spec = flatten(new)
-        if spec != self._spec:
-            raise RuntimeError(f"{self.name}: the body returned a state of "
-                               f"another structure")
-        for buf, t in zip(self._bufs, new_leaves):
-            if t is not buf:
-                buf.copy_(t)
+        if write:
+            _write_state(self.name, self._bufs, self._spec, new)
         return outs
-
-    def _fill(self, state, perm, hyper) -> None:
-        """Copy the state (unless it is the buffers already), and the
-        epoch's permutation and schedule values into the static
-        buffers."""
-        leaves, spec = flatten(state)
-        if spec != self._spec:
-            raise ValueError(f"{self.name}: a state of another structure")
-        for buf, t in zip(self._bufs, leaves):
-            if t is not buf:
-                buf.copy_(t)
-        self._perm.copy_(perm, non_blocking=True)
-        self._hyper.copy_(hyper, non_blocking=True)
 
     def _permutation(self, key: int) -> torch.Tensor:
         """The permutation of the epoch whose key is ``key``, on the
@@ -314,59 +399,7 @@ class EpochRunner:
         """The key table of the epoch whose key is ``key``, on the
         host."""
         with span("runner.keys"):
-            return torch.tensor(rng.key_values(key, self._paths),
-                                dtype=torch.int64)
-
-    def _load(self, state, key: int, perm, hyper, values=None) -> None:
-        """The epoch's keys (``values``, or computed now), then its state,
-        permutation and schedule values, into the static buffers."""
-        if values is None:
-            values = self._key_values(key)
-        self._keys.copy_(values, non_blocking=True)
-        STATS["keys"][self.name] += len(self._paths)
-        with span("runner.load"):
-            self._fill(state, perm, hyper)
-
-    def _capture(self, state, key: int, perm, hyper) -> None:
-        """The warm-up on a side stream, then the capture; the buffers are
-        loaded for the first replay afterwards (``_load``)."""
-        dev = self.device
-        leaves, self._spec = flatten(state)
-        self._bufs = [t.clone() for t in leaves]
-        self._perm = torch.empty(self.n_rows, dtype=torch.int64, device=dev)
-        self._hyper = torch.empty(2, dtype=torch.float64, device=dev)
-        self._fill(state, perm, hyper)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = launch_counts()
-        warm = rng.KeyTable(root=key)
-        with torch.cuda.stream(side):
-            self._run_static(warm)            # the warm-up
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm_launches = launches_since(before)
-        add_launches(warm_launches, -1)
-        STATS["warmup_launches"].update(
-            {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
-        self._paths = warm.paths
-        self._keys = torch.tensor(rng.key_values(key, self._paths),
-                                  dtype=torch.int64).to(dev)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()      # what stays reserved is the graph's
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph, stream=side):
-            self._outs = self._run_static(
-                rng.KeyTable(self._keys, self._paths))
-        self.launches_per_replay = launches_since(before)
-        add_launches(self.launches_per_replay, -1)
-        self._graph = graph
-        STATS["captures"].append(dict(
-            name=self.name, seconds=time.perf_counter() - t0,
-            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
-            launches={f"{s}:{e}": n for (s, e), n
-                      in self.launches_per_replay.items()}))
+            return self._core.key_values(key)
 
     def _replay(self, state, key: int, hyper, next_key: Optional[int]):
         ahead, self._ahead = self._ahead, None
@@ -376,20 +409,27 @@ class EpochRunner:
             perm, values = self._permutation(key), None
         if self._graph is None:
             with span("runner.capture"):
-                self._capture(state, key, perm, hyper)
-        self._load(state, key, perm, hyper, values)
+                # the static buffers, holding this epoch's inputs, then the
+                # core's warm-up and capture
+                leaves, self._spec = flatten(state)
+                self._bufs = [t.clone() for t in leaves]
+                self._perm, self._hyper = (t.to(self.device, copy=True)
+                                           for t in (perm, hyper))
+                self._core.capture(self._run_static, key)
+        if values is None:
+            values = self._key_values(key)
+        with span("runner.load"):
+            # the state (unless it is the buffers already), permutation and
+            # schedule values into the static buffers
+            _write_state(self.name, self._bufs, self._spec, state)
+            self._perm.copy_(perm, non_blocking=True)
+            self._hyper.copy_(hyper, non_blocking=True)
         with span("runner.replay"):
-            self._graph.replay()
-            # the replay wrote the state buffers behind torch's back: move
-            # their version counters, as an in-place update would, so that
-            # a serving graph holding a copy of them refreshes it
-            for buf in self._bufs:
-                increment_version(buf)
-            add_launches(self.launches_per_replay)
+            self._core.replay(values)
+            _moved(self._bufs)
             self.replays += 1
-            STATS["replays"][self.name] += 1
             out = (unflatten(self._spec, self._bufs),
-                   map_tree(torch.clone, self._outs))
+                   map_tree(torch.clone, self._core.outs))
         if next_key is not None:
             # the next epoch's host inputs, while the device runs this one
             self._ahead = (next_key, self._permutation(next_key),
@@ -436,12 +476,11 @@ class _Buffers:
         return len(self.bufs) - 1
 
     def written(self, i: int) -> torch.Tensor:
-        """Buffer ``i`` after a replay wrote it: its version moved, as an
-        in-place update moves it, and it is recorded as its own source,
-        so that it is not copied into itself when it feeds the next
-        call."""
+        """Buffer ``i`` after a replay wrote it: its version moved
+        (``_moved``), and it is recorded as its own source, so that it is
+        not copied into itself when it feeds the next call."""
         buf = self.bufs[i]
-        increment_version(buf)
+        _moved([buf])
         self.src[i] = (weakref.ref(buf), _version(buf))
         return buf
 
@@ -458,13 +497,15 @@ class _Buffers:
                 self.src[i] = (weakref.ref(t), _version(t))
 
 
-class _CallGraph:
-    """One call at one signature: its buffer slots (the state's first,
-    for an update), key table, graph and outputs."""
+class _CallGraph(_Graph):
+    """One call at one signature: the core's graph, with the call's
+    buffer slots (the state's first, for an update), the structure of its
+    arguments and the number of its keys."""
 
-    def __init__(self, name: str, slots: List[int], spec, n_keys,
-                 n_state: Optional[int] = None, state_spec=None):
-        self.name = name
+    def __init__(self, name: str, device: torch.device, slots: List[int],
+                 spec, n_keys, n_state: Optional[int] = None,
+                 state_spec=None):
+        super().__init__(name, device)
         self.slots = slots
         self.spec = spec
         self.n_keys = n_keys
@@ -472,21 +513,11 @@ class _CallGraph:
         self.state_spec = state_spec
 
 
-def _statics(kwargs: dict) -> dict:
-    """The keyword arguments of a call that hold no tensor: what fixes
-    its graph beside the shapes (steps, flags), kept with the graph."""
-    return {k: v for k, v in kwargs.items() if not flatten(v)[0]}
-
-
 def _n_keys(key) -> Optional[int]:
     """None (no key), 0 (one key) or the number of a tuple's roots."""
     if key is None:
         return None
     return len(key) if isinstance(key, (tuple, list)) else 0
-
-
-def _body_key(n_keys: int):
-    return rng.Key() if n_keys == 0 else rng.root_keys(n_keys)
 
 
 class ServingGraphs:
@@ -505,80 +536,49 @@ class ServingGraphs:
         self.buffers = _Buffers()
 
     def _run(self, g: _CallGraph, fn, table: Optional[rng.KeyTable],
-             write_state: bool = False):
-        tree = unflatten(g.spec, [self.buffers.bufs[i] for i in g.slots])
-        if g.n_state is None:
-            args, kwargs = tree
-        else:
-            state, args, kwargs = tree
-            args = (state, *args)
+             write: bool):
+        """``fn`` on the buffers of ``g`` with the key table ``table``; an
+        update's new state written into its buffers if ``write``. Returns
+        the outputs."""
+        args, kwargs = unflatten(g.spec,
+                                 [self.buffers.bufs[i] for i in g.slots])
         if table is None:
             out = fn(*args, **kwargs)
         else:
             with rng.key_table(table):
-                out = fn(*args, key=_body_key(g.n_keys), **kwargs)
+                out = fn(*args, key=rng.Key() if g.n_keys == 0
+                         else rng.root_keys(g.n_keys), **kwargs)
         if g.n_state is None:
             return out
         new, outs = out
-        if write_state:
-            leaves, spec = flatten(new)
-            if spec != g.state_spec:
-                raise RuntimeError(f"{g.name}: the call returned a state "
-                                   f"of another structure")
-            for i, t in zip(g.slots[:g.n_state], leaves):
-                buf = self.buffers.bufs[i]
-                if t is not buf:
-                    buf.copy_(t)
+        if write:
+            _write_state(g.name, [self.buffers.bufs[i]
+                                  for i in g.slots[:g.n_state]],
+                         g.state_spec, new)
         return outs
 
-    def _capture(self, name: str, fn, key, leaves, spec,
-                 n_state: Optional[int] = None, state_spec=None
+    def _capture(self, fn, key, leaves, spec, kwargs, state=None
                  ) -> _CallGraph:
-        dev = self.device
-        taken: set = set()
-        slots = []
+        """The graph of a call whose tensors are ``leaves``; ``state``:
+        the (leaves, structure) of an update's state, None for a pure
+        call."""
+        n_state, state_spec = (None, None) if state is None else (
+            len(state[0]), state[1])
+        slots: List[int] = []
         for j, t in enumerate(leaves):
             # every state leaf gets a buffer of its own: the graph writes
-            # each one
-            i = self.buffers.slot(t, taken if n_state and j < n_state
-                                  else ())
-            if n_state and j < n_state:
-                taken.add(i)
-            slots.append(i)
-        g = _CallGraph(name, slots, spec, _n_keys(key), n_state, state_spec)
+            # each one (the state's leaves come first)
+            slots.append(self.buffers.slot(
+                t, slots if j < (n_state or 0) else ()))
+        g = _CallGraph(f"{'serve' if state is None else 'step'}:"
+                       f"{fn.__name__}", self.device, slots, spec,
+                       _n_keys(key), n_state, state_spec)
+        # the keyword arguments that hold no tensor: what fixes the graph
+        # beside the shapes (steps, flags)
+        g.statics = {k: v for k, v in kwargs.items() if not flatten(v)[0]}
         self.buffers.load(g.slots, leaves)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = launch_counts()
-        warm = None if key is None else rng.KeyTable(root=key)
-        with torch.cuda.stream(side):
-            self._run(g, fn, warm)       # the warm-up; the state unwritten
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm_launches = launches_since(before)
-        add_launches(warm_launches, -1)
-        STATS["warmup_launches"].update(
-            {f"{s}:{e}": n for (s, e), n in warm_launches.items()})
-        g.paths = [] if warm is None else warm.paths
-        g.keys = torch.tensor(rng.key_values(key, g.paths) if g.paths
-                              else [], dtype=torch.int64).to(dev)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()      # what stays reserved is the graph's
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        table = None if key is None else rng.KeyTable(g.keys, g.paths)
-        with torch.cuda.graph(graph, stream=side):
-            g.outs = self._run(g, fn, table, write_state=True)
-        g.launches_per_replay = launches_since(before)
-        add_launches(g.launches_per_replay, -1)
-        g.graph = graph
-        STATS["captures"].append(dict(
-            name=name, seconds=time.perf_counter() - t0,
-            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
-            shapes=[tuple(t.shape) for t in leaves],
-            launches={f"{s}:{e}": n for (s, e), n
-                      in g.launches_per_replay.items()}))
+        g.capture(lambda table, write: self._run(g, fn, table, write), key,
+                  shapes=[tuple(t.shape) for t in leaves])
         return g
 
     def _replay(self, g: _CallGraph, key) -> None:
@@ -587,15 +587,11 @@ class ServingGraphs:
         if _n_keys(key) != g.n_keys:
             raise ValueError(f"{g.name}: called with keys {key!r}, captured "
                              f"with {g.n_keys} (None: no key, 0: one)")
+        values = None
         if g.paths:
             with span("serve.keys"):
-                g.keys.copy_(torch.tensor(rng.key_values(key, g.paths),
-                                          dtype=torch.int64),
-                             non_blocking=True)
-            STATS["keys"][g.name] += len(g.paths)
-        g.graph.replay()
-        add_launches(g.launches_per_replay)
-        STATS["replays"][g.name] += 1
+                values = g.key_values(key)
+        g.replay(values)
 
     @staticmethod
     def signature(fn, args, kwargs, state=None, update: bool = False
@@ -607,19 +603,27 @@ class ServingGraphs:
         sig = _signature(fn, *flatten(tree))
         return ("update",) + sig if update else sig
 
-    def call(self, fn, key, *args, **kwargs):
-        """``fn(*args, key=key, **kwargs)``, replayed."""
+    def _lookup(self, fn, key, args, kwargs, state=None, update=False
+                ) -> _CallGraph:
+        """The graph of a call's signature with the call's tensors loaded
+        into its buffers, captured if the signature is new."""
         with span("serve.load"):
-            leaves, spec = flatten((args, kwargs))
-            sig = self.signature(fn, args, kwargs)
+            leaves, spec = flatten(((state, *args), kwargs) if update
+                                   else (args, kwargs))
+            sig = self.signature(fn, args, kwargs, state, update)
             g = self.graphs.get(sig)
             if g is not None:
                 self.buffers.load(g.slots, leaves)
         if g is None:
             with span("serve.capture"):
                 g = self.graphs[sig] = self._capture(
-                    f"serve:{fn.__name__}", fn, key, leaves, spec)
-            g.statics = _statics(kwargs)
+                    fn, key, leaves, spec, kwargs,
+                    flatten(state) if update else None)
+        return g
+
+    def call(self, fn, key, *args, **kwargs):
+        """``fn(*args, key=key, **kwargs)``, replayed."""
+        g = self._lookup(fn, key, args, kwargs)
         with span("serve.replay"):
             self._replay(g, key)
             return map_tree(torch.clone, g.outs)
@@ -631,19 +635,7 @@ class ServingGraphs:
         them as the state, their versions moved (``_Buffers.written``).
         A caller that hands them back at its next call has nothing
         copied; one that hands other tensors has them copied in."""
-        with span("serve.load"):
-            state_leaves, state_spec = flatten(state)
-            leaves, spec = flatten((state, args, kwargs))
-            sig = self.signature(fn, args, kwargs, state, update=True)
-            g = self.graphs.get(sig)
-            if g is not None:
-                self.buffers.load(g.slots, leaves)
-        if g is None:
-            with span("serve.capture"):
-                g = self.graphs[sig] = self._capture(
-                    f"step:{fn.__name__}", fn, key, leaves, spec,
-                    len(state_leaves), state_spec)
-            g.statics = _statics(kwargs)
+        g = self._lookup(fn, key, args, kwargs, state, update=True)
         with span("serve.replay"):
             self._replay(g, key)
             new = [self.buffers.written(i) for i in g.slots[:g.n_state]]

@@ -264,22 +264,9 @@ def half_step_sample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not x.is_cuda:
         return half_step_plain(x, w, b, seed, T, transpose_w=transpose_w,
                                row0=row0, col0=col0)
-    if rng.is_deterministic():
-        raise RuntimeError("the deterministic sampler mode is a CPU test "
-                           "hook; the CUDA kernel draws real uniforms")
-    N = _out_dim(x, w, b, transpose_w)
-    _cuda.check_cuda_operands(x, w, b)
-    B, K = x.shape
-    if plan_shape is not None and (plan_shape[0] < row0 + B
-                                   or plan_shape[1] < col0 + N):
-        raise ValueError(f"plan_shape {plan_shape} does not hold rows "
-                         f"{row0}+{B}, columns {col0}+{N}")
-    keys, index, value = rng.key_operand(seed)
-    probs, sample = _launch(
-        "half_step_sample", x, w, b, 2, B, K, N, (int(transpose_w),),
-        (1.0 / max(1e-6, T), _cuda.ptr(keys), index, value, int(row0),
-         int(col0)), plan_shape=plan_shape)
-    return probs, sample
+    return _sampled_launch("half_step_sample", x, w, b, seed, T,
+                           transpose_w, row0, col0, plan_shape,
+                           head=(int(transpose_w),))
 
 
 def half_step_sample_big_plain(v: torch.Tensor, w: torch.Tensor,
@@ -374,20 +361,29 @@ def half_step_sample_resident(v: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _sampled_launch(entry: str, x, w, b, seed, T, transpose_w: bool,
-                    row0: int, col0: int, plan_shape, operands=()):
-    """(out, sample) of an entry that draws from ``seed`` as
-    ``half_step_sample`` does."""
+                    row0: int, col0: int, plan_shape, operands=(), *,
+                    head: Tuple[int, ...] = (),
+                    tiling: Optional[Tuple[str, int, int, int]] = None):
+    """(out, sample) of an entry that draws from ``seed``: the launch of
+    ``half_step_sample``, ``half_step_gauss`` and ``half_step_scaled``.
+    ``head`` and ``tiling`` as ``_launch`` takes them (the transpose flag
+    of ``half_step_sample``; a tiling other than ``plan``'s, for
+    ``bench_kernels``)."""
     if rng.is_deterministic():
         raise RuntimeError("the deterministic sampler mode is a CPU test "
                            "hook; the CUDA kernel draws real uniforms")
     N = _out_dim(x, w, b, transpose_w)
     _cuda.check_cuda_operands(x, w, b, *operands)
     B, K = x.shape
+    if plan_shape is not None and (plan_shape[0] < row0 + B
+                                   or plan_shape[1] < col0 + N):
+        raise ValueError(f"plan_shape {plan_shape} does not hold rows "
+                         f"{row0}+{B}, columns {col0}+{N}")
     keys, index, value = rng.key_operand(seed)
-    return _launch(entry, x, w, b, 2, B, K, N, (),
+    return _launch(entry, x, w, b, 2, B, K, N, head,
                    (1.0 / max(1e-6, T), _cuda.ptr(keys), index, value,
-                    int(row0), int(col0)), plan_shape=plan_shape,
-                   operands=operands)
+                    int(row0), int(col0)), tiling=tiling,
+                   plan_shape=plan_shape, operands=operands)
 
 
 def half_step_linear_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

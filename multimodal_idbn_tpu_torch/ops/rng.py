@@ -118,9 +118,10 @@ class KeyTable:
     By value (``keys`` None, ``root`` the epoch's key): each key's value is
     computed on the host as it is drawn and passed by value, and its path
     recorded (``paths``). From a table (``keys`` an int64 tensor on the
-    body's device, filled with ``key_values(root, expected)``): each key is
-    read by index, and must be the ``expected`` path at that index, so a
-    body whose draws depended on its data would raise."""
+    body's device, filled with the values of the ``expected`` paths before
+    each replay of the graph that reads it; a capture reads none of them):
+    each key is read by index, and must be the ``expected`` path at that
+    index, so a body whose draws depended on its data would raise."""
 
     def __init__(self, keys: Optional[torch.Tensor] = None,
                  expected: Optional[Sequence[Tuple[int, ...]]] = None, *,

@@ -1,14 +1,16 @@
 """CPU tests of what surrounds the two CUDA kernels in Python: the split-K
-plan of the half-step (``half_step.plan``), the chain's body rule and
-cluster layout (``chain.body``, ``chain.cluster_layout``) and the device
-caches of the chain's schedules and softmax groups (``rbm_ops``,
-``chain``).
+plan of the half-step (``half_step.plan``), the C arguments of its
+sampled launch as the wrapper and ``bench_kernels`` pass them, the
+chain's body rule and cluster layout (``chain.body``,
+``chain.cluster_layout``) and the device caches of the chain's schedules
+and softmax groups (``rbm_ops``, ``chain``).
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py);
 here the wrappers run their plain versions, whose values must not depend
 on the caches.
 """
 
+import ctypes
 import inspect
 
 import pytest
@@ -75,6 +77,65 @@ def test_body_counter_in_the_launch_accounting():
     assert half_step.KERNEL.launches_by_body["wgmma"] == held["wgmma"] + 9
     graphs.add_launches(delta, -3)
     assert half_step.KERNEL.launches_by_body == held
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that the wrappers take for a CUDA one."""
+    is_cuda = True
+
+
+# positions in the C arguments of ``half_step_sample``: the two outputs,
+# the scratch and tickets, the body flag and tiling, and the tail (1/T,
+# key table, index, seed value, row0, col0)
+_OUTS, _WORK, _TILING, _TAIL = (slice(3, 5), slice(5, 7), slice(11, 15),
+                                slice(15, 21))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bench_half_step_launch_is_the_wrappers(monkeypatch, transpose):
+    """``bench_kernels`` times the launch that ``half_step_sample`` makes:
+    at the same shape and seed it passes the same C arguments (the
+    outputs' addresses aside), under the plan's tiling and under another
+    (the tiling and its scratch aside). The operand check, the stream and
+    the kernel call are stand-ins."""
+    from multimodal_idbn_tpu_torch import bench_kernels
+    from multimodal_idbn_tpu_torch.ops import _cuda
+    calls = []
+
+    def launch(entry, *args, body=None):
+        calls.append((entry, body, [a.value if isinstance(a, ctypes.c_void_p)
+                                    else a for a in args]))
+
+    monkeypatch.setattr(half_step.KERNEL, "launch", launch)
+    monkeypatch.setattr(half_step, "_WORKSPACES", {})
+    monkeypatch.setattr(_cuda, "check_cuda_operands", lambda *t: None)
+    monkeypatch.setattr(_cuda, "stream_handle",
+                        lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    B, K, N = 12, 40, 24
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((N, K) if transpose else (K, N), generator=g)
+    b = torch.randn((N,), generator=g)
+    x = torch.rand((B, K), generator=g).as_subclass(_OnCard)
+    chosen = half_step.plan(B, K, N)
+    other = ("mma_sync", 32, 1, 48)
+    half_step.half_step_sample(x, w, b, 7, transpose_w=transpose)
+    bench_kernels.half_step_launch(x, w, b, transpose, chosen)
+    bench_kernels.half_step_launch(x, w, b, transpose, other)
+    (entry, body, want), same, (_, other_body, diff) = calls
+    assert entry == "half_step_sample" and body == chosen[0] == "wgmma"
+    assert len(want) == 22
+    assert want[7:11] == [B, K, N, int(transpose)]
+    assert want[_TILING] == [1, *chosen[1:]]
+    assert want[_TAIL] == [1.0, None, 0, 7, 0, 0]
+    for args in (want, same[2], diff):
+        args[_OUTS] = [None, None]
+    assert same == (entry, body, want)
+    assert other_body == "mma_sync" and diff[_TILING] == [0, *other[1:]]
+    for args in (want, diff):
+        args[_WORK], args[_TILING] = [None] * 2, [None] * 4
+    assert diff == want
 
 
 def _no_group_cut(bounds, groups):

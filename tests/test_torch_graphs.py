@@ -13,7 +13,9 @@
 - (c) the draws' plain versions equal ``rng.philox_uniform`` bit for bit
   and have the distributions they should;
 - (d) the launch accounting of a graphed runner: the launches of the
-  capture, times the replays.
+  capture, times the replays; a capture computes no key table, so the
+  first epoch of a runner and the first call of a serving graph compute
+  one each.
 
 Tolerances: bit-equality where the same arithmetic runs on the same
 inputs; 1e-5 against JAX, as the other parity tests at small widths.
@@ -350,6 +352,47 @@ def test_graphed_runner_counts_capture_launches_per_replay(monkeypatch):
     with pytest.raises(ValueError, match="needs a CUDA device"):
         graphs.EpochRunner("x", body, (), {}, n_rows=4, device="cpu",
                            graphed=True)
+
+
+@pytest.mark.parametrize("kind", ["runner", "call", "update"])
+def test_first_replay_computes_one_key_table(monkeypatch, kind):
+    """The capture core fills the key buffer at each replay and never at
+    capture: the first epoch of a graphed runner, and the first call of a
+    keyed serving graph (a pure call or an update), compute the key
+    table's values on the host once, for that replay."""
+    lib, cache = graph_stand_ins(monkeypatch)
+    roots = []
+    real = rng.key_values
+
+    def counted(root, paths):
+        roots.append(root)
+        return real(root, paths)
+
+    monkeypatch.setattr(rng, "key_values", counted)
+
+    def draw(key, like):
+        lib.launches_by_entry["k"] += 1
+        return rng.uniform(rng.fold_in(key, 1), like.shape, "cpu")
+
+    graphs.reset_stats()
+    state, x = torch.zeros(2, 2), torch.ones(2, 2)
+    if kind == "runner":
+        runner = graphs.EpochRunner(
+            "fake", lambda c, s, p, lr, mom: (s + lr * draw(rng.Key(), s),
+                                              (s.sum(),)),
+            (), {}, n_rows=4, device="cpu", graphed=False)
+        runner.graphed = True
+        runner(state, 11, 0.1, 0.5)
+    elif kind == "call":
+        cache.call(lambda x, *, key: x * draw(key, x), 11, x)
+    else:
+        cache.update(lambda s, x, *, key: (s + draw(key, x), (x.sum(),)),
+                     11, state, x)
+    assert roots == [11]
+    (cap,) = graphs.STATS["captures"]
+    assert dict(graphs.STATS["keys"]) == {cap["name"]: 1}
+    assert dict(graphs.STATS["replays"]) == {cap["name"]: 1}
+    graphs.reset_stats()
 
 
 def test_trees_round_trip():

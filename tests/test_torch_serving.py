@@ -19,7 +19,8 @@ graph can run:
   tensors at once;
 - (d) the cache with the CUDA calls replaced by stand-ins: one capture per
   signature (function, shapes, static arguments), the capture's launches
-  counted once per replay, the key table filled from the call's key;
+  counted once per replay, the key table filled from the call's key, and
+  a capture record with the fields of an epoch runner's, plus the shapes;
 - (e) on the CPU the models' serving methods run launch by launch and
   equal the ops they wrap with the same keys; a graph on the CPU raises.
 
@@ -241,6 +242,37 @@ def test_one_capture_per_signature_launches_per_replay(stand_ins):
     w2 = torch.full((3, 2), 4.0)
     cache.call(body, 1, w2, torch.ones(3, 3), scale=1.0)
     assert torch.equal(cache.buffers.bufs[g.slots[0]], w2)
+
+
+@pytest.mark.parametrize("kind", ["call", "update"])
+def test_capture_records_are_the_runners_plus_shapes(stand_ins, kind):
+    """The epoch runner and the serving cache capture through one core:
+    their ``STATS["captures"]`` records have the same fields, the cache's
+    with the shapes of the call's tensors beside them."""
+    lib, cache = stand_ins
+
+    def body(consts, state, perm, lr, mom):
+        lib.launches_by_entry["k"] += 1
+        return state + lr, (state.sum(),)
+
+    runner = graphs.EpochRunner("fake", body, (), {}, n_rows=4,
+                                device="cpu", graphed=False)
+    runner.graphed = True
+    runner(torch.zeros(2, 2), rng.fold_in(1, 0), 0.1, 0.5)
+    x = torch.ones(3, 2)
+    if kind == "call":
+        cache.call(lambda x, *, key: x * 2, 5, x)
+    else:
+        cache.update(lambda s, x, *, key: (s + x, (x.sum(),)), 5,
+                     torch.zeros(3, 2), x)
+    ran, served = graphs.STATS["captures"]
+    assert list(ran) == ["name", "seconds", "pool_bytes", "launches"]
+    assert list(served) == ["name", "seconds", "pool_bytes", "shapes",
+                            "launches"]
+    assert ran["name"] == "fake" and ran["launches"] == {"fake.cu:k": 1}
+    assert served["shapes"] == [(3, 2)] * (1 if kind == "call" else 2)
+    assert served["name"] == {"call": "serve:<lambda>",
+                              "update": "step:<lambda>"}[kind]
 
 
 # (e) ----------------------------------------------------------------------
